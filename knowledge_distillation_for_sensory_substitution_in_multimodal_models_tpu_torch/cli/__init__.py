@@ -1,0 +1,4 @@
+"""CLI entry points with the JAX package's flags.
+
+``inference`` <-> the JAX package's ``cli/inference.py``.
+"""

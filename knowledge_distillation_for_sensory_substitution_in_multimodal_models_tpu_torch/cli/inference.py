@@ -1,0 +1,105 @@
+"""Single-sample inference demo (port of the JAX package's ``cli/inference.py``):
+encode one depth image, generate one answer, print a one-row DataFrame.
+
+Offline smoke on the CPU:
+  python -m knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli.inference \\
+      --synthetic_data --cpu --max_new_tokens 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+from . import common
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--row", type=int, default=0, help="dataset row to run")
+    p.add_argument("--gts_type", type=str, default="val")
+    p.add_argument("--student_ckpt_path", type=str, default=None,
+                   help="not ported yet (waits for the checkpoint port)")
+    p.add_argument("--pixel_data_type", type=str, default="depth", choices=["depth", "rgb"])
+    p.add_argument("--max_new_tokens", type=int, default=32)
+    p.add_argument("--root_data_dir", type=str, default=None)
+    p.add_argument("--quant", type=str, default="none", choices=["none", "int8", "int8_full"],
+                   help="only 'none' is ported; int8 serving waits for the int8 port")
+    common.add_device_flags(p)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.quant != "none":
+        raise SystemExit(
+            f"--quant {args.quant} is not ported yet: the w8a8 int8 projections wait "
+            "for ROADMAP.md queue 1 item 5 (the teacher's int8 quantization) and "
+            "queue 2 K12 (int8_matmul_pallas)"
+        )
+    if args.student_ckpt_path:
+        raise SystemExit(
+            "--student_ckpt_path is not ported yet: it waits for the checkpoint port "
+            "(ROADMAP.md queue 1 item 9); use --student_weights for an HF snapshot"
+        )
+    common.load_env()
+    device = common.setup_device(args)
+
+    import pandas as pd
+    import torch
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.collate import (
+        OneVisionCollator,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.numwords import (
+        digits_to_words,
+    )
+
+    from ..data.dataset import SUNRGBDVQADataset
+    from ..eval.decode import GenerateConfig, Generator
+
+    root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
+    if args.synthetic_data:
+        root = common.ensure_synthetic_dataset(root or tempfile.mkdtemp(prefix="kdss_synth_"))
+    if not root:
+        raise SystemExit("set ROOT_DATA_DIR or pass --root_data_dir / --synthetic_data")
+
+    scfg, _ = common.model_configs(args)
+    model = common.init_or_load_params(
+        scfg, args.student_weights, args.seed,
+        attn_impl=common.resolve_attn_impl(args, device),
+        device=device, dtype=common.model_dtype(device),
+    )
+    tok = common.make_tokenizer(args, scfg)
+
+    ds = SUNRGBDVQADataset(root, f"{args.gts_type}_dataset.csv", depth_encoding="prewitt_imagenet")
+    sample = ds[args.row]
+    buckets = (256,) if common.is_tiny(args) else None
+    collator = OneVisionCollator(scfg, tok, eval_mode=True, **(dict(buckets=buckets) if buckets else {}))
+    batch = collator([sample])
+    if args.pixel_data_type == "rgb":
+        batch["student_pixel_values"] = batch["teacher_pixel_values"]
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
+          if not k.startswith("teacher_") and k != "question_id"}
+
+    gen = Generator(scfg, GenerateConfig(max_new_tokens=args.max_new_tokens,
+                                         eos_token_id=scfg.eos_token_id))
+    out = gen.generate(model, tb)
+    seqs = out["sequences"][0].cpu().tolist()
+    valid = out["valid"][0].cpu().tolist()
+    plen = int(out["prompt_lengths"][0])
+    gen_ids = [t for t, v in zip(seqs[plen:], valid[plen:]) if v]
+    if gen_ids and gen_ids[-1] == scfg.eos_token_id:
+        gen_ids = gen_ids[:-1]
+    answer = digits_to_words(tok.decode(gen_ids).strip()).lower()
+
+    print(pd.DataFrame([{
+        "Question": sample[0],
+        "Ground_Truth": sample[1],
+        "Model_Answer": answer,
+    }]).to_string(index=False))
+
+
+if __name__ == "__main__":
+    main()

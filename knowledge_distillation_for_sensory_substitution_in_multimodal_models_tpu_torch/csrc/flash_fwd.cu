@@ -1,0 +1,321 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax.
+//
+// Replaces two Pallas TPU kernel families of the JAX package
+// (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/
+// ops/flash_attention.py):
+//   * K1, `flash_attention` -> `_flash` -> `_flash_fwd_impl` (kernels
+//     `_fwd_kernel`, `_fwd_kernel_stream` + `_rowmax_kernel`,
+//     `_fwd_kernel_sbound`): non-causal MHA in every SigLIP layer;
+//   * K3, `flash_attention_gqa` -> `_flash_gqa` -> `_flash_gqa_fwd_impl`
+//     (kernels `_gqa_fwd_kernel`, `_gqa_fwd_kernel_stream` +
+//     `_gqa_rowmax_kernel`, `_gqa_fwd_kernel_sbound`, `_gqa_fwd_kernel_ilp`):
+//     causal GQA with a kv-padding mask at the Qwen2 prefill.
+// Both compute one function -- attention with an optional kv mask and
+// optional causality, at group size G = Hq / Hkv -- so they share this one
+// templated kernel.  The TPU-only variants (scalar-shift "bound" mode and its
+// NaN poison, D padded to 128 lanes, packed head pairs) are not carried over.
+//
+// Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out like q, all contiguous
+// bf16; kv_mask uint8 [B, Skv] or null.  Causality is top-left aligned:
+// query row i attends key j iff i >= j.  A row with no valid key outputs 0.
+//
+// Design (first, simple version).  One block of 4 warps per
+// (64-row q tile, q head, batch).  The q tile is staged through shared
+// memory into registers once; the block then walks 64-row K/V tiles through
+// shared memory.  Each warp owns 16 q rows: S = Q K^T and O += P V run on
+// mma.sync m16n8k16 (bf16 x bf16 -> f32), and the softmax is an exact online
+// softmax in f32 (log2 domain, scale folded into exp2).  Under causality the
+// K/V tiles wholly above the diagonal are skipped.  D = 72 is not a multiple
+// of the mma depth 16: tiles are zero-filled to 80 columns in shared memory,
+// and shared rows are padded by 8 more elements so fragment loads hit 32
+// distinct banks.  K/V are read by kv head h / G and never repeated.
+//
+// What bounds it on the H100.  The SigLIP case (S = 729, D = 72, 16 heads x
+// 10 tiles) is small per (tile, head): 12 q tiles x 12 kv tiles, 153 MFLOP,
+// 24.5 GFLOP per layer against 50 MB of q/k/v -- compute-bound on paper, but
+// each block runs only 12 short kv steps, so the q-tile prologue, the
+// epilogue and the zero-filled columns (80 computed for 72) weigh on it.  The
+// prefill (Sq = 3072, Skv = 3104, 14 q / 2 kv heads, D = 64) is ~17 GFLOP of
+// causal work per layer and is bound by tensor-core issue; this version
+// feeds the tensor cores with synchronous loads and mma.sync, so it reaches
+// a fraction of the wgmma peak.  wgmma, TMA, a multi-stage K/V ring and warp
+// specialisation are the later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;  // q rows per block (16 per warp)
+constexpr int BN = 64;  // kv rows per tile
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int D>
+struct Dims {
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static constexpr int DP = (D + 15) / 16 * 16;  // zero-filled to the mma depth
+  static constexpr int LD = DP + 8;              // shared row stride, elements
+  static constexpr int KC = DP / 16;             // k-chunks of Q K^T
+  static constexpr int NT = DP / 8;              // n-tiles of O
+  static constexpr int VEC = D / 8;              // 16-byte vectors per row in memory
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld16x2(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
+  uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
+  uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
+  return a | (b << 16);
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major); f32 accumulators.
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copy rows [s0, s0 + 64) of one head (row stride `stride` elements) into a
+// [64][LD] shared tile; rows past S and columns past D are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g, int s0,
+                                          int S, long stride) {
+  using Dm = Dims<D>;
+  constexpr int VPR = Dm::DP / 8;
+  for (int i = threadIdx.x; i < BM * VPR; i += NTHREADS) {
+    const int r = i / VPR, c = i - r * VPR;
+    const int s = s0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (s < S && c < Dm::VEC) val = *reinterpret_cast<const uint4*>(g + s * stride + c * 8);
+    *reinterpret_cast<uint4*>(smem + r * Dm::LD + c * 8) = val;
+  }
+}
+
+template <int D, bool CAUSAL, bool MASK>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                     __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int group,
+                     float scale_log2) {
+  using Dm = Dims<D>;
+  __shared__ __align__(16) __nv_bfloat16 Qs[BM * Dm::LD];
+  __shared__ __align__(16) __nv_bfloat16 Ks[BN * Dm::LD];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BN * Dm::LD];
+  __shared__ uint8_t Ms[BN];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = lane >> 2, ti = lane & 3;  // mma group id / thread in group
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / group;
+
+  const long qstride = (long)Hq * D, kstride = (long)Hkv * D;
+  const __nv_bfloat16* qb = q + ((long)b * Sq * Hq + h) * D;
+  const __nv_bfloat16* kb = k + ((long)b * Skv * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((long)b * Skv * Hkv + hk) * D;
+
+  load_tile<D>(Qs, qb, q0, Sq, qstride);
+  __syncthreads();
+
+  const int r0 = warp * 16 + gi;  // this thread's rows: r0 and r0 + 8
+  uint32_t qf[Dm::KC][4];
+#pragma unroll
+  for (int kc = 0; kc < Dm::KC; ++kc) {
+    const __nv_bfloat16* p0 = Qs + r0 * Dm::LD + kc * 16 + ti * 2;
+    const __nv_bfloat16* p1 = p0 + 8 * Dm::LD;
+    qf[kc][0] = ld32(p0);
+    qf[kc][1] = ld32(p1);
+    qf[kc][2] = ld32(p0 + 8);
+    qf[kc][3] = ld32(p1 + 8);
+  }
+
+  float o[Dm::NT][4];
+#pragma unroll
+  for (int nt = 0; nt < Dm::NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums; quad-reduced at the end
+  const int row_a = q0 + r0, row_b = row_a + 8;
+
+  int n_tiles = (Skv + BN - 1) / BN;
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<D>(Ks, kb, k0, Skv, kstride);
+    load_tile<D>(Vs, vb, k0, Skv, kstride);
+    if (MASK) {
+      for (int i = threadIdx.x; i < BN; i += NTHREADS)
+        Ms[i] = (k0 + i < Skv) ? kv_mask[(long)b * Skv + k0 + i] : 0;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x 64 keys.
+    float s[BN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < Dm::KC; ++kc) {
+        const __nv_bfloat16* kp = Ks + (nt * 8 + gi) * Dm::LD + kc * 16 + ti * 2;
+        const uint32_t bf[2] = {ld32(kp), ld32(kp + 8)};
+        mma16816(s[nt], qf[kc], bf);
+      }
+    }
+
+    // Scale into the log2 domain and mask.
+    const bool edge = (k0 + BN > Skv) || MASK || (CAUSAL && k0 + BN - 1 > q0);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (edge) {
+          const int c = nt * 8 + ti * 2 + (e & 1);
+          const int col = k0 + c;
+          bool ok = col < Skv;
+          if (MASK) ok = ok && Ms[c] != 0;
+          if (CAUSAL) ok = ok && col <= ((e < 2) ? row_a : row_b);
+          if (!ok) x = -INFINITY;
+        }
+        s[nt][e] = x;
+      }
+    }
+
+    // Online softmax: new running max per row (reduced over the quad).
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      // A row with no valid key yet keeps m = -inf; shift by 0 so that
+      // exp2(-inf - 0) = 0 and nothing turns into NaN.
+      base[i] = (mx[i] == -INFINITY) ? 0.f : mx[i];
+      alpha[i] = exp2f(m[i] - base[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - base[0]);
+      s[nt][1] = exp2f(s[nt][1] - base[0]);
+      s[nt][2] = exp2f(s[nt][2] - base[1]);
+      s[nt][3] = exp2f(s[nt][3] - base[1]);
+      l[0] += s[nt][0] + s[nt][1];
+      l[1] += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int nt = 0; nt < Dm::NT; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+    // O += P V.  The S accumulators of n-tiles 2c and 2c + 1 are exactly the
+    // A fragment of k-chunk c; V's B fragment pairs two keys per register.
+#pragma unroll
+    for (int c = 0; c < BN / 16; ++c) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * c][0], s[2 * c][1]), pack_bf16(s[2 * c][2], s[2 * c][3]),
+          pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]), pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+#pragma unroll
+      for (int nt = 0; nt < Dm::NT; ++nt) {
+        const __nv_bfloat16* vp = Vs + (c * 16 + ti * 2) * Dm::LD + nt * 8 + gi;
+        const uint32_t bf[2] = {ld16x2(vp, vp + Dm::LD), ld16x2(vp + 8 * Dm::LD, vp + 9 * Dm::LD)};
+        mma16816(o[nt], pa, bf);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    inv[i] = lt > 0.f ? 1.f / lt : 0.f;  // no valid key -> zeros
+  }
+#pragma unroll
+  for (int nt = 0; nt < Dm::NT; ++nt) {
+    const int col = nt * 8 + ti * 2;
+    if (col >= D) continue;
+    if (row_a < Sq)
+      *reinterpret_cast<uint32_t*>(out + ((long)b * Sq + row_a) * qstride + (long)h * D + col) =
+          pack_bf16(o[nt][0] * inv[0], o[nt][1] * inv[0]);
+    if (row_b < Sq)
+      *reinterpret_cast<uint32_t*>(out + ((long)b * Sq + row_b) * qstride + (long)h * D + col) =
+          pack_bf16(o[nt][2] * inv[1], o[nt][3] * inv[1]);
+  }
+}
+
+template <int D, bool CAUSAL, bool MASK>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+                   int B, int Sq, int Skv, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
+  const dim3 grid((Sq + BM - 1) / BM, Hq, B);
+  flash_fwd_kernel<D, CAUSAL, MASK><<<grid, NTHREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, Hkv, Hq / Hkv, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2,
+                     cudaStream_t st) {
+  if (causal) {
+    if (kv_mask) return launch<D, true, true>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+    return launch<D, true, false>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+  }
+  if (kv_mask) return launch<D, false, true>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+  return launch<D, false, false>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for shapes the
+// kernel does not take, else the launch's cudaGetLastError().
+int kdss_flash_fwd(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, float scale,
+                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return static_cast<int>(dispatch<64>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+    case 72:
+      return static_cast<int>(dispatch<72>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* kdss_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,235 @@
+"""Qwen2 decoder-only LM (port of the JAX package's ``models/qwen2.py``).
+
+RMSNorm pre-norm blocks, biased QKV and a bias-free output projection, GQA,
+NeoX-style RoPE, a SwiGLU MLP and an optional tied head.  An optional KV
+cache serves autoregressive decoding.
+
+Unlike the JAX package's functional cache update, the KV cache here is a
+list of preallocated per-layer ``{"k", "v"}`` tensors of shape
+[B, total, Hkv, D], written in place; the returned caches are the same
+tensors.  (QDense/QEmbed int8 projections, remat and the sequence-chunked
+MLP are not ported yet.)
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
+    Qwen2Config,
+)
+
+from ..ops.attention import dot_product_attention, gqa_decode_attention
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return self.weight * xf.to(x.dtype)
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, head_dim: int, theta: float, dtype=torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, S] -> (cos, sin) each [B, S, head_dim]."""
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+                  / head_dim)
+    )
+    freqs = positions.float()[..., None] * inv_freq[None, None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D]; cos/sin [B, S, D] (NeoX half-rotation convention)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return x * cos[:, :, None, :] + rotated * sin[:, :, None, :]
+
+
+def write_cache(cache: torch.Tensor, x: torch.Tensor, index: Union[int, torch.Tensor]) -> None:
+    """Write x [B, s, H, D] into cache [B, total, H, D] at ``index`` in place.
+
+    ``index`` is an int (uniform prefill) or a [B] tensor (per-sample decode
+    offsets under right padding).  Like ``lax.dynamic_update_slice``, an
+    index is clamped so that the slice fits.
+    """
+    s = x.shape[1]
+    hi = cache.shape[1] - s
+    x = x.to(cache.dtype)
+    if not torch.is_tensor(index) or index.ndim == 0:
+        i = min(max(int(index), 0), hi)
+        cache[:, i:i + s] = x
+        return
+    pos = index.clamp(0, hi)[:, None] + torch.arange(s, device=cache.device)[None, :]
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[rows, pos] = x
+
+
+class Qwen2Attention(nn.Module):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        fk = dict(device=device, dtype=dtype)
+        hd, b = cfg.head_dim, cfg.attention_bias
+        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_attention_heads * hd, bias=b, **fk)
+        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
+        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
+        self.o_proj = nn.Linear(cfg.num_attention_heads * hd, cfg.hidden_size, bias=False, **fk)
+
+    def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
+        c = self.cfg
+        b, s, _ = x.shape
+        hd = c.head_dim
+        q = apply_rope(self.q_proj(x).view(b, s, c.num_attention_heads, hd), cos, sin)
+        k = apply_rope(self.k_proj(x).view(b, s, c.num_key_value_heads, hd), cos, sin)
+        v = self.v_proj(x).view(b, s, c.num_key_value_heads, hd)
+
+        new_cache = None
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            index = 0 if cache_index is None else cache_index
+            write_cache(ck, k, index)
+            write_cache(cv, v, index)
+            k, v = ck, cv
+            new_cache = cache
+            if s >= 128 and self.attn_impl == "flash" and mask is not None:
+                # One-shot prefill into a fresh cache (the Generator always
+                # prefills at cache index 0): the decode-mask rows are
+                # causal AND kv-padding, so flash re-derives causality
+                # (top-left aligned) and takes the kv padding from the most
+                # permissive row, the last.
+                out = dot_product_attention(
+                    q, k, v, mask=mask[:, :, -1:, :], causal=True, impl="flash"
+                )
+            else:
+                if s > 1:
+                    # Cached multi-token call on the plain arm: encode
+                    # causality against the cache here (a caller's
+                    # decode mask already holds it; the AND is then a no-op).
+                    ci = torch.as_tensor(index, device=x.device)
+                    ci2 = ci[:, None] if ci.ndim == 1 else ci.reshape(1, 1)
+                    q_pos = ci2 + torch.arange(s, device=x.device)[None, :]
+                    k_pos = torch.arange(ck.shape[1], device=x.device)[None, None, :]
+                    causal = (k_pos <= q_pos[:, :, None])[:, None]
+                    mask = causal if mask is None else mask & causal
+                # Decode steps (Sq = 1): grouped einsum, K/V never repeated.
+                out = gqa_decode_attention(q, k, v, mask=mask)
+        else:
+            impl = self.attn_impl if s >= 128 else "xla"
+            out = dot_product_attention(q, k, v, mask=mask, causal=True, impl=impl)
+
+        out = self.o_proj(out.reshape(b, s, c.num_attention_heads * hd))
+        return out, new_cache
+
+
+class Qwen2MLP(nn.Module):
+    def __init__(self, cfg: Qwen2Config, device=None, dtype=None):
+        super().__init__()
+        fk = dict(bias=False, device=device, dtype=dtype)
+        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Qwen2Layer(nn.Module):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+        self.self_attn = Qwen2Attention(cfg, attn_impl, **fk)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+        self.mlp = Qwen2MLP(cfg, **fk)
+
+    def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
+        h, new_cache = self.self_attn(self.input_layernorm(x), cos, sin, mask, cache, cache_index)
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, new_cache
+
+
+class Qwen2LM(nn.Module):
+    """Decoder LM.  Call with input_ids OR precomputed inputs_embeds.
+
+    Returns (logits, new_caches); new_caches is None unless caches were given.
+    """
+
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        fk = dict(device=device, dtype=dtype)
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
+        self.layers = nn.ModuleList(
+            Qwen2Layer(cfg, attn_impl, **fk) for _ in range(cfg.num_hidden_layers)
+        )
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **fk)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids)
+
+    def forward(
+        self,
+        input_ids: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        caches: Optional[List[dict]] = None,
+        cache_index=None,
+        return_hidden: bool = False,
+        compute_logits: bool = True,
+        decode_mask: Optional[torch.Tensor] = None,
+    ):
+        c = self.cfg
+        x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
+        b, s, _ = x.shape
+
+        if positions is None:
+            # Cached calls offset positions by the write index.
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            if caches is not None and cache_index is not None:
+                ci = torch.as_tensor(cache_index, device=x.device)
+                positions = positions + (ci[:, None] if ci.ndim == 1 else ci)
+        cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta, x.dtype)
+
+        # attention_mask [B, Skv] -> [B, 1, 1, Skv]; decode_mask is an
+        # explicit [B, 1, Sq, Skv] and overrides it.
+        mask = None
+        if decode_mask is not None:
+            mask = decode_mask.to(torch.bool)
+        elif attention_mask is not None:
+            mask = attention_mask[:, None, None, :].to(torch.bool)
+
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.layers):
+            x, nc = layer(x, cos, sin, mask, None if caches is None else caches[i], cache_index)
+            if caches is not None:
+                new_caches.append(nc)
+
+        x = self.norm(x)
+        if not compute_logits:
+            logits = None
+        elif c.tie_word_embeddings:
+            logits = F.linear(x, self.embed_tokens.weight)
+        else:
+            logits = self.lm_head(x)
+        if return_hidden:
+            return logits, new_caches, x
+        return logits, new_caches

@@ -1,0 +1,98 @@
+"""SigLIP vision tower (port of the JAX package's ``models/siglip.py``).
+
+Conv patch embed + learned position embeddings (no CLS), pre-LN encoder
+layers with biased QKV and a gelu-tanh MLP, and a final ``post_layernorm``.
+The tower returns ``(last_hidden, post_ln)``, both [N, T, D]: the projector
+reads the first, feature KD the second.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
+    SigLIPVisionConfig,
+)
+
+from ..ops.attention import dot_product_attention
+
+
+class SigLIPAttention(nn.Module):
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        fk = dict(bias=True, device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.q_proj = nn.Linear(d, d, **fk)
+        self.k_proj = nn.Linear(d, d, **fk)
+        self.v_proj = nn.Linear(d, d, **fk)
+        self.out_proj = nn.Linear(d, d, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        b, s, _ = x.shape
+        shape = (b, s, c.num_attention_heads, c.head_dim)
+        q = self.q_proj(x).view(shape)
+        k = self.k_proj(x).view(shape)
+        v = self.v_proj(x).view(shape)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl)
+        return self.out_proj(out.reshape(b, s, c.hidden_size))
+
+
+class SigLIPMLP(nn.Module):
+    def __init__(self, cfg: SigLIPVisionConfig, device=None, dtype=None):
+        super().__init__()
+        fk = dict(bias=True, device=device, dtype=dtype)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))  # gelu_pytorch_tanh
+
+
+class SigLIPEncoderLayer(nn.Module):
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
+        self.self_attn = SigLIPAttention(cfg, attn_impl, **fk)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
+        self.mlp = SigLIPMLP(cfg, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x))
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class SigLIPVisionTower(nn.Module):
+    """Returns (last_layer_hidden, post_layernorm_hidden), both [N, T, D]."""
+
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        fk = dict(device=device, dtype=dtype)
+        self.patch_embedding = nn.Conv2d(
+            3, cfg.hidden_size, kernel_size=cfg.patch_size, stride=cfg.patch_size, **fk
+        )
+        self.position_embedding = nn.Parameter(
+            torch.empty(cfg.tokens_per_patch, cfg.hidden_size, **fk)
+        )
+        self.layers = nn.ModuleList(
+            SigLIPEncoderLayer(cfg, attn_impl, **fk) for _ in range(cfg.num_hidden_layers)
+        )
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
+
+    def forward(self, pixel_values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pixel_values: [N, H, W, 3] (NHWC, the JAX layout), already normalized."""
+        w = self.patch_embedding.weight
+        x = self.patch_embedding(pixel_values.to(w.dtype).permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)  # [N, T, D], row-major patch order
+        x = x + self.position_embedding[None]
+        for layer in self.layers:
+            x = layer(x)
+        return x, self.post_layernorm(x)
