@@ -5,16 +5,27 @@
 Phases (any failure raises, and the exit code is non-zero):
   1. print the card's name and power limit; require CUDA;
   2. build the kernel library from the sources in this checkout
-     (into build/kernels/) and print the build time;
-  3. hold each kernel against its plain PyTorch version at the main path's
-     shapes, in bf16 on the card (max abs error after an f32 cast <= 2e-2),
-     and time both;
-  4. drive the main path: greedy generation with the 0.5B depth student at
-     full width and depth (seeded random weights, bf16) on the SUNRGBD
-     production frame, with kernel launch counts read around it; check the
-     tokens and the prefill logits, and that the kernel path agrees with the
-     plain path;
-  5. print one JSON line of kernel results, then the result line
+     (into build/kernels/, one nvcc per source, in parallel) and print the
+     build time;
+  3. hold each of the six kernels against its plain PyTorch version at the
+     main paths' shapes, in bf16 on the card (max abs error after an f32
+     cast <= 2e-2, dW by a relative bound on its max norm, and every output
+     by its relative Frobenius error <= 1e-2), show that these bounds fail
+     a flash backward that drops delta and a fused CE backward that drops
+     its softmax term, and time kernel and plain version;
+  4. training path: 8 baseline_depth train steps (AdamW, lr 2e-5, A=2
+     accumulated micro-batches of B=1) of the 0.5B depth student at full
+     width and depth (seeded random weights, bf16 compute with float32
+     master weights and AdamW state) on the SUNRGBD production frame,
+     through cli/train.py's step; exact kernel launch counts, a finite and
+     falling loss, that an update of ~lr moves the float32 master of a
+     weight of magnitude ~0.02, the mean time of the 5 steps after 3
+     warm-up steps, and peak memory; then the kernel path against the
+     plain path at full width and 2+2 layers;
+  5. serving path: greedy generation with the same student at full width
+     and depth, with launch counts read around it; check the tokens and the
+     prefill logits, and that the kernel path agrees with the plain path;
+  6. print one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}} last.
 
 Needs torch with CUDA, nvcc and numpy; imports no jax.  The model config and
@@ -24,6 +35,7 @@ the synthetic batch come from the JAX package's jax-free host modules
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,8 +56,37 @@ KERNEL_TOL = 2e-2
 PATH_COSINE = 0.999
 N_NEW = 32
 GEN_CALLS = 3
+# Every kernel output is also held by its relative Frobenius error
+# ||got - plain|| / ||plain||.  The max abs bound alone cannot see a fault
+# in an output whose entries are small: dq of the flash backward stays
+# below ~0.06 here, and dh of the fused CE is ~4e-4 where only the softmax
+# term is left.  bf16 rounding of the outputs alone gives ~2e-3.
+REL_FRO_TOL = 1e-2
+# The backward kernels are checked with dO scaled by 1/8, so the gradients
+# they return stay below ~2 in magnitude (as the forward outputs do).
+DOUT_SCALE = 0.125
+# dW of the fused CE: each entry sums over all N rows, so its size is set
+# by N; its max abs error is held by <= 2e-2 * max|plain|.
+DW_REL_TOL = 2e-2
+# 3 warm-up steps (the first allocates the AdamW state and the masters,
+# the next still grow the allocator's pools), then 5 timed steps; all 8
+# are counted.
+WARMUP_STEPS = 3
+TRAIN_STEPS = 8
+ACCUM = 2
+LR = 2e-5
+# The float32 master of a weight of magnitude ~0.02 must move by ~lr on the
+# first step (Adam's first update is lr * sign(g), plus the decay), which
+# is below half a bf16 ulp there.
+MASTER_PROBE = "language_model.layers.0.self_attn.q_proj.weight"
+# Kernel path vs plain path at full width and 2+2 layers: bf16 rounding
+# differs (the kernels round P and dS to bf16), so the loss is compared
+# relatively and the gradients by direction.
+LOSS_REL_TOL = 1e-2
+GRAD_COSINE = 0.99
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (  # noqa: E402
+    TrainConfig,
     llava_onevision_0_5b,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.synthetic import (  # noqa: E402
@@ -61,10 +102,40 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (  # noqa: E402
     set_attn_impl,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (  # noqa: E402
+    masked_cross_entropy,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention as fa,
+    fused_ce as fc,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (  # noqa: E402
+    KDModels,
+    TrainState,
+    make_loss_fn,
+    make_optimizer,
+    make_train_step,
+)
+
+# name -> (source, the TPU kernel it replaces, its launch counter)
+KERNELS = {
+    "flash_fwd_mha": ("csrc/flash_fwd.cu", "ops/flash_attention.py:600", fa.flash_attention),
+    "flash_fwd_gqa": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740", fa.flash_attention_gqa),
+    "flash_bwd_mha": ("csrc/flash_bwd.cu", "ops/flash_attention.py:743", fa.flash_attention_bwd),
+    "flash_bwd_gqa": ("csrc/flash_bwd.cu", "ops/flash_attention.py:1870", fa.flash_attention_gqa_bwd),
+    "fused_ce_fwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:238", fc.lse_gold_fwd),
+    "fused_ce_bwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:284", fc.lse_gold_bwd),
+}
+
+
+def reset_counts() -> None:
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    return {name: k[2].launches for name, k in KERNELS.items()}
 
 
 def log(msg: str) -> None:
@@ -85,29 +156,70 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _result(name, err, ms, plain_ms) -> dict:
+    src, line, _ = KERNELS[name]
+    log(f"[kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_abs_err={err:.3e}")
+    return dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=f"{REF}/{line}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _errors(got, want):
+    """(max abs error, relative Frobenius error) of one output, in f32."""
+    diff = got.float() - want.float()
+    return diff.abs().max().item(), (diff.norm() / want.float().norm()).item()
+
+
+def _hold(name, outs) -> float:
+    """Hold each (label, got, plain, max abs bound) of a kernel: max abs error
+    <= the bound and relative Frobenius error <= REL_FRO_TOL.  Returns the
+    largest max abs error."""
+    worst = 0.0
+    for label, got, want, bound in outs:
+        err, fro = _errors(got, want)
+        log(f"[kernel] {name} {label}: max_abs_err={err:.3e} (tol {bound:.3e}), "
+            f"rel_fro_err={fro:.3e} (tol {REL_FRO_TOL})")
+        if not (err <= bound and fro <= REL_FRO_TOL):
+            raise AssertionError(f"{name} {label} disagrees with its plain version: {err}, {fro}")
+        worst = max(worst, err)
+    return worst
+
+
+def _must_fail(name, fault, outs) -> None:
+    """A kernel run on faulty inputs that mimic ``fault`` must fail the
+    bounds of :func:`_hold`: the check can see that fault."""
+    fro = max(_errors(got, want)[1] for got, want in outs)
+    log(f"[kernel] {name} with {fault}: rel_fro_err={fro:.3e}, fails the check: {fro > REL_FRO_TOL}")
+    if not (fro > REL_FRO_TOL):
+        raise AssertionError(f"the check of {name} cannot see {fault}: {fro}")
+
+
 def kernel_phase(dev) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main paths' shapes."""
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(torch.bfloat16)
 
-    cases = [
+    def kv_mask(b, skv, n_valid):
+        if n_valid is None:
+            return None
+        mask = torch.zeros(b, skv, dtype=torch.bool, device=dev)
+        mask[:, :n_valid] = True
+        return mask
+
+    results = []
+    fwd_cases = [
         # SigLIP: 10 tiles x 729 tokens, 16 heads, d=72, non-causal, no mask
-        dict(name="flash_fwd_mha", entry=fa.flash_attention, line=600,
+        dict(name="flash_fwd_mha", entry=fa.flash_attention,
              q=(10, 729, 16, 72), kv=(10, 729, 16, 72), causal=False, n_valid=None),
         # Qwen2 prefill: 3072 queries over the fresh 3104-slot cache, 14q/2kv,
         # d=64, causal, kv mask of the 2936-token SUNRGBD prompt
-        dict(name="flash_fwd_gqa", entry=fa.flash_attention_gqa, line=1740,
+        dict(name="flash_fwd_gqa", entry=fa.flash_attention_gqa,
              q=(1, 3072, 14, 64), kv=(1, 3104, 2, 64), causal=True, n_valid=2936),
     ]
-    results = []
-    for c in cases:
+    for c in fwd_cases:
         q, k, v = randn(*c["q"]), randn(*c["kv"]), randn(*c["kv"])
-        mask = None
-        if c["n_valid"] is not None:
-            mask = torch.zeros(c["kv"][0], c["kv"][1], dtype=torch.bool, device=dev)
-            mask[:, : c["n_valid"]] = True
+        mask = kv_mask(c["kv"][0], c["kv"][1], c["n_valid"])
 
         def kernel():
             return c["entry"](q, k, v, mask=mask, causal=c["causal"])
@@ -117,25 +229,210 @@ def kernel_phase(dev) -> list:
 
         got = kernel()
         torch.cuda.synchronize()
-        want = plain()
-        err = (got.float() - want.float()).abs().max().item()
-        log(f"[kernel] {c['name']}: q {c['q']} kv {c['kv']} causal={c['causal']} "
-            f"max_abs_err={err:.3e} (tol {KERNEL_TOL})")
-        if not (err <= KERNEL_TOL):
-            raise AssertionError(f"{c['name']} disagrees with its plain version: {err}")
-        ms = time_ms(kernel, iters=20)
-        plain_ms = time_ms(plain, iters=5, warmup=1)
-        log(f"[kernel] {c['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results.append(dict(
-            name=c["name"], route="cuda", source=f"{PKG}/csrc/flash_fwd.cu",
-            replaces=f"{REF}/ops/flash_attention.py:{c['line']}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        ))
+        err = _hold(c["name"], [("out", got, plain(), KERNEL_TOL)])
+        results.append(_result(c["name"], err, time_ms(kernel, iters=20), time_ms(plain, iters=5, warmup=1)))
+
+    bwd_cases = [
+        # the training shapes: SigLIP as above; Qwen2 over its own 3072 keys
+        dict(name="flash_bwd_mha", entry=fa.flash_attention_bwd,
+             q=(10, 729, 16, 72), kv=(10, 729, 16, 72), causal=False, n_valid=None),
+        dict(name="flash_bwd_gqa", entry=fa.flash_attention_gqa_bwd,
+             q=(1, 3072, 14, 64), kv=(1, 3072, 2, 64), causal=True, n_valid=2936),
+    ]
+    for c in bwd_cases:
+        q, k, v = randn(*c["q"]), randn(*c["kv"]), randn(*c["kv"])
+        dout = randn(*c["q"], std=DOUT_SCALE)
+        mask = kv_mask(c["kv"][0], c["kv"][1], c["n_valid"])
+        out, lse = fa.flash_attention_ref(q, k, v, mask, c["causal"], return_lse=True)
+        delta = fa.attention_delta(out, dout)
+        lse_n, delta_n = fa.neutralize_dead_rows(lse, delta)
+        scale = c["q"][3] ** -0.5
+
+        def kernel():
+            return c["entry"](q, k, v, dout, lse, delta, mask=mask, causal=c["causal"])
+
+        def plain():
+            return fa.flash_attention_bwd_ref(q, k, v, mask, c["causal"], scale, lse_n, delta_n, dout)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = _hold(c["name"], [(lbl, a, b, KERNEL_TOL) for lbl, a, b in zip(("dq", "dk", "dv"), got, want)])
+        # a backward that drops delta from dS = P * (dP - delta)
+        no_delta = c["entry"](q, k, v, dout, lse, torch.zeros_like(delta), mask=mask, causal=c["causal"])
+        _must_fail(c["name"], "delta = 0", list(zip(no_delta[:2], want[:2])))
+        del got, want, no_delta
+        results.append(_result(c["name"], err, time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1)))
+
+    # Fused CE over the tied head: B*S = 3072 rows, the 151936 x 896 embedding.
+    cfg = llava_onevision_0_5b()
+    n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
+    h, w = randn(n, d), randn(vocab, d, std=0.02)
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    got = fc.lse_gold_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    lse, gold = fc.lse_gold_ref(h, w, labels)
+    err = _hold("fused_ce_fwd", [("lse", got[0], lse, KERNEL_TOL), ("gold", got[1], gold, KERNEL_TOL)])
+    results.append(_result("fused_ce_fwd", err, time_ms(lambda: fc.lse_gold_fwd(h, w, labels), iters=5),
+                           time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1)))
+
+    # Unit cotangents (the summed NLL).  With g_gold = -1 the gold term
+    # -w_label dominates dh and dW; with g_gold = 0 they are the softmax
+    # term sum_v p_v w_v alone, which a kernel must get right on its own.
+    ones = torch.ones(n, device=dev)
+    err = 0.0
+    for case, g_gold in (("g_gold=-1", -ones), ("g_gold=0", torch.zeros_like(ones))):
+        dh, dw = fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold)
+        torch.cuda.synchronize()
+        want_dh, want_dw = fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold)
+        err = max(err, _hold(f"fused_ce_bwd {case}", [
+            ("dh", dh, want_dh, KERNEL_TOL),
+            ("dW", dw, want_dw, DW_REL_TOL * want_dw.float().abs().max().item())]))
+        del dh, dw
+    # a backward without the g_lse * p term: here dh and dW would be zero
+    no_softmax = fc.lse_gold_bwd(h, w, labels, lse, torch.zeros_like(ones), g_gold)
+    _must_fail("fused_ce_bwd g_gold=0", "g_lse = 0", list(zip(no_softmax, (want_dh, want_dw))))
+    del no_softmax, want_dh, want_dw
+    g_gold = -ones
+    results.append(_result("fused_ce_bwd", err,
+                           time_ms(lambda: fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold), iters=3),
+                           time_ms(lambda: fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold),
+                                   iters=2, warmup=1)))
+    del h, w
+    torch.cuda.empty_cache()
     return results
 
 
+def _device_batch(batch, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if not k.startswith("teacher_")}
+
+
+def training_phase(dev) -> dict:
+    """8 baseline train steps of the 0.5B student, full width and depth."""
+    cfg = llava_onevision_0_5b()
+    t0 = time.perf_counter()
+    model = common.init_or_load_params(cfg, None, seed=0, attn_impl="flash", device=dev,
+                                       dtype=torch.bfloat16, trainable=True)
+    batch = synthetic_kd_batch(cfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
+    tb = _device_batch(batch, dev)
+    tcfg = TrainConfig(kd_mode="baseline", accumulate_grad_batches=ACCUM, learning_rate=LR,
+                       cosine_t_max=0)
+    state = TrainState(model, make_optimizer(model, LR))
+    step = make_train_step(KDModels(model), tcfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] model ({n_params / 1e6:.1f} M params, bf16; float32 masters) + batch set-up "
+        f"{time.perf_counter() - t0:.1f} s; A={ACCUM} x B=1, "
+        f"{int(tb['student_attention_mask'][0].sum())} tokens in a {tb['student_input_ids'].shape[-1]} bucket")
+
+    probe_w0 = state.optimizer.masters[MASTER_PROBE].clone()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, None, tb)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            probe_moved = _master_moved(state, probe_w0)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {"flash_fwd_mha": cfg.vision.num_hidden_layers, "flash_fwd_gqa": cfg.text.num_hidden_layers,
+                "flash_bwd_mha": cfg.vision.num_hidden_layers, "flash_bwd_gqa": cfg.text.num_hidden_layers,
+                "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    want = {k: n * ACCUM * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"[train] launches over {TRAIN_STEPS} steps: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"training launch counts {launches} != {want}")
+    timed = times[WARMUP_STEPS:]
+    step_ms = sum(timed) / len(timed)
+    log(f"[train] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"[train] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of the {len(timed)} steps after "
+        f"{WARMUP_STEPS} warm-up steps {step_ms:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), "
+        f"{ACCUM / (step_ms / 1e3):.3f} samples/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    frac, mean_step = probe_moved
+    log(f"[train] float32 master of {MASTER_PROBE}, entries with 0.015 <= |w| <= 0.025: "
+        f"{frac:.4f} moved on step 1, mean |update| {mean_step:.3e} (lr {LR})")
+    if not (frac >= 0.9 and 0.5 * LR <= mean_step <= 1.5 * LR):
+        raise AssertionError(f"an update of ~lr did not reach the float32 master: {probe_moved}")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    del state, step, model, tb
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+
+
+def _master_moved(state, w0):
+    """(fraction moved, mean |update|) over the probe's float32 master entries
+    with 0.015 <= |w| <= 0.025; also checks that the bf16 weight is the
+    master cast to bf16."""
+    master = state.optimizer.masters[MASTER_PROBE]
+    param = state.optimizer.params[MASTER_PROBE]
+    if master.dtype != torch.float32 or not torch.equal(param, master.to(param.dtype)):
+        raise AssertionError("the bf16 weight is not its float32 master cast to bf16")
+    sel = (w0.abs() >= 0.015) & (w0.abs() <= 0.025)
+    upd = (master - w0).abs()[sel]
+    return (upd > 0).float().mean().item(), upd.mean().item()
+
+
+def agreement_phase(dev) -> None:
+    """Kernel path vs plain path at full width and 2 SigLIP + 2 Qwen2 layers
+    (so the plain path's f32 probabilities and logits fit): the loss, and
+    the gradients of the embedding, one q_proj and one SigLIP fc1."""
+    full = llava_onevision_0_5b()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+        text=dataclasses.replace(full.text, num_hidden_layers=2))
+    model = common.init_or_load_params(cfg, None, seed=1, attn_impl="flash", device=dev,
+                                       dtype=torch.bfloat16, trainable=True)
+    batch = synthetic_kd_batch(cfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
+    tb = _device_batch(batch, dev)
+    names = ("language_model.embed_tokens.weight", "language_model.layers.0.self_attn.q_proj.weight",
+             "vision_tower.layers.0.mlp.fc1.weight")
+    params = dict(model.named_parameters())
+    leaves = [params[n] for n in names]
+
+    reset_counts()
+    loss_k, _ = make_loss_fn(KDModels(model), TrainConfig(kd_mode="baseline"))(tb)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    launches = read_counts()
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the kernel path skipped a kernel: {launches}")
+
+    set_attn_impl(model, "xla")
+    _, _, _, hidden = model(
+        input_ids=tb["student_input_ids"], attention_mask=tb["student_attention_mask"],
+        pixel_values=tb["student_pixel_values"], pack_idx=tb["pack_idx"],
+        pack_weight=tb["pack_weight"], pack_valid=tb["pack_valid"], tile_valid=tb["tile_valid"],
+        return_hidden=True, compute_logits=False)
+    logits = hidden.float() @ model.language_model.embed_tokens.weight.float().T
+    loss_p = masked_cross_entropy(logits, tb["labels"])
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    del logits, hidden
+
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"[agree] 2+2 layers, full width: loss kernel path {loss_k.item():.6f}, plain path "
+        f"{loss_p.item():.6f}, rel diff {rel:.3e} (tol {LOSS_REL_TOL})")
+    if not (rel <= LOSS_REL_TOL):
+        raise AssertionError(f"kernel and plain paths disagree on the loss: {rel}")
+    for n, gk, gp in zip(names, grads_k, grads_p):
+        cos = torch.nn.functional.cosine_similarity(gk.float().flatten(), gp.float().flatten(), dim=0).item()
+        log(f"[agree] grad {n}: cosine {cos:.6f} (tol {GRAD_COSINE}), "
+            f"norms {gk.float().norm().item():.4e} / {gp.float().norm().item():.4e}")
+        if not (cos >= GRAD_COSINE):
+            raise AssertionError(f"kernel and plain gradients of {n} disagree: cosine {cos}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
 def main_path_phase(dev) -> dict:
-    """Greedy generation with the 0.5B student, full width and depth."""
+    """Serving: greedy generation with the 0.5B student, full width and depth."""
     cfg = llava_onevision_0_5b()
     t0 = time.perf_counter()
     model = common.init_or_load_params(cfg, None, seed=0, attn_impl="flash",
@@ -152,15 +449,15 @@ def main_path_phase(dev) -> dict:
     gen.generate(model, tb)  # warm-up (allocator, cuBLAS handles)
     torch.cuda.synchronize()
 
-    fa.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     outs = [gen.generate(model, tb) for _ in range(GEN_CALLS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd_mha": fa.flash_attention.launches,
-                "flash_fwd_gqa": fa.flash_attention_gqa.launches}
-    want = {"flash_fwd_mha": cfg.vision.num_hidden_layers * GEN_CALLS,
-            "flash_fwd_gqa": cfg.text.num_hidden_layers * GEN_CALLS}
+    launches = read_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_fwd_mha=cfg.vision.num_hidden_layers * GEN_CALLS,
+                flash_fwd_gqa=cfg.text.num_hidden_layers * GEN_CALLS)
     log(f"[main] launches over {GEN_CALLS} generate calls: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -230,15 +527,26 @@ def main() -> int:
     _build.load_library()
     log(f"[build] {how} {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     log_file = lib_path.with_suffix(".log")
-    if log_file.exists():
+    if log_file.exists():  # ptxas: registers, shared memory and spills per kernel
+        entry = None
         for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line and entry:
+                log(f"[build] {entry[:100]}: {line.split(':', 1)[1].strip()}")
+            elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                log(f"[build] {entry}: {line.strip()}")
 
     kernels = kernel_phase(dev)
-    main = main_path_phase(dev)
+    train = training_phase(dev)
+    agreement_phase(dev)
+    serve = main_path_phase(dev)
+    # launches: the two driven paths, each counted from 0 around its own run
     for kr in kernels:
-        kr["launches"] = main["launches"][kr["name"]]
+        kr["launches"] = train["launches"][kr["name"]] + serve["launches"][kr["name"]]
+    log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
+        f"({ACCUM / (train['step_ms'] / 1e3):.3f} samples/s), peak {train['peak'] / 2**30:.2f} GiB; "
+        f"generate {serve['ms_call']:.1f} ms/call")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

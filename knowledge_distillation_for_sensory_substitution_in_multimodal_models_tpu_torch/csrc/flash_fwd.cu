@@ -18,6 +18,10 @@
 // Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out like q, all contiguous
 // bf16; kv_mask uint8 [B, Skv] or null.  Causality is top-left aligned:
 // query row i attends key j iff i >= j.  A row with no valid key outputs 0.
+// lse, f32 [B, Hq, Sq] or null: the natural-log logsumexp of each row's
+// scaled scores, which the backward (flash_bwd.cu) recomputes P from; -inf
+// for a row with no valid key.  Serving passes null, as the JAX forward's
+// with_lse=False drops it.
 //
 // Design (first, simple version).  One block of 4 warps per
 // (64-row q tile, q head, batch).  The q tile is staged through shared
@@ -41,76 +45,24 @@
 // a fraction of the wgmma peak.  wgmma, TMA, a multi-stage K/V ring and warp
 // specialisation are the later steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "kdss_mma.cuh"
 
 namespace {
+
+using namespace kdss;
 
 constexpr int BM = 64;  // q rows per block (16 per warp)
 constexpr int BN = 64;  // kv rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int D>
-struct Dims {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  static constexpr int DP = (D + 15) / 16 * 16;  // zero-filled to the mma depth
-  static constexpr int LD = DP + 8;              // shared row stride, elements
-  static constexpr int KC = DP / 16;             // k-chunks of Q K^T
-  static constexpr int NT = DP / 8;              // n-tiles of O
-  static constexpr int VEC = D / 8;              // 16-byte vectors per row in memory
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld16x2(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major); f32 accumulators.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy rows [s0, s0 + 64) of one head (row stride `stride` elements) into a
-// [64][LD] shared tile; rows past S and columns past D are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g, int s0,
-                                          int S, long stride) {
-  using Dm = Dims<D>;
-  constexpr int VPR = Dm::DP / 8;
-  for (int i = threadIdx.x; i < BM * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = i - r * VPR;
-    const int s = s0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S && c < Dm::VEC) val = *reinterpret_cast<const uint4*>(g + s * stride + c * 8);
-    *reinterpret_cast<uint4*>(smem + r * Dm::LD + c * 8) = val;
-  }
-}
 
 template <int D, bool CAUSAL, bool MASK>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                     __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int group,
-                     float scale_log2) {
-  using Dm = Dims<D>;
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv,
+                     int Hq, int Hkv, int group, float scale_log2) {
+  using Dm = FlashDims<D>;
   __shared__ __align__(16) __nv_bfloat16 Qs[BM * Dm::LD];
   __shared__ __align__(16) __nv_bfloat16 Ks[BN * Dm::LD];
   __shared__ __align__(16) __nv_bfloat16 Vs[BN * Dm::LD];
@@ -127,20 +79,13 @@ __global__ void __launch_bounds__(NTHREADS)
   const __nv_bfloat16* kb = k + ((long)b * Skv * Hkv + hk) * D;
   const __nv_bfloat16* vb = v + ((long)b * Skv * Hkv + hk) * D;
 
-  load_tile<D>(Qs, qb, q0, Sq, qstride);
+  load_tile<D, BM, NTHREADS>(Qs, qb, q0, Sq, qstride);
   __syncthreads();
 
   const int r0 = warp * 16 + gi;  // this thread's rows: r0 and r0 + 8
   uint32_t qf[Dm::KC][4];
 #pragma unroll
-  for (int kc = 0; kc < Dm::KC; ++kc) {
-    const __nv_bfloat16* p0 = Qs + r0 * Dm::LD + kc * 16 + ti * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * Dm::LD;
-    qf[kc][0] = ld32(p0);
-    qf[kc][1] = ld32(p1);
-    qf[kc][2] = ld32(p0 + 8);
-    qf[kc][3] = ld32(p1 + 8);
-  }
+  for (int kc = 0; kc < Dm::KC; ++kc) load_a(qf[kc], Qs, Dm::LD, warp * 16, kc * 16, gi, ti);
 
   float o[Dm::NT][4];
 #pragma unroll
@@ -155,8 +100,8 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, kb, k0, Skv, kstride);
-    load_tile<D>(Vs, vb, k0, Skv, kstride);
+    load_tile<D, BN, NTHREADS>(Ks, kb, k0, Skv, kstride);
+    load_tile<D, BN, NTHREADS>(Vs, vb, k0, Skv, kstride);
     if (MASK) {
       for (int i = threadIdx.x; i < BN; i += NTHREADS)
         Ms[i] = (k0 + i < Skv) ? kv_mask[(long)b * Skv + k0 + i] : 0;
@@ -170,9 +115,9 @@ __global__ void __launch_bounds__(NTHREADS)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < Dm::KC; ++kc) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + gi) * Dm::LD + kc * 16 + ti * 2;
-        const uint32_t bf[2] = {ld32(kp), ld32(kp + 8)};
-        mma16816(s[nt], qf[kc], bf);
+        uint32_t bk[2];
+        load_b_rows(bk, Ks, Dm::LD, nt * 8, kc * 16, gi, ti);
+        mma16816(s[nt], qf[kc], bk);
       }
     }
 
@@ -240,9 +185,9 @@ __global__ void __launch_bounds__(NTHREADS)
           pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]), pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
 #pragma unroll
       for (int nt = 0; nt < Dm::NT; ++nt) {
-        const __nv_bfloat16* vp = Vs + (c * 16 + ti * 2) * Dm::LD + nt * 8 + gi;
-        const uint32_t bf[2] = {ld16x2(vp, vp + Dm::LD), ld16x2(vp + 8 * Dm::LD, vp + 9 * Dm::LD)};
-        mma16816(o[nt], pa, bf);
+        uint32_t bv[2];
+        load_b_cols(bv, Vs, Dm::LD, c * 16, nt * 8, gi, ti);
+        mma16816(o[nt], pa, bv);
       }
     }
   }
@@ -254,6 +199,9 @@ __global__ void __launch_bounds__(NTHREADS)
     lt += __shfl_xor_sync(FULL, lt, 1);
     lt += __shfl_xor_sync(FULL, lt, 2);
     inv[i] = lt > 0.f ? 1.f / lt : 0.f;  // no valid key -> zeros
+    const int row = i == 0 ? row_a : row_b;
+    if (lse != nullptr && ti == 0 && row < Sq)
+      lse[((long)b * Hq + h) * Sq + row] = lt > 0.f ? (m[i] + log2f(lt)) * LN2 : -INFINITY;
   }
 #pragma unroll
   for (int nt = 0; nt < Dm::NT; ++nt) {
@@ -270,25 +218,26 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <int D, bool CAUSAL, bool MASK>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
-                   int B, int Sq, int Skv, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int Hq, int Hkv, float scale_log2,
+                   cudaStream_t stream) {
   const dim3 grid((Sq + BM - 1) / BM, Hq, B);
   flash_fwd_kernel<D, CAUSAL, MASK><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, Hkv, Hq / Hkv, scale_log2);
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv, Hq / Hkv, scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
-                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2,
+                     float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2,
                      cudaStream_t st) {
   if (causal) {
-    if (kv_mask) return launch<D, true, true>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
-    return launch<D, true, false>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+    if (kv_mask) return launch<D, true, true>(q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+    return launch<D, true, false>(q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, scale_log2, st);
   }
-  if (kv_mask) return launch<D, false, true>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
-  return launch<D, false, false>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+  if (kv_mask) return launch<D, false, true>(q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, scale_log2, st);
+  return launch<D, false, false>(q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, scale_log2, st);
 }
 
 }  // namespace
@@ -298,7 +247,7 @@ extern "C" {
 // Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for shapes the
 // kernel does not take, else the launch's cudaGetLastError().
 int kdss_flash_fwd(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, float scale,
+                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, float scale,
                    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -306,9 +255,9 @@ int kdss_flash_fwd(const void* q, const void* k, const void* v, const void* kv_m
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return static_cast<int>(dispatch<64>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+      return static_cast<int>(dispatch<64>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     case 72:
-      return static_cast<int>(dispatch<72>(q, k, v, kv_mask, out, B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+      return static_cast<int>(dispatch<72>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

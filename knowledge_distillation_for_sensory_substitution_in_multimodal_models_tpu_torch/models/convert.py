@@ -10,6 +10,11 @@ arrays) into this package's ``state_dict``:
 * ``layers_{i}`` scopes -> ``layers.{i}``; everything else (biases, RMSNorm
   weights, ``position_embedding``, ``image_newline``) copies through.
 
+:func:`flax_from_state_dict` is its inverse: a ``state_dict`` (or its
+gradients, by the same names) back into the Flax tree layout, as numpy
+arrays, so the tests can hold the port's gradients and updated weights
+against the JAX package's leaf by leaf.
+
 :func:`load_llava_onevision_params` chains the JAX package's HF -> numpy
 converter (its ``models/convert.py``, which imports no jax) into it.
 """
@@ -70,6 +75,34 @@ def params_from_flax(tree: Mapping, cfg: LlavaOnevisionConfig) -> Dict[str, torc
     if n_lm != cfg.text.num_hidden_layers:
         raise ValueError(f"tree has {n_lm} LM layers, config {cfg.text.num_hidden_layers}")
     return sd
+
+
+# 1-D ``weight``s of LayerNorms (Flax ``scale``); RMSNorm keeps ``weight``.
+_LAYER_NORMS = ("layer_norm1", "layer_norm2", "post_layernorm")
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """Torch ``state_dict`` -> nested Flax ``params`` tree of numpy arrays
+    (float32), the inverse of :func:`params_from_flax`."""
+    tree: Dict = {}
+    for name, t in sd.items():
+        arr = t.detach().float().cpu().numpy()
+        parts = re.sub(r"\blayers\.(\d+)\b", r"layers_\1", name).split(".")
+        module, leaf = parts[:-1], parts[-1]
+        if leaf == "weight":
+            if arr.ndim == 2 and module[-1] == "embed_tokens":
+                leaf = "embedding"
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            elif arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif module[-1] in _LAYER_NORMS:
+                leaf = "scale"
+        node = tree
+        for p in module:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def load_llava_onevision_params(path: str, cfg: LlavaOnevisionConfig) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Compute primitives: plain attention (``attention``), the flash-attention
-forward kernel wrappers (``flash_attention``) and the kernel library's build
-(``_build``)."""
+forward and backward kernel wrappers (``flash_attention``), the fused
+cross-entropy (``fused_ce``) and the kernel library's build (``_build``)."""
 
 from .attention import dot_product_attention
 

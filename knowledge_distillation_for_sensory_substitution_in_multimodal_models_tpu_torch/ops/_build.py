@@ -1,14 +1,19 @@
 """Build and load the CUDA kernel library.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-compiles the sources under ``csrc/`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library is built at first use into
-``build/kernels/`` at the root of the checkout, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing file.  A build that fails raises; nothing falls back.
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` compiles each source
+under ``csrc/`` (``*.cu``; the ``*.cuh`` headers are hashed, not compiled)
+into an object, all at once in parallel, and links them into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library is
+built at first use into ``build/kernels/`` at the root of the checkout,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads the existing file.  A build that fails raises;
+nothing falls back.
 
 Nothing here runs at import: ``load_library`` is called by the first kernel
-launch.
+launch.  The launchers below take tensors already checked by the op
+modules (``flash_attention``, ``fused_ce``); pointers stay alive until the
+kernels end because the callers hold the tensors and the launches are
+ordered on the current stream with their later use.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills go to the build log
 )
 
@@ -55,18 +60,36 @@ def _nvcc() -> str:
 
 
 def build(out: Path) -> None:
-    """Compile every source into ``out`` (atomically), log beside it."""
+    """Compile every ``.cu`` to an object in parallel, link them into
+    ``out`` (atomically), and write the compilers' output beside it."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); log in {log}:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, procs = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = Path(tmpdir) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            logs.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text[-3000:]}")
+        lib = Path(tmpdir) / out.name
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(lib), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        log = out.with_suffix(".log")
+        log.write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed; log in {log}:\n" + "\n".join(failed))
+        os.replace(lib, out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,34 +98,82 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         build(path)
     lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kdss_flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                   ctypes.c_float, vp]
-    lib.kdss_flash_fwd.restype = ci
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+        "kdss_flash_fwd": [vp] * 6 + [ci] * 7 + [cf, vp],
+        # q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+        "kdss_flash_bwd": [vp] * 10 + [ci] * 7 + [cf, vp],
+        # h, w, labels, lse_part, gold_part, lse, gold, N, V, DM, nsplit, stream
+        "kdss_ce_fwd": [vp] * 7 + [ci] * 4 + [vp],
+        # h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw, N, V, DM, nsplit, stream
+        "kdss_ce_bwd": [vp] * 9 + [ci] * 4 + [vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     lib.kdss_cuda_error_string.argtypes = [ci]
     lib.kdss_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_fwd(q, k, v, kv_mask_u8, out, causal: bool, scale: float) -> None:
-    """Launch the flash forward kernel on the current stream.
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
-    Arguments are checked by ``flash_attention.kernel_args``; pointers must
-    stay alive until the kernel ends, which the caller's references ensure
-    (the launch is stream-ordered with their later use)."""
+
+def _launch(name: str, device, *args) -> None:
+    """Call ``name`` on the current stream of ``device``; raise on an error."""
     lib = load_library()
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    for t in (q, k, v, out):
-        if t.data_ptr() % 16:
-            raise ValueError("q, k, v and out must be 16-byte aligned")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.kdss_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask_u8 is None else kv_mask_u8.data_ptr(),
-            out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), float(scale), stream,
-        )
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.kdss_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _aligned(*ts) -> None:
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+
+
+def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None:
+    """Flash forward (K1/K3); ``lse`` f32 [B, Hq, Sq] or None."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _aligned(q, k, v, out)
+    _launch("kdss_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(kv_mask_u8), out.data_ptr(), _ptr(lse),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale))
+
+
+def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
+              scale: float) -> None:
+    """Flash backward (K2/K4): dq, dk, dv from the saved lse and delta."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _aligned(q, k, v, dout, dq, dk, dv)
+    _launch("kdss_flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(kv_mask_u8), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale))
+
+
+def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
+    """Fused CE forward (K5) over a [V, DM] head."""
+    n, dm = h.shape
+    _aligned(h, w)
+    _launch("kdss_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+            lse_part.data_ptr(), gold_part.data_ptr(), lse.data_ptr(), gold.data_ptr(),
+            n, w.shape[0], dm, lse_part.shape[0])
+
+
+def ce_bwd(h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw) -> None:
+    """Fused CE backward (K6): dh and dW over a [V, DM] head."""
+    n, dm = h.shape
+    _aligned(h, w, dh, dw)
+    _launch("kdss_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g_lse.data_ptr(), g_gold.data_ptr(), dh_part.data_ptr(),
+            dh.data_ptr(), dw.data_ptr(), n, w.shape[0], dm, dh_part.shape[0])

@@ -1,4 +1,5 @@
-"""Flash-attention forward (port of the JAX package's ``ops/flash_attention.py``).
+"""Flash attention, forward and backward (port of the JAX package's
+``ops/flash_attention.py``).
 
 Public contract, as in the JAX package: BSHD layout, q [B, Sq, Hq, D],
 k/v [B, Skv, Hkv, D]; ``mask`` None, [B, Skv] or [B, 1, 1, Skv] (kv padding,
@@ -15,6 +16,14 @@ tensor, and the plain PyTorch version :func:`flash_attention_ref` on a CPU
 tensor (one function for both paths: G = 1 is the MHA case).  On a
 CUDA tensor the wrapper launches the kernel or raises; nothing falls back.
 
+Gradients: when autograd needs them, the CUDA forward also writes the row
+logsumexp (lse) and a ``torch.autograd.Function`` runs the backward kernel
+(``csrc/flash_bwd.cu``) through :func:`flash_attention_bwd` (MHA, the JAX
+``_flash_vjp_bwd``) or :func:`flash_attention_gqa_bwd` (grouped-query, the
+JAX ``_flash_gqa_vjp_bwd``).  Their plain version is
+:func:`flash_attention_bwd_ref`, which recomputes P from the same lse.  On
+the CPU, gradients flow through :func:`flash_attention_ref` under autograd.
+
 Conventions the kernel and the plain versions share:
 
 * causality is aligned to the top left: query row i attends key j iff
@@ -27,7 +36,8 @@ Conventions the kernel and the plain versions share:
 
 Each wrapper carries ``launches``, a plain integer count of kernel launches
 (CPU calls never count).  A call that enters through :func:`flash_attention`
-with grouped-query shapes counts once, on ``flash_attention_gqa.launches``.
+with grouped-query shapes counts once, on ``flash_attention_gqa.launches``;
+its backward counts on ``flash_attention_gqa_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -57,6 +67,18 @@ def _kv_mask(mask: Optional[torch.Tensor], b: int, skv: int) -> Optional[torch.T
     return mask.to(torch.bool).expand(b, skv)
 
 
+def _keep(b, sq, skv, kv_mask, causal, device) -> torch.Tensor:
+    """bool [B, 1, 1, Sq, Skv]: which (query, key) pairs attend."""
+    keep = torch.ones(b, 1, 1, sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        qpos = torch.arange(sq, device=device)[:, None]
+        kpos = torch.arange(skv, device=device)[None, :]
+        keep = keep & (qpos >= kpos)
+    if kv_mask is not None:
+        keep = keep & kv_mask[:, None, None, None, :]
+    return keep
+
+
 def flash_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -64,10 +86,13 @@ def flash_attention_ref(
     kv_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: full float32 probabilities.
+    return_lse: bool = False,
+):
+    """Plain PyTorch version of the forward kernel: full float32 probabilities.
 
-    kv_mask: bool [B, Skv] or None.  Returns q.dtype [B, Sq, Hq, D].
+    kv_mask: bool [B, Skv] or None.  Returns q.dtype [B, Sq, Hq, D], and with
+    ``return_lse`` also the f32 row logsumexp [B, Hq, Sq] of the scaled
+    scores (-inf for a row with no valid key), as the kernel writes it.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -75,19 +100,61 @@ def flash_attention_ref(
     scale = d**-0.5 if scale is None else scale
     qg = q.float().reshape(b, sq, hkv, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    keep = torch.ones(b, 1, 1, sq, skv, dtype=torch.bool, device=q.device)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        keep = keep & (qpos >= kpos)
-    if kv_mask is not None:
-        keep = keep & kv_mask[:, None, None, None, :]
+    keep = _keep(b, sq, skv, kv_mask, causal, q.device)
     logits = logits.masked_fill(~keep, float("-inf"))
     has_key = keep.any(dim=-1, keepdim=True)
     probs = torch.softmax(logits.masked_fill(~has_key, 0.0), dim=-1)
     probs = probs * has_key  # rows with no valid key output zeros
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    out = out.reshape(b, sq, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
+
+
+# The JAX backward's clamp for dead rows (`_neutralize_dead_rows`): +0.7 of
+# the f32 maximum, so exp(s - lse) underflows to exactly 0 for any score.
+_DEAD_LSE = 0.7 * torch.finfo(torch.float32).max
+
+
+def neutralize_dead_rows(lse: torch.Tensor, delta: torch.Tensor):
+    """Rows with no valid key (lse == -inf) get lse = +huge and delta = 0, so
+    their P and dS are exactly 0 in the backward, with no row guard in the
+    kernel (JAX ``_neutralize_dead_rows``)."""
+    dead = torch.isneginf(lse)
+    return lse.masked_fill(dead, _DEAD_LSE), delta.masked_fill(dead, 0.0)
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in f32, [B, Sq, Hq, D] -> [B, Hq, Sq] (computed outside
+    the kernel, as the JAX backward does)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, kv_mask, causal, scale, lse, delta, dout):
+    """Plain PyTorch version of the backward kernels (K2/K4): dq, dk, dv from
+    the saved lse and delta = rowsum(dO * O) (both already neutralized),
+    f32 math, with P rounded to dout's dtype before P^T dO and dS rounded to
+    q's dtype before dS K and dS^T Q, as the kernels (and the JAX kernels)
+    do.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d**-0.5 if scale is None else scale
+    qg = q.float().reshape(b, sq, hkv, g, d)
+    dog = dout.float().reshape(b, sq, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    keep = _keep(b, sq, skv, kv_mask, causal, q.device)
+    lse5 = lse.reshape(b, hkv, g, sq, 1)
+    p = torch.exp(s - lse5).masked_fill(~keep, 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = (p * (dp - delta.reshape(b, hkv, g, sq, 1)) * scale).to(q.dtype).float()
+    p = p.to(dout.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kernel_args(q, k, v, kv_mask):
@@ -122,7 +189,32 @@ def kernel_args(q, k, v, kv_mask):
     return kv_mask
 
 
-def _dispatch(q, k, v, mask, causal, scale, counter_owner):
+class _FlashFn(torch.autograd.Function):
+    """Kernel forward that saves the lse, kernel backward (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner):
+        from ._build import flash_fwd
+
+        b, sq, hq, _ = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+        flash_fwd(q, k, v, mask_u8, out, lse, causal, scale)
+        fwd_owner.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_mask, ctx.causal, ctx.scale, ctx.bwd_owner = kv_mask, causal, scale, bwd_owner
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = attention_delta(out, dout)
+        dq, dk, dv = ctx.bwd_owner(q, k, v, dout.contiguous(), lse, delta,
+                                   mask=ctx.kv_mask, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _dispatch(q, k, v, mask, causal, scale, fwd_owner, bwd_owner):
     """Plain version for a CPU tensor; the kernel (or an error) otherwise."""
     b, _, _, d = q.shape
     scale = d**-0.5 if scale is None else float(scale)
@@ -133,12 +225,58 @@ def _dispatch(q, k, v, mask, causal, scale, counter_owner):
     mask_u8 = kernel_args(q, k, v, kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashFn.apply(q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner)
     from ._build import flash_fwd
 
     out = torch.empty_like(q)
-    flash_fwd(q, k, v, mask_u8, out, causal, scale)
-    counter_owner.launches += 1
+    flash_fwd(q, k, v, mask_u8, out, None, causal, scale)  # no lse without a backward
+    fwd_owner.launches += 1
     return out
+
+
+def _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, counter_owner):
+    """Backward from the saved lse: the plain version on a CPU tensor, the
+    kernel (or an error) otherwise.  Neutralizes dead rows first."""
+    b, _, _, d = q.shape
+    scale = d**-0.5 if scale is None else float(scale)
+    kv_mask = _kv_mask(mask, b, k.shape[1])
+    lse, delta = neutralize_dead_rows(lse.float(), delta.float())
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, kv_mask, causal, scale, lse, delta, dout)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    mask_u8 = kernel_args(q, k, v, kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout must match q: {tuple(dout.shape)} {dout.dtype}")
+    b, sq, hq, _ = q.shape
+    if lse.shape != (b, hq, sq) or delta.shape != (b, hq, sq):
+        raise ValueError("lse and delta must be f32 [B, Hq, Sq]")
+    from ._build import flash_bwd
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    flash_bwd(q, k, v, mask_u8, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv,
+              causal, scale)
+    counter_owner.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, *, mask=None, causal=False, scale=None):
+    """MHA backward (K2): (dq, dk, dv) from the forward's lse [B, Hq, Sq] and
+    delta = rowsum(dO * O) [B, Hq, Sq]; same mask/causal/scale contract as
+    :func:`flash_attention`.  Grouped-query shapes dispatch to
+    :func:`flash_attention_gqa_bwd` (and count there)."""
+    if q.shape[2] != k.shape[2]:
+        return flash_attention_gqa_bwd(q, k, v, dout, lse, delta, mask=mask, causal=causal,
+                                       scale=scale)
+    return _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, flash_attention_bwd)
+
+
+def flash_attention_gqa_bwd(q, k, v, dout, lse, delta, *, mask=None, causal=False, scale=None):
+    """Grouped-query backward (K4): dk and dv are summed over each kv head's
+    query heads inside the kernel."""
+    return _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, flash_attention_gqa_bwd)
 
 
 def flash_attention(
@@ -154,7 +292,7 @@ def flash_attention(
     :func:`flash_attention_gqa` (and count there)."""
     if q.shape[2] != k.shape[2]:
         return flash_attention_gqa(q, k, v, mask=mask, causal=causal, scale=scale)
-    return _dispatch(q, k, v, mask, causal, scale, flash_attention)
+    return _dispatch(q, k, v, mask, causal, scale, flash_attention, flash_attention_bwd)
 
 
 def flash_attention_gqa(
@@ -167,13 +305,15 @@ def flash_attention_gqa(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Grouped-query variant of :func:`flash_attention` (same contract)."""
-    return _dispatch(q, k, v, mask, causal, scale, flash_attention_gqa)
+    return _dispatch(q, k, v, mask, causal, scale, flash_attention_gqa, flash_attention_gqa_bwd)
 
 
-flash_attention.launches = 0
-flash_attention_gqa.launches = 0
+WRAPPERS = (flash_attention, flash_attention_gqa, flash_attention_bwd, flash_attention_gqa_bwd)
 
 
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    flash_attention_gqa.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

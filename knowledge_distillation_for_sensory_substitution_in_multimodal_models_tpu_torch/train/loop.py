@@ -1,0 +1,143 @@
+"""The training loop: epochs of accumulated steps, validation epochs,
+checkpoints and TensorBoard scalars (port of the JAX package's
+``train/loop.py``).
+
+Scalar names match the reference's Lightning logs (``train_loss``,
+``val_loss``).  A SIGTERM snapshots the state at the next step boundary
+(``preempt-step=N.ckpt``); the val loss is summed on the device and read
+back once per val epoch.
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
+    TrainConfig,
+)
+
+from .checkpoint import CheckpointManager
+from .step import KDModels, TrainState, make_eval_step, make_train_step
+
+
+class TBWriter:
+    """tensorboardX writer, no-op if unavailable."""
+
+    def __init__(self, logdir: Optional[str], run_name: str):
+        self._w = None
+        if logdir:
+            try:
+                from tensorboardX import SummaryWriter
+
+                self._w = SummaryWriter(f"{logdir}/{run_name}")
+            except Exception:
+                pass
+
+    def scalar(self, tag: str, value: float, step: int):
+        if self._w is not None:
+            self._w.add_scalar(tag, value, step)
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()
+
+
+def checkpoint_state(state: TrainState) -> dict:
+    return {"params": state.model.state_dict(), "opt_state": state.optimizer.state_dict(),
+            "step": state.step}
+
+
+def load_checkpoint_state(state: TrainState, saved: dict) -> TrainState:
+    state.model.load_state_dict(saved["params"])
+    state.optimizer.load_state_dict(saved["opt_state"])
+    state.step = int(saved["step"])
+    return state
+
+
+def run_training(
+    models: KDModels,
+    cfg: TrainConfig,
+    state: TrainState,
+    teacher_params: Any,
+    train_loader,
+    val_loader,
+    *,
+    put: Callable,
+    ckpt_dir: Optional[str] = None,
+    tb_logdir: Optional[str] = None,
+    run_name: str = "run",
+    log_every: int = 10,
+) -> TrainState:
+    """Epoch loop; returns the final state.  ``put(numpy_batch) -> tensors``
+    moves a host batch to the model's device."""
+    train_step = make_train_step(models, cfg)
+    eval_step = make_eval_step(models, cfg)
+    tb = TBWriter(tb_logdir, run_name)
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+
+    preempted = {"flag": False}
+
+    def _on_term(signum, frame):
+        preempted["flag"] = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:  # not the main thread
+        prev_handler = None
+
+    try:
+        for epoch in range(cfg.max_epochs):
+            t_epoch = time.time()
+            n_samples = 0
+            for batch in train_loader:
+                batch.pop("question_id", None)
+                a, b = batch["student_input_ids"].shape[:2]
+                step_i = state.step
+                state, metrics = train_step(state, teacher_params, put(batch))
+                n_samples += a * b
+                if step_i % log_every == 0:
+                    loss = float(metrics["loss"])
+                    tb.scalar("train_loss", loss, step_i)
+                    for k, v in metrics.items():
+                        if k != "loss":
+                            tb.scalar(f"train/{k}", float(v), step_i)
+                    rate = n_samples / max(time.time() - t_epoch, 1e-9)
+                    print(f"epoch {epoch} step {step_i} loss {loss:.4f} ({rate:.2f} samples/s)",
+                          flush=True)
+                if preempted["flag"]:
+                    if ckpt is not None:
+                        path = ckpt.save_preempt(state.step, checkpoint_state(state))
+                        print(f"preempted: saved {path}", flush=True)
+                    return state
+
+            # ---- validation epoch: sum on the device, read back once ----
+            val_sum, val_n = None, 0
+            for batch in val_loader:
+                batch.pop("question_id", None)
+                db = put(batch)
+                for a_i in range(batch["student_input_ids"].shape[0]):
+                    m = eval_step(state, teacher_params, {k: v[a_i] for k, v in db.items()})
+                    val_sum = m["loss"] if val_sum is None else val_sum + m["loss"]
+                    val_n += 1
+            val_loss = float(val_sum) / val_n if val_n else float("nan")
+            tb.scalar("val_loss", val_loss, state.step)
+            print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
+
+            if ckpt is not None and val_loss == val_loss:
+                saved = ckpt.save(epoch, val_loss, checkpoint_state(state))
+                if saved:
+                    print(f"saved checkpoint {saved}", flush=True)
+        return state
+    finally:
+        tb.close()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """numpy host batch -> tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

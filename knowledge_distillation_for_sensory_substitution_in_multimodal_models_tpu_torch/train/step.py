@@ -1,0 +1,190 @@
+"""The train step: student forward/backward, the mode-dispatched loss and
+gradient accumulation (port of the JAX package's ``train/step.py``).
+
+The JAX step is one jitted program with a ``lax.scan`` over the
+accumulation axis; here it is an eager loop over that axis, with the same
+arithmetic: micro-batch gradients are summed into a float32 carry (or
+carried as a running mean in bf16 / the param dtype, ``accum_dtype``),
+divided by A, and applied in one optimizer update to the float32 master
+weights (``optimizer.py``), which the bf16 model then copies.  Gradients are taken
+with ``torch.autograd.grad``, not accumulated in ``.grad`` (which would sum
+in the bf16 parameter dtype).
+
+Ported so far: ``kd_mode="baseline"`` (the student alone, masked CE over
+the fused vocab-streaming route, `step.py:215-247`).  The modes that need a
+teacher raise ``NotImplementedError`` and name their slice.
+
+Batch layout as in the JAX package: every leaf has a leading accumulation
+axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
+    TrainConfig,
+)
+
+from ..losses.kd_losses import IGNORE_INDEX
+from ..models.llava_onevision import LlavaOnevision
+from ..ops.fused_ce import fused_ce_loss
+from .optimizer import Optimizer
+
+# Modes that wait for a later slice of the port (ROADMAP.md).
+_NOT_PORTED = {
+    "logit_based": "slice 3 (LoCa + CE with the int8 teacher)",
+    ("double_trouble", 2): "slice 3 (LoCa + CE with the int8 teacher)",
+    ("double_trouble", 3): "slice 3 (LoCa + CE with the int8 teacher)",
+    ("double_trouble", 1): "slice 4 (temperature KL + NT-Xent)",
+    "feature_based": "slice 4 (temperature KL + NT-Xent)",
+}
+
+
+class KDModels(NamedTuple):
+    student: LlavaOnevision
+    teacher: Optional[LlavaOnevision] = None
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The student (its parameters), the optimizer and the update count (the
+    JAX ``TrainState``'s params, opt_state and step)."""
+
+    model: LlavaOnevision
+    optimizer: Optimizer
+    step: int = 0
+
+
+def _fused_head(model: LlavaOnevision) -> torch.Tensor:
+    """The head in its stored [V, D] layout ("vd"): the tied embedding, or
+    the untied ``lm_head`` (a torch Linear stores [out, in] = [V, D])."""
+    lm = model.language_model
+    return lm.embed_tokens.weight if model.cfg.text.tie_word_embeddings else lm.lm_head.weight
+
+
+def _forward_hidden(model: LlavaOnevision, batch: Dict[str, torch.Tensor], prefix: str):
+    """Run one stream, returning (hidden [B, S, D], vision_feats [B, P, Dv])."""
+    _, vis, _, hidden = model(
+        input_ids=batch[f"{prefix}_input_ids"],
+        attention_mask=batch[f"{prefix}_attention_mask"],
+        pixel_values=batch.get(f"{prefix}_pixel_values"),
+        pack_idx=batch.get("pack_idx"),
+        pack_weight=batch.get("pack_weight"),
+        pack_valid=batch.get("pack_valid"),
+        tile_valid=batch.get("tile_valid"),
+        return_hidden=True,
+        compute_logits=False,
+    )
+    return hidden, vis
+
+
+def ce_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Shift by one for the causal LM and flatten: [B, S] -> [B * S], the
+    last position of each row ignored (`step.py:219-222`)."""
+    pad = torch.full_like(labels[:, :1], IGNORE_INDEX)
+    return torch.cat([labels[:, 1:], pad], dim=1).reshape(-1)
+
+
+def make_loss_fn(models: KDModels, cfg: TrainConfig):
+    """``loss_fn(micro_batch) -> (loss, metrics)`` on ``models.student``'s
+    current parameters.
+
+    baseline: CE over the fused route: the final-norm hidden states, flattened
+    to [B * S, D], against the head in its [V, D] layout with the shifted
+    labels.  Metrics are f32 scalars.
+    """
+    mode, phase = cfg.kd_mode, cfg.phase
+    if mode != "baseline":
+        key = (mode, phase) if mode == "double_trouble" else mode
+        if key not in _NOT_PORTED:
+            raise ValueError(f"unknown kd_mode {mode!r}")
+        raise NotImplementedError(
+            f"kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else "")
+            + f" is not ported yet: it comes with ROADMAP.md {_NOT_PORTED[key]}"
+        )
+    student = models.student
+
+    def loss_fn(batch: Dict[str, torch.Tensor]):
+        s_hidden, _ = _forward_hidden(student, batch, "student")
+        flat = s_hidden.reshape(-1, s_hidden.shape[-1])
+        ce = fused_ce_loss(flat, _fused_head(student), ce_labels(batch["labels"]), w_layout="vd")
+        metrics = {"ce": ce.detach().float(), "loss": ce.detach().float()}
+        return ce, metrics
+
+    return loss_fn
+
+
+def _micro(batch: Dict[str, Any], a: int) -> Dict[str, Any]:
+    return {k: v[a] for k, v in batch.items()}
+
+
+def make_train_step(models: KDModels, cfg: TrainConfig):
+    """Build ``step(state, teacher_params, batch) -> (state, metrics)``.
+
+    ``batch`` carries a leading accumulation axis A; gradients are averaged
+    over it before one optimizer update.  ``teacher_params`` is accepted
+    for the JAX signature; the baseline needs none.
+    """
+    loss_fn = make_loss_fn(models, cfg)
+    acc_dt = getattr(cfg, "accum_dtype", "float32")
+    if acc_dt not in ("float32", "bfloat16", "param"):
+        raise ValueError(f"accum_dtype must be float32, bfloat16 or param, got {acc_dt!r}")
+    exact = acc_dt == "float32"
+
+    def train_step(state: TrainState, teacher_params, batch: Dict[str, torch.Tensor]):
+        del teacher_params
+        params = state.optimizer.params  # the trainable ones, by name
+        names, leaves = list(params), list(params.values())
+        accum = next(iter(batch.values())).shape[0]
+
+        def carry_dtype(p):
+            return torch.float32 if exact else p.dtype if acc_dt == "param" else torch.bfloat16
+
+        g_acc = m_acc = None
+        for a in range(accum):
+            loss, metrics = loss_fn(_micro(batch, a))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+            if accum == 1:
+                g_acc, m_acc = grads, metrics
+                break
+            if g_acc is None:
+                g_acc = [torch.zeros(p.shape, dtype=carry_dtype(p), device=p.device) for p in leaves]
+                m_acc = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            for acc, g in zip(g_acc, grads):
+                if exact:
+                    acc += g.float()
+                else:
+                    # running mean: pre-scale by 1/A so every add combines
+                    # same-magnitude terms (`step.py:343-349`)
+                    acc += (g.float() / accum).to(acc.dtype)
+            del grads
+            for k, v in metrics.items():
+                m_acc[k] += v
+        if accum > 1:
+            if exact:
+                for acc in g_acc:
+                    acc /= accum
+            m_acc = {k: v / accum for k, v in m_acc.items()}
+        state.optimizer.apply(dict(zip(names, g_acc)))
+        state.step += 1
+        return state, m_acc
+
+    return train_step
+
+
+def make_eval_step(models: KDModels, cfg: TrainConfig):
+    """``eval_step(state, teacher_params, micro_batch) -> metrics`` (the
+    reference's ``validation_step`` loss), without gradients."""
+    loss_fn = make_loss_fn(models, cfg)
+
+    @torch.no_grad()
+    def eval_step(state, teacher_params, batch):
+        del state, teacher_params  # the loss reads models.student's parameters
+        return loss_fn(batch)[1]
+
+    return eval_step
