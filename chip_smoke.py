@@ -7,12 +7,13 @@ Phases (any failure raises, and the exit code is non-zero):
   2. build the kernel library from the sources in this checkout
      (into build/kernels/, one nvcc per source, in parallel) and print the
      build time;
-  3. hold each of the six kernels against its plain PyTorch version at the
+  3. hold each of the nine kernels against its plain PyTorch version at the
      main paths' shapes, in bf16 on the card (max abs error after an f32
      cast <= 2e-2, dW by a relative bound on its max norm, and every output
      by its relative Frobenius error <= 1e-2), show that these bounds fail
      a flash backward that drops delta and a fused CE backward that drops
-     its softmax term, and time kernel and plain version;
+     its softmax term, and time kernel, plain version and SDPA where it
+     computes the same function;
   4. training path: 8 baseline_depth train steps (AdamW, lr 2e-5, A=2
      accumulated micro-batches of B=1) of the 0.5B depth student at full
      width and depth (seeded random weights, bf16 compute with float32
@@ -25,12 +26,27 @@ Phases (any failure raises, and the exit code is non-zero):
   5. serving path: greedy generation with the same student at full width
      and depth, with launch counts read around it; check the tokens and the
      prefill logits, and that the kernel path agrees with the plain path;
-  6. print one JSON line of kernel results, then the result line
-     {"ok": true, "device": {...}} last.
+  6. KD path: 6 double-trouble phase-3 train steps (AdamW, lr 1e-5, A=2 x
+     B=1) of the same student against the frozen LLaVA-OneVision-7B teacher
+     (bf16, seeded random weights), both at full width and depth, the
+     student on the depth stream and the teacher on the RGB stream, through
+     cli/train_online_kd.py's step: exact launch counts (K11 and the
+     teacher's D = 128 flash forward included), a finite and falling loss,
+     the mean time of steps 3-6, samples/s and peak memory; then the KD
+     loss and gradients on the kernel path against dense float32 LoCa + CE
+     on the plain path at full width and 2+2 layers of each model;
+  7. print one JSON line of kernel results (time, plain time, the least time
+     the card could take and what bounds it, and the time of one PyTorch
+     call that computes the same function where there is one), then the
+     result line {"ok": true, "device": {...}} last.
 
-Needs torch with CUDA, nvcc and numpy; imports no jax.  The model config and
-the synthetic batch come from the JAX package's jax-free host modules
-(numpy only), as the port's own modules do.
+Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well)
+and the flash forward at the teacher's D = 128 against their plain
+versions, and shows that the bounds fail a K11 backward fed tsum = 0 and one
+fed g_kl = 0.
+
+Needs torch with CUDA, nvcc and numpy; imports nothing of JAX or of the JAX
+package: configs and synthetic batches come from the port's own host layer.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import time
 import types
 
 import torch
+import torch.nn.functional as F
 
 PKG = "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch"
 REF = "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu"
@@ -84,16 +101,27 @@ MASTER_PROBE = "language_model.layers.0.self_attn.q_proj.weight"
 # relatively and the gradients by direction.
 LOSS_REL_TOL = 1e-2
 GRAD_COSINE = 0.99
+# The KD step: the CLI's learning rate; 6 steps, the mean of steps 3-6.
+KD_LR = 1e-5
+KD_STEPS = 6
+KD_WARMUP = 2
+# K11 against its plain version: max abs error <= 1e-2 x max(1, max |plain|)
+# and relative Frobenius error <= 1e-2, for every output.  The forward is f32
+# on both sides; the backward rounds ds to bf16 on both sides.
+KD_TOL = 1e-2
+# The card's published peaks (H100 SXM, dense): bf16 tensor-core operations
+# and device-memory bytes per second.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (  # noqa: E402
-    TrainConfig,
-    llava_onevision_0_5b,
-)
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.synthetic import (  # noqa: E402
-    synthetic_kd_batch,
-)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (  # noqa: E402
     common,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.configs import (  # noqa: E402
+    TrainConfig,
+    kd_loss_config_for,
+    llava_onevision_0_5b,
+    llava_onevision_7b,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval.decode import (  # noqa: E402
     GenerateConfig,
@@ -103,12 +131,17 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     set_attn_impl,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (  # noqa: E402
+    loca_loss,
     masked_cross_entropy,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention as fa,
     fused_ce as fc,
+    fused_loca as fl,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (  # noqa: E402
+    step as kd_step,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (  # noqa: E402
     KDModels,
@@ -117,25 +150,41 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     make_optimizer,
     make_train_step,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.utils.synthetic import (  # noqa: E402
+    synthetic_kd_batch,
+)
 
-# name -> (source, the TPU kernel it replaces, its launch counter)
+# name -> (source, the TPU kernel it replaces, its launch count).  The GQA
+# flash forward runs at D = 64 (the student) and D = 128 (the teacher): one
+# wrapper, counted by head dim.
 KERNELS = {
-    "flash_fwd_mha": ("csrc/flash_fwd.cu", "ops/flash_attention.py:600", fa.flash_attention),
-    "flash_fwd_gqa": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740", fa.flash_attention_gqa),
-    "flash_bwd_mha": ("csrc/flash_bwd.cu", "ops/flash_attention.py:743", fa.flash_attention_bwd),
-    "flash_bwd_gqa": ("csrc/flash_bwd.cu", "ops/flash_attention.py:1870", fa.flash_attention_gqa_bwd),
-    "fused_ce_fwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:238", fc.lse_gold_fwd),
-    "fused_ce_bwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:284", fc.lse_gold_bwd),
+    "flash_fwd_mha": ("csrc/flash_fwd.cu", "ops/flash_attention.py:600",
+                      lambda: fa.flash_attention.launches),
+    "flash_fwd_gqa": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740",
+                      lambda: fa.flash_attention_gqa.head_dim_launches.get(64, 0)),
+    "flash_bwd_mha": ("csrc/flash_bwd.cu", "ops/flash_attention.py:743",
+                      lambda: fa.flash_attention_bwd.launches),
+    "flash_bwd_gqa": ("csrc/flash_bwd.cu", "ops/flash_attention.py:1870",
+                      lambda: fa.flash_attention_gqa_bwd.launches),
+    "fused_ce_fwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:238", lambda: fc.lse_gold_fwd.launches),
+    "fused_ce_bwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:284", lambda: fc.lse_gold_bwd.launches),
+    "flash_fwd_gqa_d128": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740",
+                           lambda: fa.flash_attention_gqa.head_dim_launches.get(128, 0)),
+    "fused_loca_ce_fwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:1103",
+                          lambda: fl.loca_ce_fwd.launches),
+    "fused_loca_ce_bwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:1168",
+                          lambda: fl.loca_ce_bwd.launches),
 }
 
 
 def reset_counts() -> None:
     fa.reset_launch_counts()
     fc.reset_launch_counts()
+    fl.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    return {name: k[2].launches for name, k in KERNELS.items()}
+    return {name: k[2]() for name, k in KERNELS.items()}
 
 
 def log(msg: str) -> None:
@@ -156,11 +205,51 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _result(name, err, ms, plain_ms) -> dict:
+def bound(flops: float, nbytes: float):
+    """(least time in ms, what bounds it): the larger of the operations over
+    the bf16 peak and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def attended_pairs(b, sq, skv, causal, mask) -> int:
+    """(query, key) pairs that attend, summed over the batch: the work this
+    run's mask and causality leave (per head)."""
+    valid = torch.ones(b, skv) if mask is None else mask.float().cpu()
+    if not causal:
+        return int(sq * valid.sum())
+    cs = valid.cumsum(1)
+    return int(cs[:, torch.arange(sq).clamp(max=skv - 1)].sum())
+
+
+def _result(name, err, ms, plain_ms, bound_ms, library_ms=None) -> dict:
     src, line, _ = KERNELS[name]
-    log(f"[kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_abs_err={err:.3e}")
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms[0]:.4f} ms "
+        f"({bound_ms[1]}), library {lib}, max_abs_err={err:.3e}")
     return dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=f"{REF}/{line}",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms[0],
+                bound_by=bound_ms[1], library_ms=library_ms)
+
+
+def _sdpa_inputs(q, k, v, mask, causal, requires_grad=False):
+    """BHSD copies and the boolean mask of ``scaled_dot_product_attention``
+    for the same attention (the library yardstick; never called by the
+    port)."""
+    b, sq, _, _ = q.shape
+    skv = k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(requires_grad) for x in (q, k, v))
+    attn_mask = None
+    if mask is not None or (causal and sq != skv):
+        attn_mask = fa._keep(b, sq, skv, mask, causal, q.device)[:, 0]
+        causal = False
+    kw = dict(attn_mask=attn_mask, is_causal=causal, enable_gqa=q.shape[2] != k.shape[2])
+    return qt, kt, vt, kw
 
 
 def _errors(got, want):
@@ -216,10 +305,15 @@ def kernel_phase(dev) -> list:
         # d=64, causal, kv mask of the 2936-token SUNRGBD prompt
         dict(name="flash_fwd_gqa", entry=fa.flash_attention_gqa,
              q=(1, 3072, 14, 64), kv=(1, 3104, 2, 64), causal=True, n_valid=2936),
+        # the 7B teacher's prefill in the KD step: 28q/4kv, d=128, causal,
+        # the kv mask of the same prompt, no lse (the teacher is frozen)
+        dict(name="flash_fwd_gqa_d128", entry=fa.flash_attention_gqa,
+             q=(1, 3072, 28, 128), kv=(1, 3072, 4, 128), causal=True, n_valid=2936),
     ]
     for c in fwd_cases:
         q, k, v = randn(*c["q"]), randn(*c["kv"]), randn(*c["kv"])
         mask = kv_mask(c["kv"][0], c["kv"][1], c["n_valid"])
+        b, sq, hq, d = c["q"]
 
         def kernel():
             return c["entry"](q, k, v, mask=mask, causal=c["causal"])
@@ -230,7 +324,13 @@ def kernel_phase(dev) -> list:
         got = kernel()
         torch.cuda.synchronize()
         err = _hold(c["name"], [("out", got, plain(), KERNEL_TOL)])
-        results.append(_result(c["name"], err, time_ms(kernel, iters=20), time_ms(plain, iters=5, warmup=1)))
+        pairs = attended_pairs(b, sq, c["kv"][1], c["causal"], mask)
+        least = bound(4 * pairs * hq * d, nbytes(q, k, v, got, mask))
+        qt, kt, vt, kw = _sdpa_inputs(q, k, v, mask, c["causal"])
+        library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=10)
+        del got, qt, kt, vt
+        results.append(_result(c["name"], err, time_ms(kernel, iters=20), time_ms(plain, iters=5, warmup=1),
+                               least, library))
 
     bwd_cases = [
         # the training shapes: SigLIP as above; Qwen2 over its own 3072 keys
@@ -260,8 +360,19 @@ def kernel_phase(dev) -> list:
         # a backward that drops delta from dS = P * (dP - delta)
         no_delta = c["entry"](q, k, v, dout, lse, torch.zeros_like(delta), mask=mask, causal=c["causal"])
         _must_fail(c["name"], "delta = 0", list(zip(no_delta[:2], want[:2])))
+        b, sq, hq, d = c["q"]
+        pairs = attended_pairs(b, sq, c["kv"][1], c["causal"], mask)
+        least = bound(10 * pairs * hq * d, nbytes(q, k, v, dout, lse, delta, *got, mask))
         del got, want, no_delta
-        results.append(_result(c["name"], err, time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1)))
+        # the library yardstick: SDPA's autograd backward at the same shapes
+        qt, kt, vt, kw = _sdpa_inputs(q, k, v, mask, c["causal"], requires_grad=True)
+        out_t = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        dout_t = dout.transpose(1, 2).contiguous()
+        library = time_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True),
+                          iters=5)
+        del qt, kt, vt, out_t, dout_t
+        results.append(_result(c["name"], err, time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1),
+                               least, library))
 
     # Fused CE over the tied head: B*S = 3072 rows, the 151936 x 896 embedding.
     cfg = llava_onevision_0_5b()
@@ -272,8 +383,10 @@ def kernel_phase(dev) -> list:
     torch.cuda.synchronize()
     lse, gold = fc.lse_gold_ref(h, w, labels)
     err = _hold("fused_ce_fwd", [("lse", got[0], lse, KERNEL_TOL), ("gold", got[1], gold, KERNEL_TOL)])
+    # no single PyTorch call computes (lse, gold) over a streamed head
     results.append(_result("fused_ce_fwd", err, time_ms(lambda: fc.lse_gold_fwd(h, w, labels), iters=5),
-                           time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1)))
+                           time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1),
+                           bound(2 * n * d * vocab, nbytes(h, w, labels, *got))))
 
     # Unit cotangents (the summed NLL).  With g_gold = -1 the gold term
     # -w_label dominates dh and dW; with g_gold = 0 they are the softmax
@@ -296,14 +409,104 @@ def kernel_phase(dev) -> list:
     results.append(_result("fused_ce_bwd", err,
                            time_ms(lambda: fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold), iters=3),
                            time_ms(lambda: fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold),
-                                   iters=2, warmup=1)))
+                                   iters=2, warmup=1),
+                           bound(6 * n * d * vocab, 2 * nbytes(h, w) + nbytes(labels, lse, ones, g_gold))))
     del h, w
+    torch.cuda.empty_cache()
+    results += loca_kernel_phase(dev, g)
+    return results
+
+
+def loca_kernel_phase(dev, g) -> list:
+    """K11 forward and backward against their plain versions at the KD
+    path's shapes: N = 3072 rows, the 896-wide student head of 151936 rows,
+    and an f32 teacher-logit matrix whose rows are peaked (std 3), with the
+    teacher maximum duplicated in a few rows (inside one vocab tile, and
+    across vocab splits) and ignored LoCa and CE labels in others."""
+    cfg = llava_onevision_0_5b()
+    n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
+    lc = kd_loss_config_for("double_trouble")
+    kw = dict(inv_t=1.0 / lc.temperature, eps=1e-8)
+    hs = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(vocab, d, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    tmat = torch.randn(n, vocab, generator=g, device=dev) * 3.0
+    top = tmat.max(dim=1).values + 2.0
+    tmat[0:8, 5] = tmat[0:8, 7] = top[0:8]
+    tmat[8:16, 11] = tmat[8:16, vocab - 3] = top[8:16]
+    lab = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab_ce = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab[0], lab[8] = 5, 11  # a label at a tied maximum
+    lab[100:300] = -1
+    lab_ce[-150:] = -1
+
+    def fwd():
+        return fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+
+    def fwd_plain():
+        return fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+
+    def bounds(want):
+        return KD_TOL * max(1.0, want.float().abs().max().item())
+
+    got = fwd()
+    torch.cuda.synchronize()
+    want = fwd_plain()
+    outs = [("kl", got[0], want[0]), ("ce", got[1], want[1])]
+    outs += [(name, a, b) for name, a, b in zip(fl.ROW_STATS, got[2], want[2])]
+    err = _hold("fused_loca_ce_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in outs])
+    stats = want[2]
+    results = [_result("fused_loca_ce_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
+                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, lab_ce, *got)))]
+    del got, want
+
+    # Unit cotangents; with g_ce = 0, dh and dW are the LoCa term alone.
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    err = 0.0
+    for case, g_ce in (("g_ce=1", ones), ("g_ce=0", zeros)):
+        dh, dw = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
+        torch.cuda.synchronize()
+        want_dh, want_dw = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
+        err = max(err, _hold(f"fused_loca_ce_bwd {case}", [
+            ("dh", dh, want_dh, bounds(want_dh)), ("dW", dw, want_dw, bounds(want_dw))]))
+        del dh, dw
+    # a backward that loses the p_sT * tsum term (LoCa alone, g_ce = 0) ...
+    no_tsum = stats.clone()
+    no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
+    faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, no_tsum, ones, zeros, **kw)
+    _must_fail("fused_loca_ce_bwd g_ce=0", "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
+    # ... and one that loses the whole KL term, against the true g_kl
+    want = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+    faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, zeros, ones, **kw)
+    _must_fail("fused_loca_ce_bwd g_ce=1", "g_kl = 0", list(zip(faulty, want)))
+    del faulty, want, want_dh, want_dw
+
+    def bwd():
+        return fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+
+    def bwd_plain():
+        return fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+
+    # no single PyTorch call computes the LoCa row statistics or their
+    # gradient over a streamed head
+    results.append(_result("fused_loca_ce_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
+                           bound(6 * n * d * vocab,
+                                 2 * nbytes(hs, ws) + nbytes(tmat, lab, lab_ce, stats, ones, ones))))
+    del hs, ws, tmat, stats
     torch.cuda.empty_cache()
     return results
 
 
-def _device_batch(batch, dev) -> dict:
-    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if not k.startswith("teacher_")}
+def _device_batch(batch, dev, streams=("student_",)) -> dict:
+    """The batch on the card; the teacher_* (RGB) keys only if asked for."""
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if not k.startswith("teacher_") or "teacher_" in streams}
+
+
+def _cut(cfg, layers: int = 2):
+    """The config at full width with ``layers`` SigLIP and Qwen2 layers."""
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=layers),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
 
 
 def training_phase(dev) -> dict:
@@ -343,7 +546,7 @@ def training_phase(dev) -> dict:
     per_step = {"flash_fwd_mha": cfg.vision.num_hidden_layers, "flash_fwd_gqa": cfg.text.num_hidden_layers,
                 "flash_bwd_mha": cfg.vision.num_hidden_layers, "flash_bwd_gqa": cfg.text.num_hidden_layers,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
-    want = {k: n * ACCUM * TRAIN_STEPS for k, n in per_step.items()}
+    want = {k: per_step.get(k, 0) * ACCUM * TRAIN_STEPS for k in KERNELS}
     log(f"[train] launches over {TRAIN_STEPS} steps: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
@@ -385,10 +588,7 @@ def agreement_phase(dev) -> None:
     """Kernel path vs plain path at full width and 2 SigLIP + 2 Qwen2 layers
     (so the plain path's f32 probabilities and logits fit): the loss, and
     the gradients of the embedding, one q_proj and one SigLIP fc1."""
-    full = llava_onevision_0_5b()
-    cfg = dataclasses.replace(
-        full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
-        text=dataclasses.replace(full.text, num_hidden_layers=2))
+    cfg = _cut(llava_onevision_0_5b())
     model = common.init_or_load_params(cfg, None, seed=1, attn_impl="flash", device=dev,
                                        dtype=torch.bfloat16, trainable=True)
     batch = synthetic_kd_batch(cfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
@@ -402,8 +602,9 @@ def agreement_phase(dev) -> None:
     loss_k, _ = make_loss_fn(KDModels(model), TrainConfig(kd_mode="baseline"))(tb)
     grads_k = torch.autograd.grad(loss_k, leaves)
     launches = read_counts()
-    if min(launches.values()) == 0:
-        raise AssertionError(f"the kernel path skipped a kernel: {launches}")
+    for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_bwd_mha", "flash_bwd_gqa", "fused_ce_fwd", "fused_ce_bwd"):
+        if launches[k] == 0:
+            raise AssertionError(f"the kernel path skipped {k}: {launches}")
 
     set_attn_impl(model, "xla")
     _, _, _, hidden = model(
@@ -428,6 +629,142 @@ def agreement_phase(dev) -> None:
         if not (cos >= GRAD_COSINE):
             raise AssertionError(f"kernel and plain gradients of {n} disagree: cosine {cos}")
     del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def kd_training_phase(dev) -> dict:
+    """6 double-trouble phase-3 steps of the 0.5B student against the frozen
+    bf16 7B teacher, both at full width and depth."""
+    scfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
+    t0 = time.perf_counter()
+    student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16, trainable=True)
+    teacher = common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16)
+    batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
+    tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
+    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"),
+                      accumulate_grad_batches=ACCUM, learning_rate=KD_LR, cosine_t_max=0)
+    state = TrainState(student, make_optimizer(student, KD_LR, kd_mode="double_trouble", phase=3))
+    step = make_train_step(KDModels(student, teacher), cfg)
+    torch.cuda.synchronize()
+    n_s = sum(p.numel() for p in student.parameters())
+    n_t = sum(p.numel() for p in teacher.parameters())
+    log(f"[kd] student ({n_s / 1e6:.1f} M params, bf16; float32 masters) + teacher "
+        f"({n_t / 1e9:.3f} B params, bf16, frozen) + batch set-up {time.perf_counter() - t0:.1f} s; "
+        f"memory after set-up {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; A={ACCUM} x B=1, "
+        f"{int(tb['student_attention_mask'][0].sum())} tokens in a {tb['student_input_ids'].shape[-1]} bucket")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, parts = [], [], []
+    for _ in range(KD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, None, tb)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        parts.append((metrics["loca"].item(), metrics["ce"].item()))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    v, t = scfg.vision.num_hidden_layers, scfg.text.num_hidden_layers
+    per_step = {"flash_fwd_mha": 2 * v, "flash_fwd_gqa": t, "flash_fwd_gqa_d128": tcfg.text.num_hidden_layers,
+                "flash_bwd_mha": v, "flash_bwd_gqa": t, "fused_loca_ce_fwd": 1, "fused_loca_ce_bwd": 1}
+    want = {k: per_step.get(k, 0) * ACCUM * KD_STEPS for k in KERNELS}
+    log(f"[kd] launches over {KD_STEPS} steps: {launches} (expected {want}; flash_fwd_mha counts "
+        f"the student's and the teacher's SigLIP)")
+    if launches != want:
+        raise AssertionError(f"KD launch counts {launches} != {want}")
+    timed = times[KD_WARMUP:]
+    step_ms = sum(timed) / len(timed)
+    log(f"[kd] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"[kd] (loca, ce) per step: {', '.join(f'({a:.6f}, {b:.6f})' for a, b in parts)}")
+    log(f"[kd] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of steps {KD_WARMUP + 1}-{KD_STEPS} "
+        f"{step_ms:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), "
+        f"{ACCUM / (step_ms / 1e3):.3f} samples/s; peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite KD loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"KD loss did not fall over {KD_STEPS} steps: {losses}")
+    del state, step, student, teacher, tb
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+
+
+def kd_agreement_phase(dev) -> None:
+    """The KD loss and gradients on the kernel path against dense float32
+    LoCa + masked CE on the plain path (plain attention, full logits), at
+    full width and 2 SigLIP + 2 Qwen2 layers of each model."""
+    scfg, tcfg = _cut(llava_onevision_0_5b()), _cut(llava_onevision_7b())
+    student = common.init_or_load_params(scfg, None, seed=1, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16, trainable=True)
+    teacher = common.init_or_load_params(tcfg, None, seed=2, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16)
+    batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
+    tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
+    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"))
+    lc = cfg.loss
+    names = ("language_model.embed_tokens.weight", "language_model.layers.0.self_attn.q_proj.weight",
+             "vision_tower.layers.0.mlp.fc1.weight")
+    params = dict(student.named_parameters())
+    leaves = [params[n] for n in names]
+
+    reset_counts()
+    loss_k, _ = make_loss_fn(KDModels(student, teacher), cfg)(tb)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    # The LoCa term alone (~1e-5 of the loss: it is normalised by N * V), by
+    # the step's own pieces, so that the check can see it under the CE.
+    s_hidden, _ = kd_step._forward_hidden(student, tb, "student")
+    head = student.language_model.embed_tokens.weight
+    tmat = kd_step._teacher_logits(teacher, tb, head.shape[0], lc.temperature)
+    loca_k, _ = fl.fused_loca_ce_loss(s_hidden.reshape(-1, s_hidden.shape[-1]), head, tmat,
+                                      tb["labels"].reshape(-1), kd_step.ce_labels(tb["labels"]),
+                                      temperature=lc.temperature, alpha=lc.loca_alpha)
+    del tmat
+    loca_grads_k = torch.autograd.grad(loca_k, leaves)
+    launches = read_counts()
+    for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_fwd_gqa_d128", "flash_bwd_mha", "flash_bwd_gqa",
+              "fused_loca_ce_fwd", "fused_loca_ce_bwd"):
+        if launches[k] == 0:
+            raise AssertionError(f"the KD kernel path skipped {k}: {launches}")
+
+    set_attn_impl(student, "xla")
+    set_attn_impl(teacher, "xla")
+
+    def hidden(model, prefix):
+        return model(
+            input_ids=tb[f"{prefix}_input_ids"], attention_mask=tb[f"{prefix}_attention_mask"],
+            pixel_values=tb[f"{prefix}_pixel_values"], pack_idx=tb["pack_idx"],
+            pack_weight=tb["pack_weight"], pack_valid=tb["pack_valid"], tile_valid=tb["tile_valid"],
+            return_hidden=True, compute_logits=False)[3]
+
+    with torch.no_grad():
+        t_logits = hidden(teacher, "teacher").float() @ teacher.language_model.lm_head.weight.float().T
+    s_logits = hidden(student, "student").float() @ student.language_model.embed_tokens.weight.float().T
+    loca = loca_loss(t_logits, s_logits, tb["labels"], lc.temperature, lc.loca_alpha)
+    ce = masked_cross_entropy(s_logits, tb["labels"])
+    loss_p = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
+    del t_logits
+    grads_p = torch.autograd.grad(loss_p, leaves, retain_graph=True)
+    loca_grads_p = torch.autograd.grad(loca, leaves)
+    del s_logits, ce
+
+    for term, vk, vp, gks, gps in (("loss", loss_k, loss_p, grads_k, grads_p),
+                                   ("LoCa term", loca_k, loca, loca_grads_k, loca_grads_p)):
+        rel = abs(vk.item() - vp.item()) / abs(vp.item())
+        log(f"[kd-agree] 2+2 layers of each model, full width: {term} kernel path {vk.item():.6e}, "
+            f"plain path {vp.item():.6e}, rel diff {rel:.3e} (tol {LOSS_REL_TOL})")
+        if not (rel <= LOSS_REL_TOL):
+            raise AssertionError(f"kernel and plain KD paths disagree on the {term}: {rel}")
+        for n, gk, gp in zip(names, gks, gps):
+            cos = torch.nn.functional.cosine_similarity(gk.float().flatten(), gp.float().flatten(), dim=0).item()
+            log(f"[kd-agree] {term} grad {n}: cosine {cos:.6f} (tol {GRAD_COSINE}), "
+                f"norms {gk.float().norm().item():.4e} / {gp.float().norm().item():.4e}")
+            if not (cos >= GRAD_COSINE):
+                raise AssertionError(f"kernel and plain KD gradients ({term}) of {n} disagree: cosine {cos}")
+    del student, teacher, grads_k, grads_p, loca_grads_k, loca_grads_p, loca
     torch.cuda.empty_cache()
 
 
@@ -541,17 +878,20 @@ def main() -> int:
     train = training_phase(dev)
     agreement_phase(dev)
     serve = main_path_phase(dev)
-    # launches: the two driven paths, each counted from 0 around its own run
+    kd = kd_training_phase(dev)
+    kd_agreement_phase(dev)
+    # launches: the three driven paths, each counted from 0 around its own run
     for kr in kernels:
-        kr["launches"] = train["launches"][kr["name"]] + serve["launches"][kr["name"]]
+        kr["launches"] = sum(path["launches"][kr["name"]] for path in (train, serve, kd))
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
         f"({ACCUM / (train['step_ms'] / 1e3):.3f} samples/s), peak {train['peak'] / 2**30:.2f} GiB; "
-        f"generate {serve['ms_call']:.1f} ms/call")
+        f"generate {serve['ms_call']:.1f} ms/call; KD step {kd['step_ms']:.1f} ms "
+        f"({ACCUM / (kd['step_ms'] / 1e3):.3f} samples/s), peak {kd['peak'] / 2**30:.2f} GiB")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {k: kr[k] for k in ("name", "route", "source", "replaces", "launches",
-                            "max_abs_err", "ms", "plain_ms")}
+        {k: kr[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for kr in kernels
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,20 +2,26 @@
 
 The JAX package ``knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu``
 is the reference; this package mirrors its layout module by module so each
-counterpart is easy to find.  It imports ``torch`` and never ``jax``,
-``flax`` or ``optax``.  The JAX package's jax-free host modules (configs,
-anyres packing, chat templates, tokenization, collation, synthetic batches,
-the HF -> numpy weight mapping) are imported from there, not copied.
+counterpart is easy to find.  It imports ``torch`` and nothing of the JAX
+package -- not jax, flax, optax or orbax, and not even the JAX package's
+jax-free modules: it keeps its own copies of the host layer it needs
+(configs, anyres packing, chat templates, tokenization, image processing,
+collation, the loader, synthetic batches, number words, the HF weight
+mapping).  Only the tests import both, to hold the port to the reference.
 
-Covered so far: greedy generation with the 0.5B depth student — the SigLIP
+Covered so far: greedy generation with the 0.5B depth student -- the SigLIP
 tower, the projector and anyres packing, the Qwen2 LM with a KV cache, the
-``Generator``, and the inference CLI — and its baseline_depth training —
-masked CE over the fused route, the train and eval steps with gradient
-accumulation, AdamW, checkpoints, the epoch loop and the train CLI.  The
-kernels on those paths are hand-written CUDA for Hopper: the flash-attention
-forward and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, bound in
-``ops/flash_attention.py``) and the vocab-streaming cross-entropy
-(``csrc/fused_ce.cu``, bound in ``ops/fused_ce.py``).
+``Generator``, and the inference CLI; its baseline_depth training -- masked
+CE over the fused route, the train and eval steps with gradient
+accumulation, AdamW over float32 masters, checkpoints, the epoch loop and
+the train CLI; and online KD against the frozen bf16 7B teacher --
+logit_based and double_trouble phases 2 and 3 (LoCa + CE), the phase
+hand-off and the KD CLI.  The kernels on those paths are hand-written CUDA
+for Hopper: the flash-attention forward (D = 64, 72 and 128) and backward
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, bound in
+``ops/flash_attention.py``), the vocab-streaming cross-entropy
+(``csrc/fused_ce.cu``, ``ops/fused_ce.py``) and the combined LoCa + CE
+(``csrc/fused_loca_ce.cu``, ``ops/fused_loca.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,29 +1,128 @@
-"""Shared CLI plumbing (port of the JAX package's ``cli/common.py``).
-
-The jax-free helpers — ``.env`` loading, tiny/real config choice, the
-tokenizer, the synthetic dataset tree — are the JAX package's own, imported
-as they are.  Written here: the flags this port implements, device set-up,
+"""Shared CLI plumbing (port of the JAX package's ``cli/common.py``):
+``.env`` loading, the flags this port implements, tiny/real config choice,
+the tokenizer, the synthetic dataset tree, device set-up,
 ``resolve_attn_impl``, ``make_datasets`` and ``init_or_load_params``.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+import hashlib
+import os
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.cli.common import (  # noqa: F401
-    ensure_synthetic_dataset,
-    is_tiny,
-    load_env,
-    make_tokenizer,
-    model_configs,
+from ..configs import (
+    llava_onevision_0_5b,
+    llava_onevision_7b,
+    llava_onevision_tiny,
+    llava_onevision_tiny_teacher,
 )
-
 from ..models.llava_onevision import LlavaOnevision, init_weights
 
 ATTN_IMPLS = ("xla", "flash")
+
+
+def load_env(path: str = ".env") -> dict:
+    """KEY=VALUE lines of ``path`` (the reference's python-dotenv file) into
+    ``os.environ`` where unset; returns them."""
+    env = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#") or "=" not in line:
+                    continue
+                k, v = line.split("=", 1)
+                env[k.strip()] = v.strip().strip("'\"")
+                os.environ.setdefault(k.strip(), env[k.strip()])
+    return env
+
+
+def is_tiny(args) -> bool:
+    """Tiny-config mode: smoke/synthetic runs unless --real_model."""
+    return (args.synthetic_data or args.tiny_model) and not getattr(args, "real_model", False)
+
+
+def model_configs(args) -> Tuple:
+    """(student, teacher) configs: the tiny pair or the 0.5B / 7B pair."""
+    if is_tiny(args):
+        return llava_onevision_tiny(), llava_onevision_tiny_teacher()
+    return llava_onevision_0_5b(), llava_onevision_7b()
+
+
+def make_tokenizer(args, cfg):
+    """``--tokenizer_path`` (HF, local), else the hash tokenizer; a tiny
+    vocab gets its special ids squashed into range."""
+    from ..data.tokenization import HashTokenizer, get_tokenizer
+
+    if args.tokenizer_path:
+        return get_tokenizer(args.tokenizer_path)
+    tok = HashTokenizer(
+        vocab_size=cfg.text.vocab_size,
+        pad_token_id=cfg.pad_token_id,
+        eos_token_id=cfg.eos_token_id,
+        image_token_id=cfg.image_token_id,
+    )
+    if cfg.text.vocab_size < 152_000:
+        tok.SPECIALS = {
+            "<|im_start|>": cfg.text.vocab_size - 6,
+            "<|im_end|>": cfg.pad_token_id,
+            "<image>": cfg.image_token_id,
+            "<video>": cfg.video_token_id,
+        }
+        vocab = cfg.text.vocab_size
+
+        def _wid(w, _tok=tok, _vocab=vocab):
+            if w in _tok.SPECIALS:
+                return _tok.SPECIALS[w]
+            wid = _tok._cache.get(w)
+            if wid is None:
+                h = int.from_bytes(hashlib.sha1(w.encode()).digest()[:4], "big")
+                wid = h % (_vocab - 8)
+                # keep the reverse map populated so decode() renders seen words
+                _tok._cache[w] = wid
+                _tok._rev.setdefault(wid, w)
+            return wid
+
+        tok._word_id = _wid
+    return tok
+
+
+def ensure_synthetic_dataset(root: str, n: int = 12, seed: int = 0, size=None) -> str:
+    """Write a tiny SUNRGBD-layout tree (csv_data + images) under ``root``;
+    ``size=(h, w)`` pins every image to one resolution."""
+    import pandas as pd
+    from PIL import Image
+
+    sun = os.path.join(root, "SUNRGBD")
+    os.makedirs(os.path.join(sun, "csv_data"), exist_ok=True)
+    os.makedirs(os.path.join(sun, "img"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    answers = ["chair", "table", "bed", "two", "yes", "red"]
+    qtypes = ["Object Identification", "Object Identification", "Object Identification",
+              "Count", "Yes/No", "Color"]
+    rows = []
+    for i in range(n):
+        h, w = size if size is not None else [(45, 67), (30, 80), (52, 52)][i % 3]
+        rgb = rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+        depth = rng.integers(0, 65535, size=(h, w)).astype(np.uint16)
+        Image.fromarray(rgb).save(os.path.join(sun, "img", f"rgb_{i}.png"))
+        Image.fromarray(depth).save(os.path.join(sun, "img", f"d_{i}.png"))
+        rows.append({
+            "Question_Id": i,
+            "Questions": f"what is the object number {i}?",
+            "Answers": answers[i % len(answers)],
+            "Image_Path": f"SUNRGBD/img/rgb_{i}.png",
+            "Depth_Path": f"SUNRGBD/img/d_{i}.png",
+            "Question_Type": qtypes[i % len(qtypes)],
+        })
+    df = pd.DataFrame(rows)
+    for split in ("train_dataset.csv", "val_dataset.csv", "test_dataset.csv"):
+        df.to_csv(os.path.join(sun, "csv_data", split), index=False)
+    return root
 
 
 def add_reference_flags(p: argparse.ArgumentParser, accum_default: int = 64) -> None:
@@ -54,8 +153,7 @@ def make_datasets(args, root: str):
     refused until its reader is ported."""
     if args.dataset == "daquar":
         raise SystemExit(
-            "--dataset daquar is not ported yet: its reader waits for the host-layer "
-            "item of ROADMAP.md queue 1 (the reference's data/dataset.py imports jax)"
+            "--dataset daquar is not ported yet: its reader is ROADMAP.md queue 1 item 1"
         )
     from ..data.dataset import SUNRGBDVQADataset
 
@@ -80,6 +178,8 @@ def add_device_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tokenizer_path", type=str, default=None)
     p.add_argument("--student_weights", type=str, default=None,
                    help="local HF snapshot dir for the 0.5B student")
+    p.add_argument("--teacher_weights", type=str, default=None,
+                   help="local HF snapshot dir for the 7B teacher")
     p.add_argument("--attn_impl", type=str, default=None, choices=ATTN_IMPLS,
                    help="default: flash on CUDA, xla on the CPU")
     p.add_argument("--seed", type=int, default=0)
@@ -124,16 +224,18 @@ def init_or_load_params(
     dtype: torch.dtype,
     trainable: bool = False,
 ) -> LlavaOnevision:
-    """Build the model on ``device``: weights from a local HF snapshot, or a
-    seeded random init.  Weights are made in f32, then cast to ``dtype``.
-    ``trainable=False`` (serving) freezes them in eval mode; ``True`` gives a
-    model in train mode whose parameters require grad."""
-    model = LlavaOnevision(cfg, attn_impl=attn_impl, device=device, dtype=torch.float32)
+    """Build the model on ``device`` in ``dtype``: weights from a local HF
+    snapshot, or a seeded random init drawn tensor by tensor in float32 (so
+    the 7B teacher never exists as a whole in float32 on the card).
+    ``trainable=False`` (serving, the frozen teacher) freezes the weights in
+    eval mode; ``True`` gives a model in train mode whose parameters require
+    grad."""
+    model = LlavaOnevision(cfg, attn_impl=attn_impl, device=device, dtype=dtype)
     if weights_path:
         from ..models.convert import load_llava_onevision_params
 
         model.load_state_dict(load_llava_onevision_params(weights_path, cfg))
     else:
         init_weights(model, seed)
-    model = model.to(dtype).requires_grad_(trainable)
+    model.requires_grad_(trainable)
     return model.train() if trainable else model.eval()

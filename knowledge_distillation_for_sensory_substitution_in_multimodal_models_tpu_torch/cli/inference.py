@@ -49,15 +49,10 @@ def main(argv=None):
     import pandas as pd
     import torch
 
-    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.collate import (
-        OneVisionCollator,
-    )
-    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.numwords import (
-        digits_to_words,
-    )
-
+    from ..data.collate import OneVisionCollator
     from ..data.dataset import SUNRGBDVQADataset
     from ..eval.decode import GenerateConfig, Generator
+    from ..utils.numwords import digits_to_words
 
     root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
     if args.synthetic_data:

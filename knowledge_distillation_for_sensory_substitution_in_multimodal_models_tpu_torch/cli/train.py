@@ -33,16 +33,9 @@ def main(argv=None):
     common.load_env()
     device = common.setup_device(args)
 
-    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-        TrainConfig,
-    )
-    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.collate import (
-        OneVisionCollator,
-    )
-    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.loader import (
-        OneVisionLoader,
-    )
-
+    from ..configs import TrainConfig
+    from ..data.collate import OneVisionCollator
+    from ..data.loader import OneVisionLoader
     from ..train import KDModels, TrainState, make_optimizer
     from ..train.checkpoint import CheckpointManager
     from ..train.loop import load_checkpoint_state, run_training, to_device

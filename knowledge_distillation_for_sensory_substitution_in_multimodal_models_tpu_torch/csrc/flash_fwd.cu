@@ -9,7 +9,9 @@
 //   * K3, `flash_attention_gqa` -> `_flash_gqa` -> `_flash_gqa_fwd_impl`
 //     (kernels `_gqa_fwd_kernel`, `_gqa_fwd_kernel_stream` +
 //     `_gqa_rowmax_kernel`, `_gqa_fwd_kernel_sbound`, `_gqa_fwd_kernel_ilp`):
-//     causal GQA with a kv-padding mask at the Qwen2 prefill.
+//     causal GQA with a kv-padding mask at the Qwen2 prefill: the 0.5B
+//     student (14 q / 2 kv heads, D = 64) and the frozen 7B teacher of the
+//     KD step (28 q / 4 kv heads, D = 128, forward only, no lse).
 // Both compute one function -- attention with an optional kv mask and
 // optional causality, at group size G = Hq / Hkv -- so they share this one
 // templated kernel.  The TPU-only variants (scalar-shift "bound" mode and its
@@ -32,7 +34,11 @@
 // K/V tiles wholly above the diagonal are skipped.  D = 72 is not a multiple
 // of the mma depth 16: tiles are zero-filled to 80 columns in shared memory,
 // and shared rows are padded by 8 more elements so fragment loads hit 32
-// distinct banks.  K/V are read by kv head h / G and never repeated.
+// distinct banks.  K/V are read by kv head h / G and never repeated.  The
+// Q, K and V tiles live in dynamic shared memory: at D = 128 they take
+// 3 x 64 x 136 x 2 B = 52 KB, past the 48 KB a block may hold statically;
+// the o[16][4] accumulator and the q fragments qf[8][4] double from D = 64
+// (the build log's ptxas lines show the registers and any spill).
 //
 // What bounds it on the H100.  The SigLIP case (S = 729, D = 72, 16 heads x
 // 10 tiles) is small per (tile, head): 12 q tiles x 12 kv tiles, 153 MFLOP,
@@ -42,8 +48,10 @@
 // prefill (Sq = 3072, Skv = 3104, 14 q / 2 kv heads, D = 64) is ~17 GFLOP of
 // causal work per layer and is bound by tensor-core issue; this version
 // feeds the tensor cores with synchronous loads and mma.sync, so it reaches
-// a fraction of the wgmma peak.  wgmma, TMA, a multi-stage K/V ring and warp
-// specialisation are the later steps.
+// a fraction of the wgmma peak.  The teacher's prefill (Sq = Skv = 3072,
+// 28 q / 4 kv heads, D = 128) is ~68 GFLOP of causal work per layer, bound
+// the same way.  wgmma, TMA, a multi-stage K/V ring and warp specialisation
+// are the later steps.
 
 #include "kdss_mma.cuh"
 
@@ -56,6 +64,11 @@ constexpr int BN = 64;  // kv rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 
+template <int D>
+constexpr int smem_bytes() {
+  return (BM + 2 * BN) * FlashDims<D>::LD * 2 + BN;  // Q, K, V tiles and the kv mask
+}
+
 template <int D, bool CAUSAL, bool MASK>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -63,10 +76,11 @@ __global__ void __launch_bounds__(NTHREADS)
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv,
                      int Hq, int Hkv, int group, float scale_log2) {
   using Dm = FlashDims<D>;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BM * Dm::LD];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * Dm::LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * Dm::LD];
-  __shared__ uint8_t Ms[BN];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + BM * Dm::LD;
+  __nv_bfloat16* Vs = Ks + BN * Dm::LD;
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + BN * Dm::LD);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gi = lane >> 2, ti = lane & 3;  // mma group id / thread in group
@@ -220,8 +234,12 @@ template <int D, bool CAUSAL, bool MASK>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv, float scale_log2,
                    cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, CAUSAL, MASK>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BM - 1) / BM, Hq, B);
-  flash_fwd_kernel<D, CAUSAL, MASK><<<grid, NTHREADS, 0, stream>>>(
+  flash_fwd_kernel<D, CAUSAL, MASK><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
       static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv, Hq / Hkv, scale_log2);
@@ -258,6 +276,8 @@ int kdss_flash_fwd(const void* q, const void* k, const void* v, const void* kv_m
       return static_cast<int>(dispatch<64>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     case 72:
       return static_cast<int>(dispatch<72>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+    case 128:
+      return static_cast<int>(dispatch<128>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,3 @@
-"""Host data layer: the jax-free depth encoders and the SUNRGBD row reader.
-
-Anyres packing, chat templates, tokenization and collation are imported
-from the JAX package, which keeps them free of jax."""
+"""Host data layer: the depth encoders and the SUNRGBD row reader, and the
+port's copies of the JAX package's anyres packing, chat templates,
+tokenization, image processing, collation and loader."""

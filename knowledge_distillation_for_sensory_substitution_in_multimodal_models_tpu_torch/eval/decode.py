@@ -17,9 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    LlavaOnevisionConfig,
-)
+from ..configs import LlavaOnevisionConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,13 @@
 """Loss primitives (port of the JAX package's ``losses/kd_losses.py``).
 
-Ported so far: ``IGNORE_INDEX`` and :func:`masked_cross_entropy`
-(`kd_losses.py:22-45`).  The KD losses (temperature KL, LoCa, NT-Xent,
-OFA, feature MSE) come with the slices that train with a teacher
-(ROADMAP.md, slices 3 and 4).
+Ported so far: ``IGNORE_INDEX``, :func:`masked_cross_entropy`
+(`kd_losses.py:22-45`), and the paper-correct LoCa term with its helpers,
+:func:`truncate_teacher_logits`, :func:`loca_calibrated_probs` and
+:func:`loca_loss` (`kd_losses.py:48-191`), which every test of the fused
+LoCa + CE kernels holds them to.  The temperature KL, NT-Xent, OFA and
+feature MSE come with the slice that ports phase 1 and feature_based
+(ROADMAP.md, slice 5).  Reductions follow torch's: ``F.kl_div(reduction=
+'mean')`` divides by the total element count (B*S*V).
 """
 
 from __future__ import annotations
@@ -28,3 +32,67 @@ def masked_cross_entropy(
     gold = shift_logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1)
+
+
+def truncate_teacher_logits(teacher_logits: torch.Tensor, student_vocab: int) -> torch.Tensor:
+    """Teacher/student vocab mismatch -> prefix truncation (the reference's
+    ``teacher_logits[:, :, :student_logits.size(2)]``)."""
+    return teacher_logits[..., :student_vocab]
+
+
+def loca_calibrated_probs(
+    teacher_probs: torch.Tensor,
+    labels: torch.Tensor,
+    alpha: float,
+    faithful_indexing: bool = False,
+) -> torch.Tensor:
+    """Paper-correct LoCa calibration of teacher probabilities [..., V].
+
+    Per position: sigma = 1 / (1 - p_gt + p_2nd), s = alpha * sigma; every
+    non-target probability is scaled by s and the target becomes
+    1 - s * (sum_probs - p_gt).  p_2nd is the probability at the second
+    index of ``topk(2)``, so a duplicated maximum gives p_2nd = p_max.
+    Positions with labels < 0 keep the raw teacher distribution.
+
+    ``faithful_indexing=True`` (the reference's full-tensor fancy-indexing
+    writes) is not ported: it raises ``NotImplementedError``.
+    """
+    if faithful_indexing:
+        raise NotImplementedError(
+            "faithful_indexing (the reference's full-tensor LoCa writes) is not ported: "
+            "ROADMAP.md queue 1 item 6")
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    p_gt = teacher_probs.gather(-1, safe[..., None])[..., 0]
+    top2 = torch.topk(teacher_probs, 2, dim=-1).indices[..., 1]
+    p_k = teacher_probs.gather(-1, top2[..., None])[..., 0]
+    s = alpha / (1.0 - p_gt + p_k)
+    target = 1.0 - s * (teacher_probs.sum(-1) - p_gt)
+    vocab = teacher_probs.shape[-1]
+    is_target = torch.arange(vocab, device=teacher_probs.device) == safe[..., None]
+    out = torch.where(is_target, target[..., None], teacher_probs * s[..., None])
+    return torch.where(valid[..., None], out, teacher_probs)
+
+
+def loca_loss(
+    teacher_logits: torch.Tensor,
+    student_logits: torch.Tensor,
+    labels: torch.Tensor,
+    temperature: float,
+    alpha: float = 0.8,
+    faithful_indexing: bool = False,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """LoCa KD term: mean over all elements of KL(calibrated teacher ||
+    student) at temperature T, times T^2.  The student side is
+    ``log(clamp(softmax(s / T), eps))``, exactly as the reference; an element
+    whose calibrated probability is not positive contributes 0."""
+    teacher_logits = truncate_teacher_logits(teacher_logits, student_logits.shape[-1])
+    p_t = torch.softmax(teacher_logits.float() / temperature, dim=-1)
+    p_s = torch.softmax(student_logits.float() / temperature, dim=-1)
+    log_p_s = torch.log(torch.clamp(p_s, min=eps))
+    loca_t = loca_calibrated_probs(p_t, labels, alpha, faithful_indexing)
+    pos = loca_t > 0
+    safe_log = torch.log(torch.where(pos, loca_t, torch.ones_like(loca_t)))
+    kl = torch.where(pos, loca_t * (safe_log - log_p_s), torch.zeros_like(loca_t))
+    return kl.mean() * temperature**2

@@ -1,7 +1,17 @@
-"""Weights carried across from the JAX package.
+"""Weights: the HF safetensors reader and key mapping, and the bridge to and
+from the JAX package's Flax param tree.
 
-:func:`params_from_flax` turns the JAX package's Flax param tree (numpy
-arrays) into this package's ``state_dict``:
+:func:`convert_hf_state_dict` remaps an HF LLaVA-OneVision state dict
+(``model.language_model.layers...`` or the legacy
+``language_model.model.layers...`` scheme) into the Flax-layout param tree
+of numpy arrays that the JAX package's ``models/convert.py`` emits:
+
+* torch ``nn.Linear`` weight [out, in] -> Dense ``kernel`` [in, out];
+* torch ``nn.Conv2d`` weight [O, I, kh, kw] -> Conv ``kernel`` [kh, kw, I, O];
+* embeddings and norms copy through.
+
+:func:`params_from_flax` turns such a tree into this package's
+``state_dict``:
 
 * Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 * Conv ``kernel`` [kh, kw, in, out] (HWIO) -> ``weight`` OIHW;
@@ -15,37 +25,123 @@ gradients, by the same names) back into the Flax tree layout, as numpy
 arrays, so the tests can hold the port's gradients and updated weights
 against the JAX package's leaf by leaf.
 
-:func:`load_llava_onevision_params` chains the JAX package's HF -> numpy
-converter (its ``models/convert.py``, which imports no jax) into it.
+:func:`load_llava_onevision_params` chains the safetensors reader, the HF
+key mapping and :func:`params_from_flax`.
 """
 
 from __future__ import annotations
 
-import importlib.util
+import os
 import re
-from pathlib import Path
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-import knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu as _ref
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    LlavaOnevisionConfig,
-)
+from ..configs import LlavaOnevisionConfig
 
 
-def _ref_convert_module():
-    """The JAX package's ``models/convert.py``, loaded by file path: importing
-    it through its package would run ``models/__init__.py``, which imports
-    flax.  The module itself needs only numpy and the (jax-free) configs."""
-    path = Path(_ref.__file__).parent / "models" / "convert.py"
-    # The name's parent (the JAX package's `models`) resolves the module's
-    # `from ..configs import`; the module is not registered in sys.modules.
-    spec = importlib.util.spec_from_file_location(f"{_ref.__name__}.models._hf_convert", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _np(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    return t.detach().to("cpu").float().numpy()
+
+
+def _normalize_key(k: str) -> str:
+    """Map every known HF key scheme to the canonical new-style scheme."""
+    k = re.sub(r"^model\.", "", k)
+    k = k.replace("language_model.model.", "language_model.")
+    # legacy serialization nests the head under the LM wrapper
+    k = k.replace("language_model.lm_head.", "lm_head.")
+    return k
+
+
+def convert_hf_state_dict(state_dict: Mapping[str, np.ndarray], cfg: LlavaOnevisionConfig) -> Dict:
+    """HF state dict (numpy arrays or tensors) -> the Flax-layout param tree
+    of ``LlavaOnevision``; raises on any key left unconverted."""
+    sd = {_normalize_key(k): v for k, v in state_dict.items()}
+
+    def take(key: str) -> np.ndarray:
+        return _np(sd.pop(key))
+
+    def linear(prefix: str, bias: bool = True) -> Dict:
+        out = {"kernel": take(prefix + ".weight").T}
+        if bias and prefix + ".bias" in sd:
+            out["bias"] = take(prefix + ".bias")
+        return out
+
+    def layernorm(prefix: str) -> Dict:
+        return {"scale": take(prefix + ".weight"), "bias": take(prefix + ".bias")}
+
+    def rmsnorm(prefix: str) -> Dict:
+        return {"weight": take(prefix + ".weight")}
+
+    vt = "vision_tower.vision_model"
+    conv_w = take(f"{vt}.embeddings.patch_embedding.weight")
+    vision: Dict = {
+        "patch_embedding": {"kernel": conv_w.transpose(2, 3, 1, 0),
+                            "bias": take(f"{vt}.embeddings.patch_embedding.bias")},
+        "position_embedding": take(f"{vt}.embeddings.position_embedding.weight"),
+    }
+    for i in range(cfg.vision.num_hidden_layers):
+        lp = f"{vt}.encoder.layers.{i}"
+        vision[f"layers_{i}"] = {
+            "layer_norm1": layernorm(f"{lp}.layer_norm1"),
+            "layer_norm2": layernorm(f"{lp}.layer_norm2"),
+            "self_attn": {n: linear(f"{lp}.self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "mlp": {"fc1": linear(f"{lp}.mlp.fc1"), "fc2": linear(f"{lp}.mlp.fc2")},
+        }
+    vision["post_layernorm"] = layernorm(f"{vt}.post_layernorm")
+
+    params: Dict = {
+        "vision_tower": vision,
+        "multi_modal_projector": {"linear_1": linear("multi_modal_projector.linear_1"),
+                                  "linear_2": linear("multi_modal_projector.linear_2")},
+        "image_newline": take("image_newline"),
+    }
+    lm: Dict = {"embed_tokens": {"embedding": take("language_model.embed_tokens.weight")}}
+    for i in range(cfg.text.num_hidden_layers):
+        lp = f"language_model.layers.{i}"
+        lm[f"layers_{i}"] = {
+            "input_layernorm": rmsnorm(f"{lp}.input_layernorm"),
+            "post_attention_layernorm": rmsnorm(f"{lp}.post_attention_layernorm"),
+            "self_attn": {
+                "q_proj": linear(f"{lp}.self_attn.q_proj"),
+                "k_proj": linear(f"{lp}.self_attn.k_proj"),
+                "v_proj": linear(f"{lp}.self_attn.v_proj"),
+                "o_proj": linear(f"{lp}.self_attn.o_proj", bias=False),
+            },
+            "mlp": {n: linear(f"{lp}.mlp.{n}", bias=False)
+                    for n in ("gate_proj", "up_proj", "down_proj")},
+        }
+    lm["norm"] = rmsnorm("language_model.norm")
+    if not cfg.text.tie_word_embeddings:
+        lm["lm_head"] = linear("lm_head", bias=False)
+    else:
+        sd.pop("lm_head.weight", None)  # tied; HF may still serialize it
+    params["language_model"] = lm
+
+    leftover = [k for k in sd if not k.endswith("rotary_emb.inv_freq")]
+    if leftover:
+        raise ValueError(f"unconverted HF keys: {leftover[:8]}{'...' if len(leftover) > 8 else ''}")
+    return params
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Read all *.safetensors shards in a local HF snapshot directory (as
+    torch tensors: numpy has no bfloat16, the dtype HF ships)."""
+    from safetensors import safe_open
+
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    state = {}
+    for f in files:
+        with safe_open(os.path.join(path, f), framework="pt") as reader:
+            for k in reader.keys():
+                state[k] = reader.get_tensor(k)
+    return state
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -107,4 +203,4 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
 
 def load_llava_onevision_params(path: str, cfg: LlavaOnevisionConfig) -> Dict[str, torch.Tensor]:
     """Local HF snapshot dir -> torch ``state_dict`` (no network)."""
-    return params_from_flax(_ref_convert_module().load_llava_onevision_params(path, cfg), cfg)
+    return params_from_flax(convert_hf_state_dict(load_safetensors_dir(path), cfg), cfg)

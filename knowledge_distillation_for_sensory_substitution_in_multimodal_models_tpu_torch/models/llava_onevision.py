@@ -23,10 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    LlavaOnevisionConfig,
-)
-
+from ..configs import LlavaOnevisionConfig
 from .qwen2 import Qwen2LM, RMSNorm
 from .siglip import SigLIPVisionTower
 
@@ -158,13 +155,21 @@ def init_weights(model: LlavaOnevision, seed: int) -> LlavaOnevision:
     """Seeded random init with the Flax modules' distributions: lecun-normal
     dense and conv kernels (truncated at 2 sigma), zero biases, unit norms,
     N(0, 0.02) token and position embeddings, N(0, 1/sqrt(D)) image newline.
-    Draws on a ``torch.Generator`` on the model's device."""
+    Draws on a ``torch.Generator`` on the model's device, one tensor at a
+    time in float32, and casts each into its parameter: a bf16 model gets
+    the same numbers, rounded, without a float32 copy of the whole model."""
     g = torch.Generator(device=model.device).manual_seed(seed)
+
+    def fill(param, draw, **kw):
+        x = torch.empty(param.shape, dtype=torch.float32, device=param.device)
+        draw(x, generator=g, **kw)
+        param.copy_(x)
+
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = math.prod(m.weight.shape[1:])
             std = fan_in**-0.5 / 0.87962566103423978  # truncated-normal correction
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=g)
+            fill(m.weight, nn.init.trunc_normal_, std=std, a=-2 * std, b=2 * std)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
@@ -173,7 +178,7 @@ def init_weights(model: LlavaOnevision, seed: int) -> LlavaOnevision:
         elif isinstance(m, RMSNorm):
             m.weight.fill_(1.0)
         elif isinstance(m, nn.Embedding):
-            nn.init.normal_(m.weight, std=0.02, generator=g)
-    nn.init.normal_(model.vision_tower.position_embedding, std=0.02, generator=g)
-    nn.init.normal_(model.image_newline, std=model.cfg.text.hidden_size**-0.5, generator=g)
+            fill(m.weight, nn.init.normal_, std=0.02)
+    fill(model.vision_tower.position_embedding, nn.init.normal_, std=0.02)
+    fill(model.image_newline, nn.init.normal_, std=model.cfg.text.hidden_size**-0.5)
     return model

@@ -19,10 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    Qwen2Config,
-)
-
+from ..configs import Qwen2Config
 from ..ops.attention import dot_product_attention, gqa_decode_attention
 
 

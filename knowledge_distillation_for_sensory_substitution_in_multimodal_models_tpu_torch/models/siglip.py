@@ -14,10 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    SigLIPVisionConfig,
-)
-
+from ..configs import SigLIPVisionConfig
 from ..ops.attention import dot_product_attention
 
 

@@ -11,7 +11,7 @@ nothing falls back.
 
 Nothing here runs at import: ``load_library`` is called by the first kernel
 launch.  The launchers below take tensors already checked by the op
-modules (``flash_attention``, ``fused_ce``); pointers stay alive until the
+modules (``flash_attention``, ``fused_ce``, ``fused_loca``); pointers stay alive until the
 kernels end because the callers hold the tensors and the launches are
 ordered on the current stream with their later use.
 """
@@ -108,6 +108,12 @@ def load_library() -> ctypes.CDLL:
         "kdss_ce_fwd": [vp] * 7 + [ci] * 4 + [vp],
         # h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw, N, V, DM, nsplit, stream
         "kdss_ce_bwd": [vp] * 9 + [ci] * 4 + [vp],
+        # h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, N, V, DM, nsplit,
+        # inv_t, alpha, log_eps, stream
+        "kdss_loca_ce_fwd": [vp] * 9 + [ci] * 4 + [cf] * 3 + [vp],
+        # h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, N, V, DM,
+        # nsplit, inv_t, log_eps, stream
+        "kdss_loca_ce_bwd": [vp] * 11 + [ci] * 4 + [cf] * 2 + [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -177,3 +183,25 @@ def ce_bwd(h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw) -> None:
     _launch("kdss_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), g_lse.data_ptr(), g_gold.data_ptr(), dh_part.data_ptr(),
             dh.data_ptr(), dw.data_ptr(), n, w.shape[0], dm, dh_part.shape[0])
+
+
+def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, log_eps) -> None:
+    """Combined LoCa + CE forward (K11) over a [V, DM] head and an f32 [N, V]
+    teacher-logit matrix."""
+    n, dm = h.shape
+    _aligned(h, w)
+    _launch("kdss_loca_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
+            lab.data_ptr(), lab_ce.data_ptr(), part.data_ptr(), rowstats.data_ptr(),
+            kl.data_ptr(), ce.data_ptr(), n, w.shape[0], dm, part.shape[1],
+            float(inv_t), float(alpha), float(log_eps))
+
+
+def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, inv_t,
+                log_eps) -> None:
+    """Combined LoCa + CE backward (K11): dh and dW."""
+    n, dm = h.shape
+    _aligned(h, w, dh, dw)
+    _launch("kdss_loca_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
+            lab.data_ptr(), lab_ce.data_ptr(), rowstats.data_ptr(), g_kl.data_ptr(),
+            g_ce.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n, w.shape[0],
+            dm, dh_part.shape[0], float(inv_t), float(log_eps))

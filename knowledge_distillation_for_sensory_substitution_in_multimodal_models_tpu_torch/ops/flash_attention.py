@@ -35,9 +35,11 @@ Conventions the kernel and the plain versions share:
   packed-pair layout are TPU scheduling choices and are not carried over.
 
 Each wrapper carries ``launches``, a plain integer count of kernel launches
-(CPU calls never count).  A call that enters through :func:`flash_attention`
-with grouped-query shapes counts once, on ``flash_attention_gqa.launches``;
-its backward counts on ``flash_attention_gqa_bwd.launches``.
+(CPU calls never count), and ``head_dim_launches``, the same count split by
+head dim (the GQA forward runs at D = 64 for the student and D = 128 for the
+7B teacher).  A call that enters through :func:`flash_attention` with
+grouped-query shapes counts once, on ``flash_attention_gqa``; its backward
+counts on ``flash_attention_gqa_bwd``.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ from typing import Optional
 
 import torch
 
-# Head dims the kernel is instantiated for: SigLIP (72) and the Qwen2
-# student (64).
-KERNEL_HEAD_DIMS = (64, 72)
+# Head dims the kernels are instantiated for: SigLIP (72) and the Qwen2
+# student (64) forward and backward; the 7B teacher's Qwen2 (128) forward
+# only (the teacher is frozen).
+KERNEL_HEAD_DIMS = (64, 72, 128)
+BWD_HEAD_DIMS = (64, 72)
 
 
 def _kv_mask(mask: Optional[torch.Tensor], b: int, skv: int) -> Optional[torch.Tensor]:
@@ -157,7 +161,7 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, causal, scale, lse, delta, dout):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def kernel_args(q, k, v, kv_mask):
+def kernel_args(q, k, v, kv_mask, head_dims=KERNEL_HEAD_DIMS):
     """Check what the kernel takes; raise ValueError on anything else.
 
     Device-independent, so the CPU tests reach it.  Returns the mask as a
@@ -173,8 +177,8 @@ def kernel_args(q, k, v, kv_mask):
     hkv = k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not compiled (kernel has {KERNEL_HEAD_DIMS})")
+    if d not in head_dims:
+        raise ValueError(f"head dim {d} not compiled (kernel has {head_dims})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
@@ -200,7 +204,7 @@ class _FlashFn(torch.autograd.Function):
         out = torch.empty_like(q)
         lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
         flash_fwd(q, k, v, mask_u8, out, lse, causal, scale)
-        fwd_owner.launches += 1
+        _count(fwd_owner, q.shape[3])
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kv_mask, ctx.causal, ctx.scale, ctx.bwd_owner = kv_mask, causal, scale, bwd_owner
         return out
@@ -226,12 +230,13 @@ def _dispatch(q, k, v, mask, causal, scale, fwd_owner, bwd_owner):
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        kernel_args(q, k, v, kv_mask, BWD_HEAD_DIMS)  # the backward must exist
         return _FlashFn.apply(q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner)
     from ._build import flash_fwd
 
     out = torch.empty_like(q)
     flash_fwd(q, k, v, mask_u8, out, None, causal, scale)  # no lse without a backward
-    fwd_owner.launches += 1
+    _count(fwd_owner, q.shape[3])
     return out
 
 
@@ -245,7 +250,7 @@ def _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, counter_owner)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, kv_mask, causal, scale, lse, delta, dout)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    mask_u8 = kernel_args(q, k, v, kv_mask)
+    mask_u8 = kernel_args(q, k, v, kv_mask, BWD_HEAD_DIMS)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
     if dout.shape != q.shape or dout.dtype != q.dtype:
@@ -258,7 +263,7 @@ def _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, counter_owner)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     flash_bwd(q, k, v, mask_u8, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv,
               causal, scale)
-    counter_owner.launches += 1
+    _count(counter_owner, q.shape[3])
     return dq, dk, dv
 
 
@@ -311,9 +316,15 @@ def flash_attention_gqa(
 WRAPPERS = (flash_attention, flash_attention_gqa, flash_attention_bwd, flash_attention_gqa_bwd)
 
 
+def _count(owner, head_dim: int) -> None:
+    owner.launches += 1
+    owner.head_dim_launches[head_dim] = owner.head_dim_launches.get(head_dim, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        fn.head_dim_launches = {}
 
 
 reset_launch_counts()

@@ -1,0 +1,245 @@
+"""Combined LoCa-KL + cross-entropy over the vocabulary (port of the JAX
+package's ``ops/fused_loca.py::fused_loca_ce_loss`` in its single-device
+form with the teacher logits materialized).
+
+:func:`fused_loca_ce_loss` (student hidden [N, D], the student head [V, D],
+the teacher-logit matrix ``tmat`` [N, V] f32 already scaled by 1/T and
+truncated to the student vocab, the unshifted LoCa labels and the shifted
+CE labels) returns (loca, ce): the paper-correct LoCa term
+``kl_sum / (N * V) * T^2`` (N counts every row, padding and ignored rows
+included) and the mean CE over the valid CE labels.  The caller builds
+``tmat`` with one matrix product outside any kernel, as the JAX
+``_materialize_t`` does; it is only read here, and lives from the forward
+to the end of the backward.
+
+Underneath, a ``torch.autograd.Function`` computes the per-row KL and CE
+terms:
+
+* on a CUDA tensor, the hand-written kernels of ``csrc/fused_loca_ce.cu``
+  (K11): the forward (JAX ``_loca_ce_rows_kernels``: ``_stats_ce_kernel``
+  and ``_klts_fwd_kernel``) and the backward (JAX ``_loca_ce_rows_bwd``:
+  ``_dhs_ce_kernel`` and ``_dws_ce_kernel``).  The wrapper launches them or
+  raises; nothing falls back;
+* on a CPU tensor, the plain versions :func:`loca_ce_rows_ref` and
+  :func:`loca_ce_rows_bwd_ref`, which compute logits per row chunk in
+  float32 and never hold more than one chunk's [rows, V] block.
+
+The JAX package's TPU variants (the recompute form, bf16 and row-chunked
+tmat, the fused single-sweep backward, the int8 head) are not carried over.
+
+Counters: ``loca_ce_fwd.launches`` and ``loca_ce_bwd.launches``, one per
+call (each call launches its pass and combine kernels together).  CPU calls
+never count.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .fused_ce import REF_CHUNK, KERNEL_DIMS, _n_split
+
+# Per-row statistics the forward hands to the backward, the rows of an f32
+# [6, N] tensor (the order of the kernels' `Row` enum).
+ROW_STATS = ("lse_sT", "lse_t", "scale", "tval", "lse_s1", "tsum")
+# Planes of the forward's per-split scratch.
+_NPART = 7
+
+
+def _chunk_stats(s, t, lab, lab_ce, inv_t, alpha):
+    """Row statistics of one chunk from its f32 student logits s and teacher
+    logits t (at 1/T), [rows, V]: (lse_sT, lse_t, scale, tval, lse_s1, ce)."""
+    lse_s1 = torch.logsumexp(s, dim=-1)
+    lse_sT = torch.logsumexp(s * inv_t, dim=-1)
+    lse_t = torch.logsumexp(t, dim=-1)
+    valid = lab >= 0
+    gold_t = torch.where(valid, t.gather(1, lab.clamp(min=0).long()[:, None])[:, 0],
+                         torch.zeros_like(lse_t))
+    m2 = torch.topk(t, 2, dim=-1).values[:, 1]  # a duplicated max gives m2 = m1
+    p_gt, p_2nd = torch.exp(gold_t - lse_t), torch.exp(m2 - lse_t)
+    scale = alpha / (1.0 - p_gt + p_2nd)
+    tval = 1.0 - scale * (1.0 - p_gt)
+    valid_ce = lab_ce >= 0
+    gold_s1 = s.gather(1, lab_ce.clamp(min=0).long()[:, None])[:, 0]
+    ce = torch.where(valid_ce, lse_s1 - gold_s1, torch.zeros_like(lse_s1))
+    return lse_sT, lse_t, scale, tval, lse_s1, ce
+
+
+def _chunk_loca(s, t, lab, lse_sT, lse_t, scale, tval, inv_t):
+    """(calibrated teacher probabilities, log p_sT) of one chunk."""
+    p_t = torch.exp(t - lse_t[:, None])
+    cols = torch.arange(s.shape[1], device=s.device)
+    loca = torch.where(cols[None, :] == lab[:, None], tval[:, None], scale[:, None] * p_t)
+    loca = torch.where((lab >= 0)[:, None], loca, p_t)  # ignored rows keep the raw teacher
+    return loca, s * inv_t - lse_sT[:, None]
+
+
+def loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, *, inv_t: float, alpha: float, eps: float,
+                     chunk: int = REF_CHUNK):
+    """Plain version of the K11 forward: (kl [N], ce [N], row stats [6, N]),
+    f32.  ``lab`` / ``lab_ce`` int [N] with -1 where ignored."""
+    wf = ws.float()
+    log_eps = math.log(eps)
+    kl, ce, stats = [], [], []
+    for i in range(0, hs.shape[0], chunk):
+        s = hs[i:i + chunk].float() @ wf.T
+        t = tmat[i:i + chunk].float()
+        lb = lab[i:i + chunk]
+        lse_sT, lse_t, scale, tval, lse_s1, ce_c = _chunk_stats(s, t, lb, lab_ce[i:i + chunk],
+                                                                inv_t, alpha)
+        loca, log_ps = _chunk_loca(s, t, lb, lse_sT, lse_t, scale, tval, inv_t)
+        pos = loca > 0
+        log_loca = torch.log(torch.where(pos, loca, torch.ones_like(loca)))
+        zero = torch.zeros_like(loca)
+        kl.append(torch.where(pos, loca * (log_loca - log_ps.clamp(min=log_eps)), zero).sum(-1))
+        tsum = torch.where(pos & (log_ps > log_eps), loca, zero).sum(-1)
+        ce.append(ce_c)
+        stats.append(torch.stack([lse_sT, lse_t, scale, tval, lse_s1, tsum]))
+    return torch.cat(kl), torch.cat(ce), torch.cat(stats, dim=1)
+
+
+def loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, *, inv_t: float,
+                         eps: float, chunk: int = REF_CHUNK):
+    """Plain version of the K11 backward: (dh, dw) for a [V, D] head from the
+    cotangents of the KL and CE rows.  The combined d_logits (the JAX
+    ``_combined_ds``) is rounded to h's dtype before the two products, as
+    the kernels (and the JAX kernels) do; dh comes back in h's dtype, dw in
+    w's."""
+    wf = ws.float()
+    log_eps = math.log(eps)
+    dh, dw = [], torch.zeros_like(wf)
+    cols = torch.arange(ws.shape[0], device=ws.device)
+    for i in range(0, hs.shape[0], chunk):
+        hc = hs[i:i + chunk].float()
+        s = hc @ wf.T
+        t = tmat[i:i + chunk].float()
+        lse_sT, lse_t, scale, tval, lse_s1, tsum = stats[:, i:i + chunk]
+        lb, lc = lab[i:i + chunk], lab_ce[i:i + chunk]
+        loca, log_ps = _chunk_loca(s, t, lb, lse_sT, lse_t, scale, tval, inv_t)
+        live = (log_ps > log_eps) & (loca > 0)
+        gk = g_kl[i:i + chunk].float() * inv_t
+        ds = (torch.exp(log_ps) * tsum[:, None] - torch.where(live, loca, torch.zeros_like(loca))) * gk[:, None]
+        gc = torch.where(lc >= 0, g_ce[i:i + chunk].float(), torch.zeros_like(gk))
+        onehot = (cols[None, :] == lc[:, None]).float()
+        ds = ds + (torch.exp(s - lse_s1[:, None]) - onehot) * gc[:, None]
+        ds = ds.to(hs.dtype).float()
+        dh.append((ds @ wf).to(hs.dtype))
+        dw += ds.T @ hc
+    return torch.cat(dh), dw.to(ws.dtype)
+
+
+def kernel_args(hs, ws, tmat, lab, lab_ce):
+    """Check what the kernels take; raise ValueError on anything else."""
+    if hs.ndim != 2 or ws.ndim != 2 or hs.shape[1] != ws.shape[1]:
+        raise ValueError(f"need hs [N, D] and ws [V, D]; got {tuple(hs.shape)}, {tuple(ws.shape)}")
+    if hs.shape[1] not in KERNEL_DIMS:
+        raise ValueError(f"model dim {hs.shape[1]} not compiled (kernels have {KERNEL_DIMS})")
+    for name, t in (("hs", hs), ("ws", ws)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n, v = hs.shape[0], ws.shape[0]
+    if tmat.shape != (n, v) or tmat.dtype != torch.float32 or not tmat.is_contiguous():
+        raise ValueError(f"tmat must be contiguous float32 [{n}, {v}], got {tuple(tmat.shape)} {tmat.dtype}")
+    for name, t in (("lab", lab), ("lab_ce", lab_ce)):
+        if t.shape != (n,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 [N]")
+    for t in (ws, tmat, lab, lab_ce):
+        if t.device != hs.device:
+            raise ValueError(f"operands on {t.device} and {hs.device}")
+    if hs.device.type != "cuda":
+        raise ValueError(f"the fused LoCa + CE kernels run on CUDA tensors, got {hs.device}")
+
+
+def loca_ce_fwd(hs, ws, tmat, lab, lab_ce, *, inv_t: float, alpha: float, eps: float):
+    """K11 forward on CUDA, the plain version on the CPU: (kl, ce, stats)."""
+    if hs.device.type == "cpu":
+        return loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, inv_t=inv_t, alpha=alpha, eps=eps)
+    kernel_args(hs, ws, tmat, lab, lab_ce)
+    from ._build import loca_ce_fwd as launch
+
+    n, dev = hs.shape[0], hs.device
+    nsplit = _n_split(64, n, dev, blocks_per_sm=4)
+    part = torch.empty(_NPART, nsplit, n, dtype=torch.float32, device=dev)
+    stats = torch.empty(len(ROW_STATS), n, dtype=torch.float32, device=dev)
+    kl = torch.empty(n, dtype=torch.float32, device=dev)
+    ce = torch.empty(n, dtype=torch.float32, device=dev)
+    launch(hs, ws, tmat, lab, lab_ce, part, stats, kl, ce, inv_t, alpha, math.log(eps))
+    loca_ce_fwd.launches += 1
+    return kl, ce, stats
+
+
+def loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, *, inv_t: float, eps: float):
+    """K11 backward on CUDA, the plain version on the CPU: (dh, dw)."""
+    if hs.device.type == "cpu":
+        return loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce,
+                                    inv_t=inv_t, eps=eps)
+    kernel_args(hs, ws, tmat, lab, lab_ce)
+    if stats.shape != (len(ROW_STATS), hs.shape[0]) or stats.dtype != torch.float32:
+        raise ValueError("stats must be the forward's float32 [6, N]")
+    from ._build import loca_ce_bwd as launch
+
+    n, dev = hs.shape[0], hs.device
+    nsplit = _n_split(32, n, dev, blocks_per_sm=2)
+    part = torch.empty(nsplit, n, hs.shape[1], dtype=torch.float32, device=dev)
+    dh, dw = torch.empty_like(hs), torch.empty_like(ws)
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    launch(hs, ws, tmat, lab, lab_ce, stats.contiguous(), f32(g_kl), f32(g_ce), part, dh, dw,
+           inv_t, math.log(eps))
+    loca_ce_bwd.launches += 1
+    return dh, dw
+
+
+WRAPPERS = (loca_ce_fwd, loca_ce_bwd)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()
+
+
+class _LocaCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hs, ws, tmat, lab, lab_ce, inv_t, alpha, eps):
+        kl, ce, stats = loca_ce_fwd(hs, ws, tmat, lab, lab_ce, inv_t=inv_t, alpha=alpha, eps=eps)
+        ctx.save_for_backward(hs, ws, tmat, lab, lab_ce, stats)
+        ctx.inv_t, ctx.eps = inv_t, eps
+        return kl, ce
+
+    @staticmethod
+    def backward(ctx, g_kl, g_ce):
+        hs, ws, tmat, lab, lab_ce, stats = ctx.saved_tensors
+        dh, dw = loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce,
+                             inv_t=ctx.inv_t, eps=ctx.eps)
+        return dh, dw, None, None, None, None, None, None
+
+
+def loca_ce_rows(hs, ws_vd, tmat, lab, lab_ce, *, inv_t: float, alpha: float, eps: float = 1e-8):
+    """(kl rows, ce rows), differentiable in hs and the [V, D] head.  Labels
+    < 0 are ignored (any negative value)."""
+    lab = torch.where(lab >= 0, lab, torch.full_like(lab, -1)).to(torch.int32)
+    lab_ce = torch.where(lab_ce >= 0, lab_ce, torch.full_like(lab_ce, -1)).to(torch.int32)
+    if hs.device.type == "cuda":
+        hs, ws_vd, tmat = hs.contiguous(), ws_vd.contiguous(), tmat.contiguous()
+        lab, lab_ce = lab.contiguous(), lab_ce.contiguous()
+    return _LocaCE.apply(hs, ws_vd, tmat, lab, lab_ce, float(inv_t), float(alpha), float(eps))
+
+
+def fused_loca_ce_loss(hs, ws_vd, tmat, loca_labels, ce_labels, *, temperature: float,
+                       alpha: float, eps: float = 1e-8):
+    """(LoCa loss, CE loss), f32 scalars; the JAX ``fused_loca_ce_loss``
+    contract with ``student_head_layout="vd"``, except that the teacher
+    enters as its logits ``tmat`` [N, V] (f32, already at 1/T)."""
+    n, v = hs.shape[0], ws_vd.shape[0]
+    if tmat.shape != (n, v):
+        raise ValueError(f"tmat must be [{n}, {v}] (truncated to the student vocab), got {tuple(tmat.shape)}")
+    kl, ce = loca_ce_rows(hs, ws_vd, tmat, loca_labels, ce_labels, inv_t=1.0 / temperature,
+                          alpha=alpha, eps=eps)
+    loca = kl.sum() / (n * v) * temperature**2
+    count = (ce_labels >= 0).sum()
+    return loca, ce.sum() / count.clamp(min=1)

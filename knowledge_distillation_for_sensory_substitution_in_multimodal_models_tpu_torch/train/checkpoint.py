@@ -5,7 +5,9 @@ the JAX package's ``train/checkpoint.py``, which saves with Orbax).
   (``epoch=NN-val_loss=X.XXXX.ckpt``);
 * resume loads the LOWEST val_loss in the directory;
 * ``save_top_k=1``: the older checkpoint is removed on improvement;
-* ``preempt-step=N.ckpt`` is an unconditional snapshot outside that policy.
+* ``preempt-step=N.ckpt`` is an unconditional snapshot outside that policy;
+* a params-only restore starts a later double-trouble phase from the
+  previous phase's best checkpoint.
 
 Each checkpoint is one ``torch.save`` file of {params (the student's
 state_dict), opt_state, step}.  The three name helpers are copies of the
@@ -81,3 +83,13 @@ class CheckpointManager:
 
     def restore(self, path: str, map_location=None) -> Any:
         return torch.load(os.path.abspath(path), map_location=map_location, weights_only=True)
+
+    def restore_params(self, path: str, state, map_location=None):
+        """Params-only restore (the JAX ``restore(..., partial=True)``), for
+        the phase hand-off: the checkpoint's weights into ``state``'s fresh
+        model and its float32 masters into ``state``'s fresh optimizer;
+        AdamW's moments and the step count start anew.  Returns ``state``."""
+        saved = self.restore(path, map_location)
+        state.model.load_state_dict(saved["params"])
+        state.optimizer.load_masters(saved["opt_state"]["masters"])
+        return state

@@ -16,10 +16,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    TrainConfig,
-)
-
+from ..configs import TrainConfig
 from .checkpoint import CheckpointManager
 from .step import KDModels, TrainState, make_eval_step, make_train_step
 

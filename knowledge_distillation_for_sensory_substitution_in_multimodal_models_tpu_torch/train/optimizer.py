@@ -98,6 +98,17 @@ class Optimizer:
                 "masters": {n: m for n, m in self.masters.items() if m is not self.params[n]}}
 
     @torch.no_grad()
+    def load_masters(self, masters: Dict[str, torch.Tensor]) -> None:
+        """Take the float32 masters of a checkpoint (by name) for a fresh
+        optimizer; a parameter the checkpoint has no master for (a float32
+        one, or one that was frozen) starts from its current weight.  AdamW's
+        state and the update count stay fresh."""
+        for n, m in self.masters.items():
+            if m is not self.params[n]:
+                m.copy_(masters[n] if n in masters else self.params[n])
+        self._copy_to_params()
+
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         for n, m in state["masters"].items():
             self.masters[n].copy_(m)

@@ -1,5 +1,6 @@
-"""The train step: student forward/backward, the mode-dispatched loss and
-gradient accumulation (port of the JAX package's ``train/step.py``).
+"""The train step: teacher forward (no grad), student forward/backward, the
+mode-dispatched loss and gradient accumulation (port of the JAX package's
+``train/step.py``).
 
 The JAX step is one jitted program with a ``lax.scan`` over the
 accumulation axis; here it is an eager loop over that axis, with the same
@@ -10,9 +11,20 @@ weights (``optimizer.py``), which the bf16 model then copies.  Gradients are tak
 with ``torch.autograd.grad``, not accumulated in ``.grad`` (which would sum
 in the bf16 parameter dtype).
 
-Ported so far: ``kd_mode="baseline"`` (the student alone, masked CE over
-the fused vocab-streaming route, `step.py:215-247`).  The modes that need a
-teacher raise ``NotImplementedError`` and name their slice.
+Ported so far (`step.py:282-301`):
+
+* ``baseline``: the student alone, masked CE over the fused vocab-streaming
+  route;
+* ``logit_based`` and ``double_trouble`` phase 2: LoCa + CE; phase 3:
+  gamma * (LoCa + CE) + (1 - gamma) * CE.  The frozen teacher runs under
+  ``torch.no_grad()`` on the RGB stream (the ``teacher_*`` batch keys); its
+  logits at 1/T, truncated to the student vocab, are one float32 matrix
+  product (the JAX ``_materialize_t``), and LoCa + CE run in one combined
+  vocab-streaming pipeline (``ops/fused_loca.py``).
+
+``double_trouble`` phase 1 and ``feature_based`` raise
+``NotImplementedError`` and name their slice, as does the reference's
+faithful LoCa indexing.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
 axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
@@ -25,23 +37,19 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.configs import (
-    TrainConfig,
-)
-
+from ..configs import TrainConfig
 from ..losses.kd_losses import IGNORE_INDEX
 from ..models.llava_onevision import LlavaOnevision
 from ..ops.fused_ce import fused_ce_loss
+from ..ops.fused_loca import fused_loca_ce_loss
 from .optimizer import Optimizer
 
 # Modes that wait for a later slice of the port (ROADMAP.md).
 _NOT_PORTED = {
-    "logit_based": "slice 3 (LoCa + CE with the int8 teacher)",
-    ("double_trouble", 2): "slice 3 (LoCa + CE with the int8 teacher)",
-    ("double_trouble", 3): "slice 3 (LoCa + CE with the int8 teacher)",
-    ("double_trouble", 1): "slice 4 (temperature KL + NT-Xent)",
-    "feature_based": "slice 4 (temperature KL + NT-Xent)",
+    ("double_trouble", 1): "slice 5 (phase 1 and feature_based: the temperature KL kernels K7/K8 + NT-Xent)",
+    "feature_based": "slice 5 (phase 1 and feature_based: the temperature KL kernels K7/K8 + NT-Xent)",
 }
+_LOCA_MODES = ("logit_based", ("double_trouble", 2), ("double_trouble", 3))
 
 
 class KDModels(NamedTuple):
@@ -89,31 +97,76 @@ def ce_labels(labels: torch.Tensor) -> torch.Tensor:
     return torch.cat([labels[:, 1:], pad], dim=1).reshape(-1)
 
 
+@torch.no_grad()
+def _teacher_logits(teacher: LlavaOnevision, batch: Dict[str, torch.Tensor], vocab: int,
+                   temperature: float) -> torch.Tensor:
+    """The frozen teacher's logits at 1/T on the RGB stream, truncated to the
+    student vocab: float32 [B * S, vocab] (the JAX ``_materialize_t``).
+
+    One matrix product of the final-norm hidden states with a row slice of
+    the untied ``lm_head`` [Vt, Dt] (no copy of the head); bf16 operands
+    accumulate into a float32 result, as the JAX dot's
+    ``preferred_element_type``.  It stays outside any kernel, as in the JAX
+    package."""
+    t_hidden, _ = _forward_hidden(teacher, batch, "teacher")
+    th = t_hidden.reshape(-1, t_hidden.shape[-1])
+    wt = _fused_head(teacher)[:vocab]
+    if th.dtype == torch.float32:
+        t = th @ wt.T
+    else:
+        t = torch.mm(th, wt.T, out_dtype=torch.float32)
+    return t.mul_(1.0 / temperature)
+
+
 def make_loss_fn(models: KDModels, cfg: TrainConfig):
     """``loss_fn(micro_batch) -> (loss, metrics)`` on ``models.student``'s
-    current parameters.
+    current parameters (the teacher, if any, is frozen).
 
     baseline: CE over the fused route: the final-norm hidden states, flattened
     to [B * S, D], against the head in its [V, D] layout with the shifted
-    labels.  Metrics are f32 scalars.
+    labels.  logit_based / double_trouble phases 2 and 3: LoCa (unshifted
+    labels, T and alpha from ``cfg.loss``) and CE (shifted labels) from one
+    combined pipeline over the same hidden states and head, against the
+    teacher's logits.  Metrics are f32 scalars.
     """
     mode, phase = cfg.kd_mode, cfg.phase
-    if mode != "baseline":
-        key = (mode, phase) if mode == "double_trouble" else mode
+    key = (mode, phase) if mode == "double_trouble" else mode
+    if mode != "baseline" and key not in _LOCA_MODES:
         if key not in _NOT_PORTED:
-            raise ValueError(f"unknown kd_mode {mode!r}")
+            raise ValueError(f"unknown kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else ""))
         raise NotImplementedError(
             f"kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else "")
             + f" is not ported yet: it comes with ROADMAP.md {_NOT_PORTED[key]}"
         )
-    student = models.student
+    lc = cfg.loss
+    if mode != "baseline":
+        if models.teacher is None:
+            raise ValueError(f"kd_mode {mode!r} requires a teacher model")
+        if lc.loca_faithful_indexing:
+            raise NotImplementedError(
+                "loca_faithful_indexing (the reference's full-tensor LoCa writes) is not "
+                "ported: ROADMAP.md queue 1 item 6")
+    student, teacher = models.student, models.teacher
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
         s_hidden, _ = _forward_hidden(student, batch, "student")
         flat = s_hidden.reshape(-1, s_hidden.shape[-1])
-        ce = fused_ce_loss(flat, _fused_head(student), ce_labels(batch["labels"]), w_layout="vd")
-        metrics = {"ce": ce.detach().float(), "loss": ce.detach().float()}
-        return ce, metrics
+        head = _fused_head(student)
+        labels = batch["labels"]
+        if mode == "baseline":
+            ce = fused_ce_loss(flat, head, ce_labels(labels), w_layout="vd")
+            return ce, {"ce": ce.detach().float(), "loss": ce.detach().float()}
+        tmat = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
+        loca, ce = fused_loca_ce_loss(flat, head, tmat, labels.reshape(-1), ce_labels(labels),
+                                      temperature=lc.temperature, alpha=lc.loca_alpha)
+        del tmat  # the autograd graph holds it until the backward
+        if phase == 3 and mode == "double_trouble":
+            loss = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
+        else:
+            loss = loca + ce
+        metrics = {"loca": loca.detach().float(), "ce": ce.detach().float(),
+                   "loss": loss.detach().float()}
+        return loss, metrics
 
     return loss_fn
 
@@ -127,7 +180,7 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
 
     ``batch`` carries a leading accumulation axis A; gradients are averaged
     over it before one optimizer update.  ``teacher_params`` is accepted
-    for the JAX signature; the baseline needs none.
+    for the JAX signature; the teacher's weights live in ``models.teacher``.
     """
     loss_fn = make_loss_fn(models, cfg)
     acc_dt = getattr(cfg, "accum_dtype", "float32")
@@ -179,7 +232,8 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
 
 def make_eval_step(models: KDModels, cfg: TrainConfig):
     """``eval_step(state, teacher_params, micro_batch) -> metrics`` (the
-    reference's ``validation_step`` loss), without gradients."""
+    reference's ``validation_step`` loss, the KD terms included), without
+    gradients."""
     loss_fn = make_loss_fn(models, cfg)
 
     @torch.no_grad()

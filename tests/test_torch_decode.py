@@ -27,6 +27,9 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.mo
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.synthetic import (
     synthetic_kd_batch,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.configs import (
+    llava_onevision_tiny as port_llava_onevision_tiny,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval import (
     decode,
 )
@@ -38,6 +41,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 
 CFG = llava_onevision_tiny()
+PCFG = port_llava_onevision_tiny()  # the port's own copy of the preset
 N_NEW = 6
 KEYS = ("student_input_ids", "student_attention_mask", "student_pixel_values",
         "pack_idx", "pack_weight", "pack_valid", "tile_valid")
@@ -58,7 +62,7 @@ def setup():
         pixel_values=jb["student_pixel_values"],
         **{k: jb[k] for k in KEYS[3:]},
     )["params"]
-    sd = params_from_flax(params, CFG)
+    sd = params_from_flax(params, PCFG)
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     return params, sd, jb, tb
 
@@ -69,7 +73,7 @@ def _jax_generate(params, jb, gcfg):
 
 
 def _port(sd, attn_impl):
-    model = LlavaOnevision(CFG, attn_impl=attn_impl)
+    model = LlavaOnevision(PCFG, attn_impl=attn_impl)
     model.load_state_dict(sd)
     return model.eval()
 
@@ -96,7 +100,7 @@ def test_generator_matches_jax(setup, jax_runs, attn_impl, which):
     want = jax_runs[eos]
     gcfg = decode.GenerateConfig(max_new_tokens=N_NEW, repetition_penalty=1.2,
                                  no_repeat_ngram_size=2, eos_token_id=eos)
-    got = decode.Generator(CFG, gcfg).generate(_port(sd, attn_impl), tb)
+    got = decode.Generator(PCFG, gcfg).generate(_port(sd, attn_impl), tb)
     assert set(got) == set(OUT_KEYS)
     for k in OUT_KEYS:
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
@@ -117,13 +121,13 @@ def test_prefill_logits_match_jax(setup, attn_impl):
         pixel_values=jb["student_pixel_values"], **{k: jb[k] for k in KEYS[3:]},
         positions=jnp.broadcast_to(jnp.arange(s)[None], (b, s)), caches=caches,
         cache_index=jnp.int32(0), decode_mask=prefill_mask[:, None])
-    gen = decode.Generator(CFG, decode.GenerateConfig(max_new_tokens=N_NEW))
+    gen = decode.Generator(PCFG, decode.GenerateConfig(max_new_tokens=N_NEW))
     with torch.no_grad():
         got, caches, got_lengths = gen.prefill(_port(sd, attn_impl), tb)
     np.testing.assert_array_equal(got_lengths.numpy(), np.asarray(lengths))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
-    assert len(caches) == CFG.text.num_hidden_layers
-    assert caches[0]["k"].shape == (b, total, CFG.text.num_key_value_heads, CFG.text.head_dim)
+    assert len(caches) == PCFG.text.num_hidden_layers
+    assert caches[0]["k"].shape == (b, total, PCFG.text.num_key_value_heads, PCFG.text.head_dim)
 
 
 def test_ngram_ban_and_presence_match_jax():

@@ -41,6 +41,7 @@ CASES = [
     (2, 200, 232, 14, 2, 64, True, 150),    # prefill-like: GQA 7, cache > prompt
     (1, 128, 128, 2, 1, 64, False, 64),
     (3, 1, 97, 14, 2, 64, False, 40),       # single query row
+    (1, 200, 232, 28, 4, 128, True, 150),   # the 7B teacher's prefill heads
 ]
 
 

@@ -48,8 +48,8 @@ def test_port_imports_no_jax():
         f"import {PKG}, {PKG}.cli.inference, {PKG}.cli.common, {PKG}.eval.decode\n"
         f"import {PKG}.models, {PKG}.models.convert, {PKG}.ops.flash_attention\n"
         f"import {PKG}.ops._build, {PKG}.data.dataset\n"
-        f"{PKG}.models.convert._ref_convert_module()\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        f"    {PKG.removesuffix('_torch')!r}))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -1,0 +1,101 @@
+"""The port's online-KD CLI on the CPU: double_trouble phase 2 trains the
+tiny student against the tiny teacher on the synthetic SUNRGBD tree and
+writes its best checkpoint; phase 3 starts from it (the phase hand-off) and
+writes its own; logit_based runs; and what the port cannot run yet is
+refused with the ROADMAP.md item that ports it."""
+
+import math
+import os
+import re
+
+import pytest
+import torch
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+    train_online_kd,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (
+    checkpoint,
+)
+
+
+def _run(tmp_path, *extra):
+    return train_online_kd.main([
+        "--synthetic_data", "--cpu", "--accumulate_grad_batches", "1", "--num_workers", "1",
+        "--root_data_dir", str(tmp_path / "data"), "--checkpoint_dir", str(tmp_path / "ck"),
+        "--tensorboard_dir", str(tmp_path / "tb"), *extra,
+    ])
+
+
+def _val_loss(out):
+    val = [float(v) for v in re.findall(r"val_loss (\S+)", out)]
+    assert len(val) == 1 and math.isfinite(val[0]), out[-2000:]
+    return val[0]
+
+
+def test_phase2_then_phase3_hands_off(tmp_path, capsys):
+    _run(tmp_path, "--phase", "2")
+    out = capsys.readouterr().out
+    val2 = _val_loss(out)
+    assert "training complete" in out and "phase hand-off" not in out
+    dir2 = tmp_path / "ck" / "kd_double_trouble_phase2"
+    best2 = checkpoint.find_best_checkpoint(str(dir2))
+    assert best2 is not None and os.path.basename(best2) == checkpoint.checkpoint_name(0, val2)
+    saved2 = checkpoint.CheckpointManager(str(dir2)).restore(best2)
+    assert set(saved2) == {"params", "opt_state", "step"} and saved2["step"] == 12
+
+    _run(tmp_path, "--phase", "3")
+    out = capsys.readouterr().out
+    assert f"phase hand-off: initialized from {best2}" in out
+    assert "epoch 0 step 0 loss" in out  # AdamW and the step count start anew
+    val3 = _val_loss(out)
+    dir3 = tmp_path / "ck" / "kd_double_trouble_phase3"
+    best3 = checkpoint.find_best_checkpoint(str(dir3))
+    assert best3 is not None and os.path.basename(best3) == checkpoint.checkpoint_name(0, val3)
+    assert checkpoint.CheckpointManager(str(dir3)).restore(best3)["step"] == 12
+
+
+def test_params_only_restore_loads_the_weights_and_masters(tmp_path):
+    """The hand-off's restore: a fresh bf16 model and optimizer take the
+    checkpoint's weights and float32 masters; AdamW starts anew."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+    )
+
+    def state(seed):
+        torch.manual_seed(seed)
+        model = torch.nn.Sequential(torch.nn.Linear(4, 3)).to(torch.bfloat16)
+        return TrainState(model, make_optimizer(model, 1e-3))
+
+    src = state(0)
+    src.optimizer.apply({n: torch.ones_like(p, dtype=torch.float32)
+                         for n, p in src.model.named_parameters()})
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    path = mgr.save(0, 1.0, {"params": src.model.state_dict(),
+                             "opt_state": src.optimizer.state_dict(), "step": 1})
+    dst = mgr.restore_params(path, state(1))
+    for n, p in dst.model.named_parameters():
+        assert torch.equal(p, src.model.state_dict()[n])
+        assert torch.equal(dst.optimizer.masters[n], src.optimizer.masters[n])
+    assert dst.optimizer.count == 0 and not dst.optimizer.opt.state
+
+
+def test_logit_based_runs(tmp_path, capsys):
+    _run(tmp_path, "--kd_mode", "logit_based")
+    out = capsys.readouterr().out
+    _val_loss(out)
+    assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_logit_based_phase1"))
+
+
+@pytest.mark.parametrize("extra,match", [
+    (("--phase", "1"), "slice 5"),
+    (("--kd_mode", "feature_based"), "slice 5"),
+    (("--phase", "2", "--teacher_quant", "int8"), "slice 4"),
+    (("--phase", "2", "--teacher_quant", "int8_full"), "slice 4"),
+    (("--phase", "2", "--loca_faithful_indexing"), "queue 1 item 6"),
+    (("--phase", "2", "--dataset", "daquar"), "daquar"),
+])
+def test_refuses_what_is_not_ported(tmp_path, extra, match):
+    with pytest.raises(SystemExit, match=match):
+        _run(tmp_path, *extra)

@@ -1,0 +1,203 @@
+"""The port's KD kernels on the card against their plain PyTorch versions:
+the combined LoCa + CE forward and backward (K11, ``csrc/fused_loca_ce.cu``)
+at a ragged row count and a ragged vocab, on peaked teacher logits with
+duplicated maxima and ignored labels; the autograd route of
+``fused_loca_ce_loss`` against dense float32 LoCa + CE; the teacher's
+float32 logits from bf16 operands; and the flash forward at the 7B
+teacher's head dim (K3, D = 128).  Needs a CUDA device; skips without one.
+
+Run on the card (the tests' conftest imports jax, which the card's machine
+may lack):
+    python -m pytest --noconftest -m cuda tests/test_torch_kd_cuda.py
+
+Tolerances, as in ``chip_smoke.py``: every output is held by its relative
+Frobenius error ||got - plain|| / ||plain|| <= 1e-2 and by its max abs
+error <= 1e-2 x max(1, max |plain|).  The forward is f32 on both sides
+(the bf16 x bf16 products are exact in f32; only the summation order
+differs).  The backward rounds ds to bf16 on both sides before the two
+products and returns bf16 dh and dW (~2e-3 relative).  The tests show that
+these bounds fail a backward fed tsum = 0 and one fed g_kl = 0."""
+
+import pytest
+import torch
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.configs import (
+    llava_onevision_tiny_teacher,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (
+    loca_loss,
+    masked_cross_entropy,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
+    flash_attention as fa,
+    fused_loca as fl,
+)
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-2
+FRO_TOL = 1e-2
+D = 896  # the 0.5B student's width, the one the kernels are compiled for
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built for sm_90a)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, n, v, seed=0):
+    """hs, ws bf16; peaked f32 teacher logits (std 3) whose maximum is
+    duplicated in rows 0-5 (inside one vocab tile, and across the vocab);
+    LoCa labels ignored in rows 8-19 and at the tied maximum in row 0; CE
+    labels ignored in the last 15 rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hs = torch.randn(n, D, generator=g, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(v, D, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    tmat = torch.randn(n, v, generator=g, device=dev) * 3.0
+    top = tmat.max(dim=1).values + 2.0
+    tmat[0:4, 5] = tmat[0:4, 7] = top[0:4]
+    tmat[4:6, 3] = tmat[4:6, v - 2] = top[4:6]
+    lab = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab_ce = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab[8:20] = -1
+    lab[0] = 5
+    lab_ce[-15:] = -1
+    return hs, ws, tmat, lab, lab_ce
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    fro = ((got - want).norm() / want.norm()).item()
+    return err <= TOL * max(1.0, want.abs().max().item()) and fro <= FRO_TOL, (err, fro)
+
+
+@pytest.mark.parametrize("n,v,temp", [(200, 1000, 0.8), (130, 2048, 1.0)])
+def test_loca_ce_forward_matches_plain(dev, n, v, temp):
+    hs, ws, tmat, lab, lab_ce = _inputs(dev, n, v)
+    kw = dict(inv_t=1.0 / temp, alpha=0.8, eps=1e-8)
+    fl.reset_launch_counts()
+    got = fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, **kw)
+    torch.cuda.synchronize()
+    assert fl.loca_ce_fwd.launches == 1
+    want = fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, **kw)
+    for name, a, b in zip(("kl", "ce"), got[:2], want[:2]):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+    for name, a, b in zip(fl.ROW_STATS, got[2], want[2]):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+@pytest.mark.parametrize("g_ce_scale", [1.0, 0.0])
+def test_loca_ce_backward_matches_plain(dev, g_ce_scale):
+    n, v = 200, 1000
+    hs, ws, tmat, lab, lab_ce = _inputs(dev, n, v, seed=1)
+    kw = dict(inv_t=1.25, eps=1e-8)
+    _, _, stats = fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw)
+    g_kl = torch.ones(n, device=dev)
+    g_ce = torch.full((n,), g_ce_scale, device=dev)
+    fl.reset_launch_counts()
+    dh, dw = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, **kw)
+    torch.cuda.synchronize()
+    assert fl.loca_ce_bwd.launches == 1
+    want_dh, want_dw = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, **kw)
+    assert dh.dtype == dw.dtype == torch.bfloat16
+    for name, a, b in (("dh", dh, want_dh), ("dW", dw, want_dw)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+def test_loca_ce_backward_bounds_see_faults(dev):
+    """A backward that loses tsum (the p_sT * tsum term) or g_kl (the whole
+    KL term) fails the bounds the kernels are held by."""
+    n, v = 200, 1000
+    hs, ws, tmat, lab, lab_ce = _inputs(dev, n, v, seed=2)
+    kw = dict(inv_t=1.25, eps=1e-8)
+    _, _, stats = fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw)
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    want = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, zeros, **kw)
+    no_tsum = stats.clone()
+    no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
+    got = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, no_tsum, ones, zeros, **kw)
+    assert not all(_close(a, b)[0] for a, b in zip(got, want))
+    want = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+    got = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, zeros, ones, **kw)
+    assert not all(_close(a, b)[0] for a, b in zip(got, want))
+
+
+def test_fused_loca_ce_loss_autograd_matches_dense(dev):
+    """Values and gradients of the kernel route against LoCa + masked CE on
+    dense float32 logits (the loss functions the JAX package's fused path
+    is parity-tested against)."""
+    n, v, temp = 200, 1000, 0.8
+    hs, ws, tmat, lab, lab_ce = _inputs(dev, n, v, seed=3)
+    lab_ce[lab_ce < 0] = -100
+    hs.requires_grad_(True)
+    ws.requires_grad_(True)
+    fl.reset_launch_counts()
+    loca, ce = fl.fused_loca_ce_loss(hs, ws, tmat, lab, lab_ce, temperature=temp, alpha=0.8)
+    gh, gw = torch.autograd.grad(0.8 * loca + ce, (hs, ws))
+    assert fl.loca_ce_fwd.launches == 1 and fl.loca_ce_bwd.launches == 1
+
+    hf, wf = hs.detach().float().requires_grad_(True), ws.detach().float().requires_grad_(True)
+    logits = (hf @ wf.T)[None]
+    want_loca = loca_loss(tmat[None] * temp, logits, lab[None].long(), temperature=temp, alpha=0.8)
+    # masked_cross_entropy shifts by one: feed the CE labels one step later
+    shifted = torch.cat([torch.full_like(lab_ce[:1], -100), lab_ce])[None].long()
+    want_ce = masked_cross_entropy(torch.cat([logits, logits[:, :1]], dim=1), shifted)
+    rh, rw = torch.autograd.grad(0.8 * want_loca + want_ce, (hf, wf))
+    assert abs(loca.item() - want_loca.item()) <= 1e-4 * abs(want_loca.item())
+    assert abs(ce.item() - want_ce.item()) <= 1e-4 * abs(want_ce.item())
+    for name, a, b in (("dh", gh, rh), ("dW", gw, rw)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+def test_teacher_logits_are_float32_from_bf16_operands(dev):
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        common,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (
+        step,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.utils.synthetic import (
+        synthetic_kd_batch,
+    )
+
+    cfg = llava_onevision_tiny_teacher()
+    teacher = common.init_or_load_params(cfg, None, 1, attn_impl="xla", device=dev,
+                                         dtype=torch.bfloat16)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_kd_batch(cfg, 2, 96, seed=3).items()}
+    got = step._teacher_logits(teacher, batch, vocab=512, temperature=0.8)
+    assert got.dtype == torch.float32 and got.shape == (2 * 96, 512)
+    with torch.no_grad():
+        _, _, _, hidden = teacher(
+            input_ids=batch["teacher_input_ids"], attention_mask=batch["teacher_attention_mask"],
+            pixel_values=batch["teacher_pixel_values"], pack_idx=batch["pack_idx"],
+            pack_weight=batch["pack_weight"], pack_valid=batch["pack_valid"],
+            tile_valid=batch["tile_valid"], return_hidden=True, compute_logits=False)
+        want = hidden.reshape(-1, hidden.shape[-1]).float() @ teacher.language_model.lm_head.weight[:512].float().T / 0.8
+    # both accumulate exact bf16 products in f32: only the order differs
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_flash_forward_teacher_head_dim(dev):
+    """K3 at D = 128 (the 7B teacher's 28 q / 4 kv heads), causal with a kv
+    mask and a ragged last tile; forward only, no lse."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    q, k, v = mk(1, 300, 28, 128), mk(1, 300, 4, 128), mk(1, 300, 4, 128)
+    mask = torch.zeros(1, 300, dtype=torch.bool, device=dev)
+    mask[:, :250] = True
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, mask=mask, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_gqa.head_dim_launches == {128: 1}
+    want = fa.flash_attention_ref(q, k, v, mask, True)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    # D = 128 has no backward kernel: asking for one is refused up front
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q.requires_grad_(True), k, v, mask=mask, causal=True)

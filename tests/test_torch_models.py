@@ -23,6 +23,9 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.mo
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.synthetic import (
     synthetic_kd_batch,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.configs import (
+    llava_onevision_tiny as port_llava_onevision_tiny,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (
     LlavaOnevision,
 )
@@ -32,6 +35,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 
 CFG = llava_onevision_tiny()
+PCFG = port_llava_onevision_tiny()  # the port's own copy of the preset
 ATOL = 1e-4
 BATCH_KEYS = ("pixel_values", "pack_idx", "pack_weight", "pack_valid", "tile_valid")
 
@@ -57,8 +61,8 @@ def flax_params(batch):
 
 
 def _port_model(flax_params, attn_impl="xla"):
-    model = LlavaOnevision(CFG, attn_impl=attn_impl)
-    model.load_state_dict(params_from_flax(flax_params, CFG))
+    model = LlavaOnevision(PCFG, attn_impl=attn_impl)
+    model.load_state_dict(params_from_flax(flax_params, PCFG))
     return model.eval()
 
 
@@ -71,8 +75,8 @@ def _close(got, want, atol=ATOL):
 
 
 def test_state_dict_covers_every_param(flax_params):
-    sd = params_from_flax(flax_params, CFG)
-    model = LlavaOnevision(CFG)
+    sd = params_from_flax(flax_params, PCFG)
+    model = LlavaOnevision(PCFG)
     assert set(sd) == set(model.state_dict())
     # conv kernel HWIO -> OIHW, dense [in, out] -> [out, in]
     conv = np.asarray(flax_params["vision_tower"]["patch_embedding"]["kernel"])
@@ -220,8 +224,8 @@ def test_hf_snapshot_route_matches_hf_forward(tmp_path):
     snap = tmp_path / "snapshot"
     hf.save_pretrained(snap, safe_serialization=True)
 
-    model = LlavaOnevision(CFG)
-    model.load_state_dict(load_llava_onevision_params(str(snap), CFG))
+    model = LlavaOnevision(PCFG)
+    model.load_state_dict(load_llava_onevision_params(str(snap), PCFG))
     model.eval()
 
     rng = np.random.default_rng(0)

@@ -44,6 +44,10 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.tr
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.utils.synthetic import (
     synthetic_kd_batch,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.configs import (
+    TrainConfig as PortTrainConfig,
+    llava_onevision_tiny as port_llava_onevision_tiny,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (
     LlavaOnevision,
 )
@@ -63,11 +67,16 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 
 CFG = llava_onevision_tiny()
+PCFG = port_llava_onevision_tiny()  # the port's own copy of the preset
 LR = 1e-3
 
 
 def _cfg(**kw):
     return TrainConfig(kd_mode="baseline", ce_impl="chunked", loss_chunk_size=32, **kw)
+
+
+def _port_cfg(**kw):
+    return PortTrainConfig(kd_mode="baseline", ce_impl="chunked", loss_chunk_size=32, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +98,8 @@ def setup():
 
 
 def _port_model(params):
-    model = LlavaOnevision(CFG, attn_impl="xla")
-    model.load_state_dict(params_from_flax(params, CFG))
+    model = LlavaOnevision(PCFG, attn_impl="xla")
+    model.load_state_dict(params_from_flax(params, PCFG))
     return model.train()
 
 
@@ -114,7 +123,7 @@ def jax_loss_and_grads(setup):
 def test_loss_matches_jax(setup, jax_loss_and_grads):
     params, batch = setup
     model = _port_model(params)
-    loss, metrics = make_loss_fn(KDModels(model), _cfg())(_micro(_torch_batch(batch), 0))
+    loss, metrics = make_loss_fn(KDModels(model), _port_cfg())(_micro(_torch_batch(batch), 0))
     np.testing.assert_allclose(loss.item(), jax_loss_and_grads[0], rtol=1e-5)
     assert metrics["loss"].dtype == torch.float32 and set(metrics) == {"ce", "loss"}
 
@@ -122,7 +131,7 @@ def test_loss_matches_jax(setup, jax_loss_and_grads):
 def test_every_gradient_leaf_matches_jax(setup, jax_loss_and_grads):
     params, batch = setup
     model = _port_model(params)
-    loss, _ = make_loss_fn(KDModels(model), _cfg())(_micro(_torch_batch(batch), 0))
+    loss, _ = make_loss_fn(KDModels(model), _port_cfg())(_micro(_torch_batch(batch), 0))
     names, leaves = zip(*model.named_parameters())
     # unused parameters (the tower's post_layernorm feeds only feature KD)
     # get zero gradients, as jax.grad gives them
@@ -152,7 +161,7 @@ def test_three_step_loss_trace_matches_jax(setup, accum_dtype):
 
     model = _port_model(params)
     state = TrainState(model, make_optimizer(model, LR))
-    step = make_train_step(KDModels(model), cfg)
+    step = make_train_step(KDModels(model), _port_cfg(accum_dtype=accum_dtype))
     tb = _torch_batch(batch)
     got = []
     for _ in range(3):
@@ -166,7 +175,7 @@ def test_three_step_loss_trace_matches_jax(setup, accum_dtype):
 def test_eval_step_is_the_loss_without_gradients(setup, jax_loss_and_grads):
     params, batch = setup
     model = _port_model(params)
-    m = make_eval_step(KDModels(model), _cfg())(None, None, _micro(_torch_batch(batch), 0))
+    m = make_eval_step(KDModels(model), _port_cfg())(None, None, _micro(_torch_batch(batch), 0))
     assert not m["loss"].requires_grad
     np.testing.assert_allclose(m["loss"].item(), jax_loss_and_grads[0], rtol=1e-5)
 
@@ -309,12 +318,19 @@ def test_optimizer_follows_its_schedule():
 
 
 @pytest.mark.parametrize("kd_mode,phase,slice_", [
-    ("logit_based", 0, "slice 3"),
-    ("double_trouble", 2, "slice 3"),
-    ("double_trouble", 1, "slice 4"),
-    ("feature_based", 0, "slice 4"),
+    ("double_trouble", 1, "slice 5"),
+    ("feature_based", 0, "slice 5"),
 ])
 def test_modes_with_a_teacher_are_not_ported_yet(setup, kd_mode, phase, slice_):
     model = _port_model(setup[0])
     with pytest.raises(NotImplementedError, match=slice_):
-        make_loss_fn(KDModels(model), TrainConfig(kd_mode=kd_mode, phase=phase))
+        make_loss_fn(KDModels(model), PortTrainConfig(kd_mode=kd_mode, phase=phase))
+
+
+@pytest.mark.parametrize("kd_mode,phase", [
+    ("logit_based", 0), ("double_trouble", 2), ("double_trouble", 3),
+])
+def test_kd_modes_need_a_teacher(setup, kd_mode, phase):
+    model = _port_model(setup[0])
+    with pytest.raises(ValueError, match="requires a teacher"):
+        make_loss_fn(KDModels(model), PortTrainConfig(kd_mode=kd_mode, phase=phase))
