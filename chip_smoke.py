@@ -26,24 +26,31 @@ Phases (any failure raises, and the exit code is non-zero):
   5. serving path: greedy generation with the same student at full width
      and depth, with launch counts read around it; check the tokens and the
      prefill logits, and that the kernel path agrees with the plain path;
-  6. KD path: 6 double-trouble phase-3 train steps (AdamW, lr 1e-5, A=2 x
-     B=1) of the same student against the frozen LLaVA-OneVision-7B teacher
-     (bf16, seeded random weights), both at full width and depth, the
-     student on the depth stream and the teacher on the RGB stream, through
-     cli/train_online_kd.py's step: exact launch counts (K11 and the
-     teacher's D = 128 flash forward included), a finite and falling loss,
-     the mean time of steps 3-6, samples/s and peak memory; then the KD
-     loss and gradients on the kernel path against dense float32 LoCa + CE
-     on the plain path at full width and 2+2 layers of each model;
+  6. KD paths, all against one frozen LLaVA-OneVision-7B teacher (bf16,
+     seeded random weights, built once), the student on the depth stream
+     and the teacher on the RGB stream, both at full width and depth,
+     through cli/train_online_kd.py's step (AdamW, lr 1e-5, A=2 x B=1, a
+     fresh student each): 6 double-trouble phase-3 steps, 6 phase-1 steps
+     (the KD CLI's default: temperature KL + NT-Xent, the language model
+     frozen) and 4 feature_based steps; for each, exact launch counts, a
+     finite and falling loss, the mean time of the steps after the first
+     two, samples/s and peak memory; for phase 1 also that the float32
+     masters of the vision tower and the projector moved and the frozen
+     language model (the tied head included) did not, bit for bit; then
+     the phase-3 KD loss and gradients on the kernel path against dense
+     float32 LoCa + CE, and the phase-1 loss against dense float32 KL +
+     NT-Xent, on the plain path at full width and 2+2 layers of each model
+     (each loss and its KL term alone);
   7. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
 
-Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well)
-and the flash forward at the teacher's D = 128 against their plain
-versions, and shows that the bounds fail a K11 backward fed tsum = 0 and one
-fed g_kl = 0.
+Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
+the temperature-KL K7 and K8 (with and without dW), and the flash forward
+at the teacher's D = 128 against their plain versions, and shows that the
+bounds fail a K11 backward fed tsum = 0 and one fed g_kl = 0, and a K8 fed a
+mis-normalised teacher (lse_t + 1) and one fed g = 0 for half the rows.
 
 Needs torch with CUDA, nvcc and numpy; imports nothing of JAX or of the JAX
 package: configs and synthetic batches come from the port's own host layer.
@@ -105,6 +112,8 @@ GRAD_COSINE = 0.99
 KD_LR = 1e-5
 KD_STEPS = 6
 KD_WARMUP = 2
+# feature_based: a shorter run of the same shapes (steps 3-4 timed).
+FB_STEPS = 4
 # K11 against its plain version: max abs error <= 1e-2 x max(1, max |plain|)
 # and relative Frobenius error <= 1e-2, for every output.  The forward is f32
 # on both sides; the backward rounds ds to bf16 on both sides.
@@ -131,13 +140,16 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     set_attn_impl,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (  # noqa: E402
+    kd_kl_loss,
     loca_loss,
     masked_cross_entropy,
+    masked_ntxent_loss,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention as fa,
     fused_ce as fc,
+    fused_kl as fkl,
     fused_loca as fl,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (  # noqa: E402
@@ -174,17 +186,24 @@ KERNELS = {
                           lambda: fl.loca_ce_fwd.launches),
     "fused_loca_ce_bwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:1168",
                           lambda: fl.loca_ce_bwd.launches),
+    "fused_kl_fwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:197", lambda: fkl.kl_fwd.launches),
+    # K8's dh kernel; its dW kernel is counted apart (a frozen head skips it)
+    "fused_kl_bwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:243", lambda: fkl.kl_bwd.launches),
 }
+# Every launch count a path is held to: the kernels', and K8's dW kernel.
+COUNTERS = {**{name: k[2] for name, k in KERNELS.items()},
+            "fused_kl_bwd_dw": lambda: fkl.kl_bwd.dw_launches}
 
 
 def reset_counts() -> None:
     fa.reset_launch_counts()
     fc.reset_launch_counts()
     fl.reset_launch_counts()
+    fkl.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    return {name: k[2]() for name, k in KERNELS.items()}
+    return {name: count() for name, count in COUNTERS.items()}
 
 
 def log(msg: str) -> None:
@@ -256,6 +275,14 @@ def _errors(got, want):
     """(max abs error, relative Frobenius error) of one output, in f32."""
     diff = got.float() - want.float()
     return diff.abs().max().item(), (diff.norm() / want.float().norm()).item()
+
+
+def _cosine(a, b) -> float:
+    """Cosine of two tensors, in float64 and without the eps floor of
+    ``F.cosine_similarity``, which clamps each norm to >= 1e-8 and so scales
+    the cosine of small gradients (norms ~1e-9) down towards 0."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a @ b) / (a.norm() * b.norm())).item()
 
 
 def _hold(name, outs) -> float:
@@ -414,6 +441,7 @@ def kernel_phase(dev) -> list:
     del h, w
     torch.cuda.empty_cache()
     results += loca_kernel_phase(dev, g)
+    results += kl_kernel_phase(dev, g)
     return results
 
 
@@ -496,6 +524,80 @@ def loca_kernel_phase(dev, g) -> list:
     return results
 
 
+def kl_kernel_phase(dev, g) -> list:
+    """K7 and K8 against their plain versions at the phase-1 path's shapes:
+    N = 3072 rows, the 896-wide student head of 151936 rows, and the f32
+    teacher-logit matrix at 1/T made as the step makes it, one product of a
+    random teacher hidden [N, 3584] with a random head [V, 3584] (bf16,
+    f32 out; logits of std ~3)."""
+    cfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
+    n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
+    inv_t = 1.0 / kd_loss_config_for("double_trouble").temperature
+    hs = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(vocab, d, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    th = torch.randn(n, tcfg.text.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    wt = (torch.randn(vocab, tcfg.text.hidden_size, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    tmat = torch.mm(th, wt.T, out_dtype=torch.float32).mul_(inv_t)
+    del th, wt
+
+    def bounds(want):
+        return KD_TOL * max(1.0, want.float().abs().max().item())
+
+    def fwd():
+        return fkl.kl_fwd(hs, ws, tmat, inv_t=inv_t)
+
+    def fwd_plain():
+        return fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
+
+    got = fwd()
+    torch.cuda.synchronize()
+    want = fwd_plain()
+    err = _hold("fused_kl_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in zip(("kl", "lse_s", "lse_t"), got, want)])
+    results = [_result("fused_kl_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
+                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, *got)))]
+    _, lse_s, lse_t = want
+    del got, want
+
+    # Unit cotangents; dh alone (a frozen head, phase 1) and dh with dW.
+    g_kl = torch.ones(n, device=dev)
+    want_dh, want_dw = fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t)
+    dh, dw = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t)
+    dh_only, no_dw = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t, need_dw=False)
+    torch.cuda.synchronize()
+    if no_dw is not None or not torch.equal(dh_only, dh):
+        raise AssertionError("K8 without dW gave a dW or another dh")
+    err = _hold("fused_kl_bwd", [("dh", dh, want_dh, bounds(want_dh)), ("dW", dw, want_dw, bounds(want_dw))])
+    del dh, dw, dh_only
+    # a backward against a mis-normalised teacher (lse_t + 1: p_t / e) ...
+    faulty = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t + 1.0, g_kl, inv_t=inv_t)
+    _must_fail("fused_kl_bwd", "lse_t + 1", list(zip(faulty, (want_dh, want_dw))))
+    # ... and one that loses the cotangent of every other row
+    half = g_kl.clone()
+    half[::2] = 0.0
+    faulty = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, half, inv_t=inv_t)
+    _must_fail("fused_kl_bwd", "g = 0 in half the rows", list(zip(faulty, (want_dh, want_dw))))
+    del faulty, want_dh, want_dw
+
+    def bwd(need_dw=True):
+        return fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t, need_dw=need_dw)
+
+    def bwd_plain():
+        return fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t)
+
+    # no single PyTorch call computes the KL rows or their gradient over a
+    # streamed head
+    results.append(_result("fused_kl_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
+                           bound(6 * n * d * vocab,
+                                 2 * nbytes(hs, ws) + nbytes(tmat, lse_s, lse_t, g_kl))))
+    dh_ms = time_ms(lambda: bwd(need_dw=False), iters=3)
+    dh_bound = bound(4 * n * d * vocab, 2 * nbytes(hs) + nbytes(ws, tmat, lse_s, lse_t, g_kl))
+    log(f"[kernel] fused_kl_bwd without dW (a frozen head, as in phase 1): {dh_ms:.4f} ms, "
+        f"bound {dh_bound[0]:.4f} ms ({dh_bound[1]})")
+    del hs, ws, tmat
+    torch.cuda.empty_cache()
+    return results
+
+
 def _device_batch(batch, dev, streams=("student_",)) -> dict:
     """The batch on the card; the teacher_* (RGB) keys only if asked for."""
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
@@ -546,7 +648,7 @@ def training_phase(dev) -> dict:
     per_step = {"flash_fwd_mha": cfg.vision.num_hidden_layers, "flash_fwd_gqa": cfg.text.num_hidden_layers,
                 "flash_bwd_mha": cfg.vision.num_hidden_layers, "flash_bwd_gqa": cfg.text.num_hidden_layers,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
-    want = {k: per_step.get(k, 0) * ACCUM * TRAIN_STEPS for k in KERNELS}
+    want = {k: per_step.get(k, 0) * ACCUM * TRAIN_STEPS for k in COUNTERS}
     log(f"[train] launches over {TRAIN_STEPS} steps: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
@@ -623,7 +725,7 @@ def agreement_phase(dev) -> None:
     if not (rel <= LOSS_REL_TOL):
         raise AssertionError(f"kernel and plain paths disagree on the loss: {rel}")
     for n, gk, gp in zip(names, grads_k, grads_p):
-        cos = torch.nn.functional.cosine_similarity(gk.float().flatten(), gp.float().flatten(), dim=0).item()
+        cos = _cosine(gk, gp)
         log(f"[agree] grad {n}: cosine {cos:.6f} (tol {GRAD_COSINE}), "
             f"norms {gk.float().norm().item():.4e} / {gp.float().norm().item():.4e}")
         if not (cos >= GRAD_COSINE):
@@ -632,33 +734,55 @@ def agreement_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def kd_training_phase(dev) -> dict:
-    """6 double-trouble phase-3 steps of the 0.5B student against the frozen
-    bf16 7B teacher, both at full width and depth."""
-    scfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
+def _build_teacher(dev):
+    """The frozen bf16 LLaVA-OneVision-7B teacher at full width and depth,
+    built once and shared by the KD paths."""
+    t0 = time.perf_counter()
+    teacher = common.init_or_load_params(llava_onevision_7b(), None, seed=1, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in teacher.parameters())
+    log(f"[kd] teacher ({n_t / 1e9:.3f} B params, bf16, frozen) set-up {time.perf_counter() - t0:.1f} s")
+    return teacher
+
+
+def kd_path(dev, teacher, tag: str, mode: str, phase: int, steps: int, per_micro: dict,
+            vision_moves: bool = False) -> dict:
+    """``steps`` KD train steps of the 0.5B student (a fresh one, full width
+    and depth) in ``mode``/``phase`` against the frozen ``teacher``: exact
+    launch counts (``per_micro`` per micro-batch), a finite and falling loss,
+    the mean time of the steps after the first ``KD_WARMUP``, samples/s and
+    peak memory; that every parameter the phase freezes kept its bits and,
+    with ``vision_moves``, that every float32 master of the vision tower and
+    the projector moved."""
+    scfg = llava_onevision_0_5b()
     t0 = time.perf_counter()
     student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16, trainable=True)
-    teacher = common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
-                                         dtype=torch.bfloat16)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
-    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"),
+    cfg = TrainConfig(kd_mode=mode, phase=phase, loss=kd_loss_config_for(mode),
                       accumulate_grad_batches=ACCUM, learning_rate=KD_LR, cosine_t_max=0)
-    state = TrainState(student, make_optimizer(student, KD_LR, kd_mode="double_trouble", phase=3))
+    state = TrainState(student, make_optimizer(student, KD_LR, kd_mode=mode, phase=phase))
     step = make_train_step(KDModels(student, teacher), cfg)
     torch.cuda.synchronize()
     n_s = sum(p.numel() for p in student.parameters())
-    n_t = sum(p.numel() for p in teacher.parameters())
-    log(f"[kd] student ({n_s / 1e6:.1f} M params, bf16; float32 masters) + teacher "
-        f"({n_t / 1e9:.3f} B params, bf16, frozen) + batch set-up {time.perf_counter() - t0:.1f} s; "
-        f"memory after set-up {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; A={ACCUM} x B=1, "
+    log(f"[{tag}] {mode} phase {phase}: student ({n_s / 1e6:.1f} M params, bf16; float32 masters) + batch "
+        f"set-up {time.perf_counter() - t0:.1f} s; memory after set-up "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; A={ACCUM} x B=1, "
         f"{int(tb['student_attention_mask'][0].sum())} tokens in a {tb['student_input_ids'].shape[-1]} bucket")
+    # host copies (so that the peak on the card stays the step's own): the
+    # frozen parameters, and the masters of the vision side where it trains
+    frozen = {n: p.detach().to("cpu", copy=True) for n, p in student.named_parameters()
+              if n not in state.optimizer.params}
+    vision = ("vision_tower.", "multi_modal_projector.")
+    masters0 = {n: m.detach().to("cpu", copy=True) for n, m in state.optimizer.masters.items()
+                if vision_moves and n.startswith(vision)}
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, times, parts = [], [], []
-    for _ in range(KD_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, None, tb)
@@ -666,44 +790,117 @@ def kd_training_phase(dev) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
-        parts.append((metrics["loca"].item(), metrics["ce"].item()))
+        parts.append({k: v.item() for k, v in metrics.items() if k != "loss"})
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    v, t = scfg.vision.num_hidden_layers, scfg.text.num_hidden_layers
-    per_step = {"flash_fwd_mha": 2 * v, "flash_fwd_gqa": t, "flash_fwd_gqa_d128": tcfg.text.num_hidden_layers,
-                "flash_bwd_mha": v, "flash_bwd_gqa": t, "fused_loca_ce_fwd": 1, "fused_loca_ce_bwd": 1}
-    want = {k: per_step.get(k, 0) * ACCUM * KD_STEPS for k in KERNELS}
-    log(f"[kd] launches over {KD_STEPS} steps: {launches} (expected {want}; flash_fwd_mha counts "
+    want = {k: per_micro.get(k, 0) * ACCUM * steps for k in COUNTERS}
+    log(f"[{tag}] launches over {steps} steps: {launches} (expected {want}; flash_fwd_mha counts "
         f"the student's and the teacher's SigLIP)")
     if launches != want:
-        raise AssertionError(f"KD launch counts {launches} != {want}")
+        raise AssertionError(f"{mode} phase {phase} launch counts {launches} != {want}")
     timed = times[KD_WARMUP:]
     step_ms = sum(timed) / len(timed)
-    log(f"[kd] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
-    log(f"[kd] (loca, ce) per step: {', '.join(f'({a:.6f}, {b:.6f})' for a, b in parts)}")
-    log(f"[kd] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of steps {KD_WARMUP + 1}-{KD_STEPS} "
+    log(f"[{tag}] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"[{tag}] terms per step: " + ", ".join(
+        "(" + ", ".join(f"{k} {v:.6e}" for k, v in p.items()) + ")" for p in parts))
+    log(f"[{tag}] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of steps {KD_WARMUP + 1}-{steps} "
         f"{step_ms:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), "
         f"{ACCUM / (step_ms / 1e3):.3f} samples/s; peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     if not all(x == x and abs(x) < float("inf") for x in losses):
-        raise AssertionError(f"non-finite KD loss {losses}")
+        raise AssertionError(f"non-finite {mode} phase {phase} loss {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"KD loss did not fall over {KD_STEPS} steps: {losses}")
-    del state, step, student, teacher, tb
+        raise AssertionError(f"{mode} phase {phase} loss did not fall over {steps} steps: {losses}")
+    kept = [n for n, p in student.named_parameters() if n in frozen and torch.equal(p.detach().cpu(), frozen[n])]
+    moved = [n for n, m in state.optimizer.masters.items() if n in masters0 and not torch.equal(m.cpu(), masters0[n])]
+    roots = sorted({n.split(".", 1)[0] for n in frozen})
+    log(f"[{tag}] frozen: {len(kept)} of {len(frozen)} parameters ({', '.join(roots) or 'none'}) kept their "
+        f"bits; vision tower + projector: {len(moved)} of {len(masters0)} float32 masters moved")
+    if len(kept) != len(frozen) or len(moved) != len(masters0):
+        raise AssertionError(f"{mode} phase {phase}: a frozen parameter moved or a trained master did not")
+    del state, step, student, tb
     torch.cuda.empty_cache()
     return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
 
 
-def kd_agreement_phase(dev) -> None:
-    """The KD loss and gradients on the kernel path against dense float32
-    LoCa + masked CE on the plain path (plain attention, full logits), at
-    full width and 2 SigLIP + 2 Qwen2 layers of each model."""
+def _kd_per_micro(**loss_kernels) -> dict:
+    """Launches per KD micro-batch: the flash kernels of both models (K1 for
+    both SigLIP towers, the student's K3/K2/K4, the teacher's K3 at d=128),
+    then the loss's own."""
+    v, t = llava_onevision_0_5b().vision.num_hidden_layers, llava_onevision_0_5b().text.num_hidden_layers
+    return {"flash_fwd_mha": 2 * v, "flash_fwd_gqa": t,
+            "flash_fwd_gqa_d128": llava_onevision_7b().text.num_hidden_layers,
+            "flash_bwd_mha": v, "flash_bwd_gqa": t, **loss_kernels}
+
+
+def kd_training_phase(dev, teacher) -> dict:
+    """6 double-trouble phase-3 steps: K11 for LoCa + CE."""
+    return kd_path(dev, teacher, "kd", "double_trouble", 3, KD_STEPS,
+                   _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1))
+
+
+def kd_phase1_phase(dev, teacher) -> dict:
+    """6 double-trouble phase-1 steps (the KD CLI's default): K7 and K8's dh
+    for the temperature KL, no dW (the tied head is part of the frozen
+    language model), and the flash backwards through the frozen LM into the
+    projector and the vision tower."""
+    return kd_path(dev, teacher, "kd1", "double_trouble", 1, KD_STEPS,
+                   _kd_per_micro(fused_kl_fwd=1, fused_kl_bwd=1), vision_moves=True)
+
+
+def feature_based_phase(dev, teacher) -> dict:
+    """4 feature_based steps: K7, K8 with dW (the head trains), and the fused
+    CE K5/K6."""
+    return kd_path(dev, teacher, "kdfb", "feature_based", 0, FB_STEPS,
+                   _kd_per_micro(fused_kl_fwd=1, fused_kl_bwd=1, fused_kl_bwd_dw=1, fused_ce_fwd=1,
+                                 fused_ce_bwd=1))
+
+
+def _check_agreement(tag: str, names, terms) -> None:
+    """Each (label, kernel value, plain value, kernel grads, plain grads) of
+    ``terms``: value rel. diff <= LOSS_REL_TOL, gradient cosine >=
+    GRAD_COSINE for each parameter of ``names``."""
+    for term, vk, vp, gks, gps in terms:
+        rel = abs(vk.item() - vp.item()) / abs(vp.item())
+        log(f"[{tag}] 2+2 layers of each model, full width: {term} kernel path {vk.item():.6e}, "
+            f"plain path {vp.item():.6e}, rel diff {rel:.3e} (tol {LOSS_REL_TOL})")
+        if not (rel <= LOSS_REL_TOL):
+            raise AssertionError(f"kernel and plain KD paths disagree on the {term}: {rel}")
+        for n, gk, gp in zip(names, gks, gps):
+            cos = _cosine(gk, gp)
+            log(f"[{tag}] {term} grad {n}: cosine {cos:.6f} (tol {GRAD_COSINE}), "
+                f"norms {gk.float().norm().item():.4e} / {gp.float().norm().item():.4e}")
+            if not (cos >= GRAD_COSINE):
+                raise AssertionError(f"kernel and plain KD gradients ({term}) of {n} disagree: cosine {cos}")
+
+
+def _plain_forward(model, tb, prefix):
+    """(final-norm hidden, per-tile vision features) on the plain path."""
+    set_attn_impl(model, "xla")
+    _, vis, _, hidden = model(
+        input_ids=tb[f"{prefix}_input_ids"], attention_mask=tb[f"{prefix}_attention_mask"],
+        pixel_values=tb[f"{prefix}_pixel_values"], pack_idx=tb["pack_idx"],
+        pack_weight=tb["pack_weight"], pack_valid=tb["pack_valid"], tile_valid=tb["tile_valid"],
+        return_hidden=True, compute_logits=False)
+    return hidden, vis
+
+
+def _agreement_models(dev):
+    """Student and teacher at full width and 2 SigLIP + 2 Qwen2 layers, the
+    batch with both streams."""
     scfg, tcfg = _cut(llava_onevision_0_5b()), _cut(llava_onevision_7b())
     student = common.init_or_load_params(scfg, None, seed=1, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16, trainable=True)
     teacher = common.init_or_load_params(tcfg, None, seed=2, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
-    tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
+    return student, teacher, _device_batch(batch, dev, streams=("student_", "teacher_"))
+
+
+def kd_agreement_phase(dev) -> None:
+    """The KD loss and gradients on the kernel path against dense float32
+    LoCa + masked CE on the plain path (plain attention, full logits), at
+    full width and 2 SigLIP + 2 Qwen2 layers of each model."""
+    student, teacher, tb = _agreement_models(dev)
     cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"))
     lc = cfg.loss
     names = ("language_model.embed_tokens.weight", "language_model.layers.0.self_attn.q_proj.weight",
@@ -718,7 +915,7 @@ def kd_agreement_phase(dev) -> None:
     # the step's own pieces, so that the check can see it under the CE.
     s_hidden, _ = kd_step._forward_hidden(student, tb, "student")
     head = student.language_model.embed_tokens.weight
-    tmat = kd_step._teacher_logits(teacher, tb, head.shape[0], lc.temperature)
+    tmat, _ = kd_step._teacher_logits(teacher, tb, head.shape[0], lc.temperature)
     loca_k, _ = fl.fused_loca_ce_loss(s_hidden.reshape(-1, s_hidden.shape[-1]), head, tmat,
                                       tb["labels"].reshape(-1), kd_step.ce_labels(tb["labels"]),
                                       temperature=lc.temperature, alpha=lc.loca_alpha)
@@ -730,19 +927,9 @@ def kd_agreement_phase(dev) -> None:
         if launches[k] == 0:
             raise AssertionError(f"the KD kernel path skipped {k}: {launches}")
 
-    set_attn_impl(student, "xla")
-    set_attn_impl(teacher, "xla")
-
-    def hidden(model, prefix):
-        return model(
-            input_ids=tb[f"{prefix}_input_ids"], attention_mask=tb[f"{prefix}_attention_mask"],
-            pixel_values=tb[f"{prefix}_pixel_values"], pack_idx=tb["pack_idx"],
-            pack_weight=tb["pack_weight"], pack_valid=tb["pack_valid"], tile_valid=tb["tile_valid"],
-            return_hidden=True, compute_logits=False)[3]
-
     with torch.no_grad():
-        t_logits = hidden(teacher, "teacher").float() @ teacher.language_model.lm_head.weight.float().T
-    s_logits = hidden(student, "student").float() @ student.language_model.embed_tokens.weight.float().T
+        t_logits = _plain_forward(teacher, tb, "teacher")[0].float() @ teacher.language_model.lm_head.weight.float().T
+    s_logits = _plain_forward(student, tb, "student")[0].float() @ head.float().T
     loca = loca_loss(t_logits, s_logits, tb["labels"], lc.temperature, lc.loca_alpha)
     ce = masked_cross_entropy(s_logits, tb["labels"])
     loss_p = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
@@ -751,20 +938,56 @@ def kd_agreement_phase(dev) -> None:
     loca_grads_p = torch.autograd.grad(loca, leaves)
     del s_logits, ce
 
-    for term, vk, vp, gks, gps in (("loss", loss_k, loss_p, grads_k, grads_p),
-                                   ("LoCa term", loca_k, loca, loca_grads_k, loca_grads_p)):
-        rel = abs(vk.item() - vp.item()) / abs(vp.item())
-        log(f"[kd-agree] 2+2 layers of each model, full width: {term} kernel path {vk.item():.6e}, "
-            f"plain path {vp.item():.6e}, rel diff {rel:.3e} (tol {LOSS_REL_TOL})")
-        if not (rel <= LOSS_REL_TOL):
-            raise AssertionError(f"kernel and plain KD paths disagree on the {term}: {rel}")
-        for n, gk, gp in zip(names, gks, gps):
-            cos = torch.nn.functional.cosine_similarity(gk.float().flatten(), gp.float().flatten(), dim=0).item()
-            log(f"[kd-agree] {term} grad {n}: cosine {cos:.6f} (tol {GRAD_COSINE}), "
-                f"norms {gk.float().norm().item():.4e} / {gp.float().norm().item():.4e}")
-            if not (cos >= GRAD_COSINE):
-                raise AssertionError(f"kernel and plain KD gradients ({term}) of {n} disagree: cosine {cos}")
+    _check_agreement("kd-agree", names, (("loss", loss_k, loss_p, grads_k, grads_p),
+                                         ("LoCa term", loca_k, loca, loca_grads_k, loca_grads_p)))
     del student, teacher, grads_k, grads_p, loca_grads_k, loca_grads_p, loca
+    torch.cuda.empty_cache()
+
+
+def kd_phase1_agreement_phase(dev) -> None:
+    """The phase-1 loss (0.1 KL + 0.5 NT-Xent) and its gradients on the
+    kernel path against dense float32 ``kd_kl_loss`` + ``masked_ntxent_loss``
+    on the plain path, at full width and 2 SigLIP + 2 Qwen2 layers of each
+    model; and the KL term alone, which its 1 / (N V) normalisation makes
+    tiny beside NT-Xent."""
+    student, teacher, tb = _agreement_models(dev)
+    cfg = TrainConfig(kd_mode="double_trouble", phase=1, loss=kd_loss_config_for("double_trouble"))
+    lc = cfg.loss
+    names = ("vision_tower.layers.0.mlp.fc1.weight", "multi_modal_projector.linear_1.weight",
+             "vision_tower.layers.0.self_attn.q_proj.weight")
+    params = dict(student.named_parameters())
+    leaves = [params[n] for n in names]
+
+    reset_counts()
+    loss_k, _ = make_loss_fn(KDModels(student, teacher), cfg)(tb)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    s_hidden, _ = kd_step._forward_hidden(student, tb, "student")
+    head = student.language_model.embed_tokens.weight
+    tmat, _ = kd_step._teacher_logits(teacher, tb, head.shape[0], lc.temperature)
+    kl_k = fkl.fused_kl_loss(s_hidden.reshape(-1, s_hidden.shape[-1]), head, tmat, temperature=lc.temperature)
+    del tmat
+    kl_grads_k = torch.autograd.grad(kl_k, leaves)
+    launches = read_counts()
+    for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_fwd_gqa_d128", "flash_bwd_mha", "flash_bwd_gqa",
+              "fused_kl_fwd", "fused_kl_bwd"):
+        if launches[k] == 0:
+            raise AssertionError(f"the phase-1 kernel path skipped {k}: {launches}")
+
+    with torch.no_grad():
+        t_hidden, t_vis = _plain_forward(teacher, tb, "teacher")
+        t_logits = t_hidden.float() @ teacher.language_model.lm_head.weight.float().T
+    s_hidden, s_vis = _plain_forward(student, tb, "student")
+    kl = kd_kl_loss(s_hidden.float() @ head.float().T, t_logits, lc.temperature)
+    con = masked_ntxent_loss(s_vis.flatten(0, 1).float(), t_vis.flatten(0, 1).float(),
+                             tb["tile_valid"].reshape(-1), lc.ntxent_temperature)
+    loss_p = lc.soft_target_weight * kl + lc.contrastive_weight * con
+    del t_logits
+    grads_p = torch.autograd.grad(loss_p, leaves, retain_graph=True)
+    kl_grads_p = torch.autograd.grad(kl, leaves)
+
+    _check_agreement("kd1-agree", names, (("loss", loss_k, loss_p, grads_k, grads_p),
+                                          ("KL term", kl_k, kl, kl_grads_k, kl_grads_p)))
+    del student, teacher, grads_k, grads_p, kl_grads_k, kl_grads_p, kl, con
     torch.cuda.empty_cache()
 
 
@@ -792,7 +1015,7 @@ def main_path_phase(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     want.update(flash_fwd_mha=cfg.vision.num_hidden_layers * GEN_CALLS,
                 flash_fwd_gqa=cfg.text.num_hidden_layers * GEN_CALLS)
     log(f"[main] launches over {GEN_CALLS} generate calls: {launches} (expected {want})")
@@ -834,7 +1057,7 @@ def main_path_phase(dev) -> dict:
         raise AssertionError(f"prefill logits shape {shape}, finite={finite}")
     diff = (flash_next - plain_next).abs().max().item()
     scale = plain_next.abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(flash_next, plain_next, dim=0).item()
+    cos = _cosine(flash_next, plain_next)
     same_argmax = int(flash_next.argmax()) == int(plain_next.argmax())
     log(f"[main] prefill {prefill_ms:.1f} ms; decode {(ms_call - prefill_ms) / (N_NEW - 1):.2f} ms/step "
         f"(from the generate time)")
@@ -878,15 +1101,26 @@ def main() -> int:
     train = training_phase(dev)
     agreement_phase(dev)
     serve = main_path_phase(dev)
-    kd = kd_training_phase(dev)
+    teacher = _build_teacher(dev)
+    kd = kd_training_phase(dev, teacher)
+    kd1 = kd_phase1_phase(dev, teacher)
+    kdfb = feature_based_phase(dev, teacher)
+    del teacher
+    torch.cuda.empty_cache()
     kd_agreement_phase(dev)
-    # launches: the three driven paths, each counted from 0 around its own run
+    kd_phase1_agreement_phase(dev)
+    # launches: the driven paths, each counted from 0 around its own run
+    paths = (train, serve, kd, kd1, kdfb)
     for kr in kernels:
-        kr["launches"] = sum(path["launches"][kr["name"]] for path in (train, serve, kd))
+        kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
         f"({ACCUM / (train['step_ms'] / 1e3):.3f} samples/s), peak {train['peak'] / 2**30:.2f} GiB; "
-        f"generate {serve['ms_call']:.1f} ms/call; KD step {kd['step_ms']:.1f} ms "
-        f"({ACCUM / (kd['step_ms'] / 1e3):.3f} samples/s), peak {kd['peak'] / 2**30:.2f} GiB")
+        f"generate {serve['ms_call']:.1f} ms/call")
+    for name, r in (("KD phase 3", kd), ("KD phase 1", kd1), ("feature_based", kdfb)):
+        log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
+            f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "
+        f"(phase 1 {kd1['launches']['fused_kl_bwd_dw']}, feature_based {kdfb['launches']['fused_kl_bwd_dw']})")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -4,20 +4,22 @@ flag parity with the reference's per-config ``train_online_kd.py`` scripts).
 ``--kd_mode {logit_based,feature_based,double_trouble}`` and ``--phase
 {1,2,3}``: the 0.5B student learns from the frozen LLaVA-OneVision-7B teacher
 (bf16, built with ``seed + 1``), the student on the depth stream and the
-teacher on the RGB stream.  Ported: ``logit_based`` and ``double_trouble``
-phases 2 and 3 (LoCa + CE).  A fresh double_trouble phase N > 1 run starts
-from phase N - 1's best checkpoint (the reference's phase hand-off);
-``--load_checkpoint`` resumes this phase's own best.  Checkpoints go to
-``<checkpoint_dir>/kd_{mode}_phase{phase}``.
+teacher on the RGB stream.  Every mode runs: ``double_trouble`` phase 1
+(the default: temperature KL + NT-Xent, the language model frozen), phase 2
+(LoCa + CE, the vision tower frozen) and phase 3, ``logit_based`` (LoCa +
+CE) and ``feature_based`` (KL + CE + NT-Xent).  A fresh double_trouble
+phase N > 1 run starts from phase N - 1's best checkpoint (the reference's
+phase hand-off); ``--load_checkpoint`` resumes this phase's own best.
+Checkpoints go to ``<checkpoint_dir>/kd_{mode}_phase{phase}``.
 
-Refused with the ROADMAP.md item that ports them: ``--phase 1`` of
-double_trouble and ``feature_based`` (slice 5), ``--teacher_quant int8`` /
-``int8_full`` (slice 4), ``--loca_faithful_indexing`` (queue 1 item 6) and
-``--dataset daquar`` (queue 1 item 1).
+Refused with the ROADMAP.md item that ports them: ``--teacher_quant int8``
+/ ``int8_full`` (slice 4), ``--loca_faithful_indexing`` (queue 1 item 6)
+and ``--dataset daquar`` (queue 1 item 1).
 
-Offline smoke on the CPU (tiny configs, synthetic SUNRGBD tree):
+Offline smoke on the CPU (tiny configs, synthetic SUNRGBD tree), the
+three-phase chain:
   python -m knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli.train_online_kd \\
-      --synthetic_data --cpu --phase 2 --accumulate_grad_batches 1
+      --synthetic_data --cpu --accumulate_grad_batches 1 --phase 1   # then --phase 2, --phase 3
 """
 
 from __future__ import annotations
@@ -52,11 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """SystemExit naming the ROADMAP.md item for what this port cannot run."""
-    if args.kd_mode == "feature_based" or (args.kd_mode == "double_trouble" and args.phase == 1):
-        raise SystemExit(
-            f"--kd_mode {args.kd_mode}" + (" --phase 1" if args.kd_mode == "double_trouble" else "")
-            + " is not ported yet: it comes with ROADMAP.md slice 5 (the temperature KL "
-            "kernels K7/K8 + NT-Xent); double_trouble runs --phase 2 or 3")
     if args.teacher_quant != "none":
         raise SystemExit(
             f"--teacher_quant {args.teacher_quant} is not ported yet: it comes with ROADMAP.md "

@@ -1,13 +1,16 @@
 """Loss primitives (port of the JAX package's ``losses/kd_losses.py``).
 
 Ported so far: ``IGNORE_INDEX``, :func:`masked_cross_entropy`
-(`kd_losses.py:22-45`), and the paper-correct LoCa term with its helpers,
+(`kd_losses.py:22-45`); the temperature KL :func:`kd_kl_loss`
+(`kd_losses.py:59-77`) and the paper-correct LoCa term with its helpers,
 :func:`truncate_teacher_logits`, :func:`loca_calibrated_probs` and
 :func:`loca_loss` (`kd_losses.py:48-191`), which every test of the fused
-LoCa + CE kernels holds them to.  The temperature KL, NT-Xent, OFA and
-feature MSE come with the slice that ports phase 1 and feature_based
-(ROADMAP.md, slice 5).  Reductions follow torch's: ``F.kl_div(reduction=
-'mean')`` divides by the total element count (B*S*V).
+KL and LoCa + CE kernels holds them to; and the contrastive loss of phase 1
+and feature_based, :func:`pool_and_normalize`, :func:`ntxent_loss` and
+:func:`masked_ntxent_loss` (`kd_losses.py:194-266`), plain PyTorch as the
+JAX package leaves it to XLA.  OFA and feature MSE are not ported.
+Reductions follow torch's: ``F.kl_div(reduction='mean')`` divides by the
+total element count (B*S*V).
 """
 
 from __future__ import annotations
@@ -38,6 +41,19 @@ def truncate_teacher_logits(teacher_logits: torch.Tensor, student_vocab: int) ->
     """Teacher/student vocab mismatch -> prefix truncation (the reference's
     ``teacher_logits[:, :, :student_logits.size(2)]``)."""
     return teacher_logits[..., :student_vocab]
+
+
+def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+               temperature: float) -> torch.Tensor:
+    """Temperature KL: mean over all elements of p_T (log p_T - log p_S),
+    times T^2 (``F.kl_div(log_softmax(s / T), softmax(t / T),
+    reduction='mean') * T**2``), the teacher truncated to the student vocab.
+    Computed in f32."""
+    teacher_logits = truncate_teacher_logits(teacher_logits, student_logits.shape[-1])
+    log_p_t = torch.log_softmax(teacher_logits.float() / temperature, dim=-1)
+    log_p_s = torch.log_softmax(student_logits.float() / temperature, dim=-1)
+    kl = torch.exp(log_p_t) * (log_p_t - log_p_s)
+    return kl.mean() * temperature**2
 
 
 def loca_calibrated_probs(
@@ -96,3 +112,44 @@ def loca_loss(
     safe_log = torch.log(torch.where(pos, loca_t, torch.ones_like(loca_t)))
     kl = torch.where(pos, loca_t * (safe_log - log_p_s), torch.zeros_like(loca_t))
     return kl.mean() * temperature**2
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
+    """L2 normalize with a gradient that is finite at x == 0: rsqrt of
+    max(|x|^2, eps), so a padded, all-zero tile row has a flat gradient
+    instead of the NaN of x / ||x||."""
+    sq = (x * x).sum(dim=-1, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=eps))
+
+
+def pool_and_normalize(features: torch.Tensor) -> torch.Tensor:
+    """Mean-pool vision tokens, then L2-normalize: [B, T, D] -> [B, D]."""
+    return _l2_normalize(features.mean(dim=1))
+
+
+def _similarity(student_features, teacher_features, temperature):
+    """Cosine similarities / temperature, [N, M] in f32 whatever the feature
+    dtype (the features are normalized in their own dtype)."""
+    s = _l2_normalize(student_features).float()
+    t = _l2_normalize(teacher_features).float()
+    return (s @ t.T) / temperature
+
+
+def ntxent_loss(student_features: torch.Tensor, teacher_features: torch.Tensor,
+                temperature: float = 0.07) -> torch.Tensor:
+    """NT-Xent over in-batch pairs: CE of the similarity rows against the
+    diagonal.  Identically zero at batch size 1, as in the reference."""
+    log_probs = torch.log_softmax(_similarity(student_features, teacher_features, temperature), dim=-1)
+    return -log_probs.diagonal().mean()
+
+
+def masked_ntxent_loss(student_features: torch.Tensor, teacher_features: torch.Tensor,
+                       valid: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """NT-Xent over a padded item axis (the anyres tiles): ``valid`` [N] bool
+    masks padding out of the similarity columns (with the f32 minimum, not
+    -inf) and out of the mean.  Features [N, D]."""
+    logits = _similarity(student_features, teacher_features, temperature)
+    logits = torch.where(valid[None, :], logits, torch.finfo(logits.dtype).min)
+    diag = torch.log_softmax(logits, dim=-1).diagonal()
+    n_valid = valid.sum().clamp(min=1)
+    return -(torch.where(valid, diag, torch.zeros_like(diag)).sum() / n_valid)

@@ -11,9 +11,10 @@ nothing falls back.
 
 Nothing here runs at import: ``load_library`` is called by the first kernel
 launch.  The launchers below take tensors already checked by the op
-modules (``flash_attention``, ``fused_ce``, ``fused_loca``); pointers stay alive until the
-kernels end because the callers hold the tensors and the launches are
-ordered on the current stream with their later use.
+modules (``flash_attention``, ``fused_ce``, ``fused_loca``, ``fused_kl``);
+pointers stay alive until the kernels end because the callers hold the
+tensors and the launches are ordered on the current stream with their
+later use.
 """
 
 from __future__ import annotations
@@ -114,6 +115,11 @@ def load_library() -> ctypes.CDLL:
         # h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, N, V, DM,
         # nsplit, inv_t, log_eps, stream
         "kdss_loca_ce_bwd": [vp] * 11 + [ci] * 4 + [cf] * 2 + [vp],
+        # h, w, tmat, part, kl, lse_s, lse_t, N, V, DM, nsplit, inv_t, stream
+        "kdss_kl_fwd": [vp] * 7 + [ci] * 4 + [cf, vp],
+        # h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw (or null), N, V, DM, nsplit,
+        # inv_t, stream
+        "kdss_kl_bwd": [vp] * 9 + [ci] * 4 + [cf, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -205,3 +211,22 @@ def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, 
             lab.data_ptr(), lab_ce.data_ptr(), rowstats.data_ptr(), g_kl.data_ptr(),
             g_ce.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n, w.shape[0],
             dm, dh_part.shape[0], float(inv_t), float(log_eps))
+
+
+def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
+    """Temperature KL forward (K7) over a [V, DM] head and an f32 [N, V]
+    teacher-logit matrix at 1/T."""
+    n, dm = h.shape
+    _aligned(h, w)
+    _launch("kdss_kl_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), part.data_ptr(),
+            kl.data_ptr(), lse_s.data_ptr(), lse_t.data_ptr(), n, w.shape[0], dm, part.shape[1],
+            float(inv_t))
+
+
+def kl_bwd(h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw, inv_t) -> None:
+    """Temperature KL backward (K8): dh, and dW unless ``dw`` is None."""
+    n, dm = h.shape
+    _aligned(h, w, dh, dw)
+    _launch("kdss_kl_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lse_s.data_ptr(),
+            lse_t.data_ptr(), g.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
+            w.shape[0], dm, dh_part.shape[0], float(inv_t))

@@ -38,7 +38,8 @@ import math
 
 import torch
 
-from .fused_ce import REF_CHUNK, KERNEL_DIMS, _n_split
+from . import fused_kl
+from .fused_ce import REF_CHUNK, _n_split
 
 # Per-row statistics the forward hands to the backward, the rows of an f32
 # [6, N] tensor (the order of the kernels' `Row` enum).
@@ -130,27 +131,12 @@ def loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, *, inv_t:
 
 
 def kernel_args(hs, ws, tmat, lab, lab_ce):
-    """Check what the kernels take; raise ValueError on anything else."""
-    if hs.ndim != 2 or ws.ndim != 2 or hs.shape[1] != ws.shape[1]:
-        raise ValueError(f"need hs [N, D] and ws [V, D]; got {tuple(hs.shape)}, {tuple(ws.shape)}")
-    if hs.shape[1] not in KERNEL_DIMS:
-        raise ValueError(f"model dim {hs.shape[1]} not compiled (kernels have {KERNEL_DIMS})")
-    for name, t in (("hs", hs), ("ws", ws)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    n, v = hs.shape[0], ws.shape[0]
-    if tmat.shape != (n, v) or tmat.dtype != torch.float32 or not tmat.is_contiguous():
-        raise ValueError(f"tmat must be contiguous float32 [{n}, {v}], got {tuple(tmat.shape)} {tmat.dtype}")
+    """Check what the kernels take (the fused KL's operands, plus the two
+    label vectors); raise ValueError on anything else."""
     for name, t in (("lab", lab), ("lab_ce", lab_ce)):
-        if t.shape != (n,) or t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32 [N]")
-    for t in (ws, tmat, lab, lab_ce):
-        if t.device != hs.device:
-            raise ValueError(f"operands on {t.device} and {hs.device}")
-    if hs.device.type != "cuda":
-        raise ValueError(f"the fused LoCa + CE kernels run on CUDA tensors, got {hs.device}")
+        if t.shape != (hs.shape[0],) or t.dtype != torch.int32 or t.device != hs.device:
+            raise ValueError(f"{name} must be int32 [N] on {hs.device}")
+    fused_kl.kernel_args(hs, ws, tmat)
 
 
 def loca_ce_fwd(hs, ws, tmat, lab, lab_ce, *, inv_t: float, alpha: float, eps: float):

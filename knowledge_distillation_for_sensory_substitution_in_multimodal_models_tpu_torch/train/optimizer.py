@@ -16,7 +16,9 @@
   stepped once per epoch, as a function of the update count.
 * ``phase_trainable_mask``: double-trouble phase 1 freezes the language
   model, phase 2 the vision tower.  A frozen parameter is left out of the
-  optimizer, so it gets no update and no decay (optax ``set_to_zero``).
+  optimizer, so it gets no update and no decay (optax ``set_to_zero``), and
+  is marked ``requires_grad=False``, so autograd computes no gradient for it
+  (phase 1's frozen tied embedding takes no d_head sweep in the fused KL).
 """
 
 from __future__ import annotations
@@ -65,6 +67,9 @@ class Optimizer:
                  learning_rate: float, schedule: Optional[Callable[[int], float]],
                  weight_decay: float, b1: float, b2: float, eps: float):
         self.params = {n: p for n, p in params.items() if mask[n]}
+        for n, p in params.items():
+            if not mask[n]:
+                p.requires_grad_(False)
         self.masters = {n: p if p.dtype == torch.float32 else p.detach().float()
                         for n, p in self.params.items()}
         self.schedule = schedule

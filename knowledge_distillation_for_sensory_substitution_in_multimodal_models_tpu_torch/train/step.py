@@ -11,20 +11,24 @@ weights (``optimizer.py``), which the bf16 model then copies.  Gradients are tak
 with ``torch.autograd.grad``, not accumulated in ``.grad`` (which would sum
 in the bf16 parameter dtype).
 
-Ported so far (`step.py:282-301`):
+Every mode of the JAX step is ported (`step.py:282-301`):
 
 * ``baseline``: the student alone, masked CE over the fused vocab-streaming
   route;
 * ``logit_based`` and ``double_trouble`` phase 2: LoCa + CE; phase 3:
-  gamma * (LoCa + CE) + (1 - gamma) * CE.  The frozen teacher runs under
-  ``torch.no_grad()`` on the RGB stream (the ``teacher_*`` batch keys); its
-  logits at 1/T, truncated to the student vocab, are one float32 matrix
-  product (the JAX ``_materialize_t``), and LoCa + CE run in one combined
-  vocab-streaming pipeline (``ops/fused_loca.py``).
+  gamma * (LoCa + CE) + (1 - gamma) * CE, LoCa + CE in one combined
+  vocab-streaming pipeline (``ops/fused_loca.py``);
+* ``double_trouble`` phase 1: w_kl * KL + w_c * NT-Xent; ``feature_based``:
+  w_kl * KL + w_ce * CE + w_c * NT-Xent.  The temperature KL streams the
+  vocabulary (``ops/fused_kl.py``), CE takes the fused route, and NT-Xent
+  runs over the per-tile vision features of both towers (plain PyTorch, as
+  the JAX package leaves it to XLA).
 
-``double_trouble`` phase 1 and ``feature_based`` raise
-``NotImplementedError`` and name their slice, as does the reference's
-faithful LoCa indexing.
+The frozen teacher runs under ``torch.no_grad()`` on the RGB stream (the
+``teacher_*`` batch keys), once per micro-batch; its logits at 1/T,
+truncated to the student vocab, are one float32 matrix product (the JAX
+``_materialize_t``).  The reference's faithful LoCa indexing raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
 axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
@@ -38,18 +42,15 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..configs import TrainConfig
-from ..losses.kd_losses import IGNORE_INDEX
+from ..losses.kd_losses import IGNORE_INDEX, masked_ntxent_loss
 from ..models.llava_onevision import LlavaOnevision
 from ..ops.fused_ce import fused_ce_loss
+from ..ops.fused_kl import fused_kl_loss
 from ..ops.fused_loca import fused_loca_ce_loss
 from .optimizer import Optimizer
 
-# Modes that wait for a later slice of the port (ROADMAP.md).
-_NOT_PORTED = {
-    ("double_trouble", 1): "slice 5 (phase 1 and feature_based: the temperature KL kernels K7/K8 + NT-Xent)",
-    "feature_based": "slice 5 (phase 1 and feature_based: the temperature KL kernels K7/K8 + NT-Xent)",
-}
 _LOCA_MODES = ("logit_based", ("double_trouble", 2), ("double_trouble", 3))
+_KL_MODES = (("double_trouble", 1), "feature_based")
 
 
 class KDModels(NamedTuple):
@@ -99,23 +100,24 @@ def ce_labels(labels: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _teacher_logits(teacher: LlavaOnevision, batch: Dict[str, torch.Tensor], vocab: int,
-                   temperature: float) -> torch.Tensor:
+                   temperature: float):
     """The frozen teacher's logits at 1/T on the RGB stream, truncated to the
-    student vocab: float32 [B * S, vocab] (the JAX ``_materialize_t``).
+    student vocab: float32 [B * S, vocab] (the JAX ``_materialize_t``); and
+    its per-tile vision features [B, P, Dv] from the same forward.
 
     One matrix product of the final-norm hidden states with a row slice of
     the untied ``lm_head`` [Vt, Dt] (no copy of the head); bf16 operands
     accumulate into a float32 result, as the JAX dot's
     ``preferred_element_type``.  It stays outside any kernel, as in the JAX
     package."""
-    t_hidden, _ = _forward_hidden(teacher, batch, "teacher")
+    t_hidden, t_vis = _forward_hidden(teacher, batch, "teacher")
     th = t_hidden.reshape(-1, t_hidden.shape[-1])
     wt = _fused_head(teacher)[:vocab]
     if th.dtype == torch.float32:
         t = th @ wt.T
     else:
         t = torch.mm(th, wt.T, out_dtype=torch.float32)
-    return t.mul_(1.0 / temperature)
+    return t.mul_(1.0 / temperature), t_vis
 
 
 def make_loss_fn(models: KDModels, cfg: TrainConfig):
@@ -127,17 +129,16 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
     labels.  logit_based / double_trouble phases 2 and 3: LoCa (unshifted
     labels, T and alpha from ``cfg.loss``) and CE (shifted labels) from one
     combined pipeline over the same hidden states and head, against the
-    teacher's logits.  Metrics are f32 scalars.
+    teacher's logits.  double_trouble phase 1 / feature_based: the
+    temperature KL over the same hidden states and head against the
+    teacher's logits, NT-Xent over the flattened tile features [B * P, Dv]
+    of both towers (padded tiles masked), and for feature_based the CE.
+    Metrics are f32 scalars.
     """
     mode, phase = cfg.kd_mode, cfg.phase
     key = (mode, phase) if mode == "double_trouble" else mode
-    if mode != "baseline" and key not in _LOCA_MODES:
-        if key not in _NOT_PORTED:
-            raise ValueError(f"unknown kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else ""))
-        raise NotImplementedError(
-            f"kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else "")
-            + f" is not ported yet: it comes with ROADMAP.md {_NOT_PORTED[key]}"
-        )
+    if mode != "baseline" and key not in _LOCA_MODES + _KL_MODES:
+        raise ValueError(f"unknown kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else ""))
     lc = cfg.loss
     if mode != "baseline":
         if models.teacher is None:
@@ -149,23 +150,35 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
     student, teacher = models.student, models.teacher
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
-        s_hidden, _ = _forward_hidden(student, batch, "student")
+        s_hidden, s_vis = _forward_hidden(student, batch, "student")
         flat = s_hidden.reshape(-1, s_hidden.shape[-1])
         head = _fused_head(student)
         labels = batch["labels"]
         if mode == "baseline":
             ce = fused_ce_loss(flat, head, ce_labels(labels), w_layout="vd")
             return ce, {"ce": ce.detach().float(), "loss": ce.detach().float()}
-        tmat = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
-        loca, ce = fused_loca_ce_loss(flat, head, tmat, labels.reshape(-1), ce_labels(labels),
-                                      temperature=lc.temperature, alpha=lc.loca_alpha)
-        del tmat  # the autograd graph holds it until the backward
-        if phase == 3 and mode == "double_trouble":
-            loss = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
+        tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
+        if key in _LOCA_MODES:
+            loca, ce = fused_loca_ce_loss(flat, head, tmat, labels.reshape(-1), ce_labels(labels),
+                                          temperature=lc.temperature, alpha=lc.loca_alpha)
+            if phase == 3 and mode == "double_trouble":
+                loss = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
+            else:
+                loss = loca + ce
+            terms = {"loca": loca, "ce": ce}
         else:
-            loss = loca + ce
-        metrics = {"loca": loca.detach().float(), "ce": ce.detach().float(),
-                   "loss": loss.detach().float()}
+            kl = fused_kl_loss(flat, head, tmat, temperature=lc.temperature)
+            con = masked_ntxent_loss(s_vis.flatten(0, 1), t_vis.flatten(0, 1),
+                                     batch["tile_valid"].reshape(-1), lc.ntxent_temperature)
+            terms = {"kl": kl, "contrastive": con}
+            if mode == "feature_based":
+                terms["ce"] = fused_ce_loss(flat, head, ce_labels(labels), w_layout="vd")
+                loss = lc.soft_target_weight * kl + lc.ce_weight * terms["ce"] + lc.contrastive_weight * con
+            else:
+                loss = lc.soft_target_weight * kl + lc.contrastive_weight * con
+        del tmat  # the autograd graph holds it until the backward
+        metrics = {k: v.detach().float() for k, v in terms.items()}
+        metrics["loss"] = loss.detach().float()
         return loss, metrics
 
     return loss_fn

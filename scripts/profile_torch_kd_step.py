@@ -1,11 +1,13 @@
 """Where the time of the PyTorch port's KD train step goes, on one CUDA GPU.
 
-    python scripts/profile_torch_kd_step.py [--steps 5] [--layers N]
+    python scripts/profile_torch_kd_step.py [--steps 5] [--layers N] [--kd_mode M --phase P]
 
-Builds the KD step that ``chip_smoke.py`` drives (double_trouble phase 3,
-the 0.5B student against the frozen bf16 LLaVA-OneVision-7B teacher, both
-at full width and depth unless ``--layers`` cuts them, seeded random
-weights, A=2 x B=1 at the SUNRGBD 530x730 frame), runs ``--steps``
+Builds a KD step that ``chip_smoke.py`` drives (``--kd_mode`` and
+``--phase``, by default double_trouble phase 3; double_trouble phase 1, the
+KD CLI's default, and feature_based also run there), the 0.5B student
+against the frozen bf16 LLaVA-OneVision-7B teacher, both at full width and
+depth unless ``--layers`` cuts them, seeded random weights, A=2 x B=1 at
+the SUNRGBD 530x730 frame, with the mode's freeze mask; runs ``--steps``
 unprofiled steps, then:
 
 * times the teacher's part of one micro-batch with CUDA events: its forward
@@ -58,7 +60,11 @@ GROUPS = (
     ("flash forward D=128 (teacher K3)", ("flash_fwd_kernel<128",)),
     ("flash forward D=64/72 (K1, K3)", ("flash_fwd_kernel",)),
     ("flash backward (K2, K4)", ("flash_bwd",)),
-    ("LoCa + CE (K11)", ("loca_",)),
+    # the shared backward kernels are named by their loss's Rows policy
+    ("LoCa + CE (K11)", ("loca_", "LocaCERows")),
+    ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
+    ("fused CE (K5, K6)", ("ce_fwd", "CERows")),
+    ("dh split reductions (K6, K8, K11)", ("reduce_dh",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_", "cublas")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
 )
@@ -96,6 +102,9 @@ def main() -> int:
     p.add_argument("--steps", type=int, default=5,
                    help="unprofiled steps before the profiled one (at least 3)")
     p.add_argument("--layers", type=int, default=None, help="cut both models to this many layers")
+    p.add_argument("--kd_mode", type=str, default="double_trouble",
+                   choices=["logit_based", "feature_based", "double_trouble"])
+    p.add_argument("--phase", type=int, default=3, choices=[1, 2, 3])
     args = p.parse_args()
     if args.steps < 3:
         p.error("--steps must be at least 3")
@@ -113,10 +122,10 @@ def main() -> int:
                                          dtype=torch.bfloat16)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"),
+    cfg = TrainConfig(kd_mode=args.kd_mode, phase=args.phase, loss=kd_loss_config_for(args.kd_mode),
                       accumulate_grad_batches=ACCUM, learning_rate=1e-5, cosine_t_max=0)
     lc = cfg.loss
-    state = TrainState(student, make_optimizer(student, 1e-5, kd_mode="double_trouble", phase=3))
+    state = TrainState(student, make_optimizer(student, 1e-5, kd_mode=args.kd_mode, phase=args.phase))
     step = make_train_step(KDModels(student, teacher), cfg)
     times = []
     for _ in range(args.steps):
@@ -162,7 +171,7 @@ def main() -> int:
         if g.startswith("other"):
             other[e.name[:90]] += ms
     busy = sum(groups.values())
-    print(f"[profile] one step (A={ACCUM} x B=1), loss {metrics['loss'].item():.6f}: device kernel time "
+    print(f"[profile] {args.kd_mode} phase {args.phase}: one step (A={ACCUM} x B=1), loss {metrics['loss'].item():.6f}: device kernel time "
           f"{busy:.1f} ms, {100 * busy / step_ms:.1f}% of the unprofiled step", flush=True)
     if busy == 0:
         print("[profile] the profiler saw no device kernels", flush=True)

@@ -1,7 +1,9 @@
 """The port's online-KD CLI on the CPU: double_trouble phase 2 trains the
 tiny student against the tiny teacher on the synthetic SUNRGBD tree and
 writes its best checkpoint; phase 3 starts from it (the phase hand-off) and
-writes its own; logit_based runs; and what the port cannot run yet is
+writes its own; the three-phase chain 1 -> 2 -> 3 hands off twice, phase 1
+moving only what it trains; logit_based, feature_based and the CLI's
+default (double_trouble phase 1) run; and what the port cannot run yet is
 refused with the ROADMAP.md item that ports it."""
 
 import math
@@ -88,9 +90,62 @@ def test_logit_based_runs(tmp_path, capsys):
     assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_logit_based_phase1"))
 
 
+@pytest.mark.parametrize("extra,ckpt", [
+    ((), "kd_double_trouble_phase1"),  # the CLI's default: double_trouble phase 1
+    (("--kd_mode", "feature_based"), "kd_feature_based_phase1"),
+], ids=["phase1", "feature_based"])
+def test_kl_modes_run(tmp_path, capsys, extra, ckpt):
+    _run(tmp_path, *extra)
+    out = capsys.readouterr().out
+    _val_loss(out)
+    assert "training complete" in out
+    assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / ckpt))
+
+
+def _params(path):
+    return checkpoint.CheckpointManager(os.path.dirname(path)).restore(path)["params"]
+
+
+def _moved_roots(a, b):
+    """The top-level modules (vision_tower, language_model, ...) with a
+    parameter that differs between the state dicts a and b."""
+    assert set(a) == set(b)
+    return {k.split(".", 1)[0] for k in a if not torch.equal(a[k], b[k])}
+
+
+def test_three_phase_chain(tmp_path, capsys):
+    """Phases 1 -> 2 -> 3 through the CLI (the port's counterpart of the JAX
+    ``tests/test_phase_chain.py``): each later phase starts from the
+    previous phase's best checkpoint; phase 1 moves only the vision side
+    (tower, projector, image newline) of the init, phase 2 only the
+    language side (projector included) of phase 1's result."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        common,
+    )
+
+    best = {}
+    for phase in (1, 2, 3):
+        _run(tmp_path, "--phase", str(phase))
+        out = capsys.readouterr().out
+        _val_loss(out)
+        if phase > 1:
+            assert f"phase hand-off: initialized from {best[phase - 1]}" in out, out[-2000:]
+        else:
+            assert "phase hand-off" not in out
+        best[phase] = checkpoint.find_best_checkpoint(str(tmp_path / "ck" / f"kd_double_trouble_phase{phase}"))
+        assert best[phase] is not None
+
+    args = train_online_kd.build_parser().parse_args(["--synthetic_data", "--cpu"])
+    scfg, _ = common.model_configs(args)
+    init = common.init_or_load_params(scfg, None, args.seed, attn_impl="xla",
+                                      device=torch.device("cpu"), dtype=torch.float32).state_dict()
+    p1, p2, p3 = (_params(best[k]) for k in (1, 2, 3))
+    assert _moved_roots(init, p1) == {"vision_tower", "multi_modal_projector", "image_newline"}
+    assert _moved_roots(p1, p2) == {"language_model", "multi_modal_projector", "image_newline"}
+    assert {"vision_tower", "language_model"} <= _moved_roots(p2, p3)
+
+
 @pytest.mark.parametrize("extra,match", [
-    (("--phase", "1"), "slice 5"),
-    (("--kd_mode", "feature_based"), "slice 5"),
     (("--phase", "2", "--teacher_quant", "int8"), "slice 4"),
     (("--phase", "2", "--teacher_quant", "int8_full"), "slice 4"),
     (("--phase", "2", "--loca_faithful_indexing"), "queue 1 item 6"),

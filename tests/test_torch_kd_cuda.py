@@ -2,9 +2,13 @@
 the combined LoCa + CE forward and backward (K11, ``csrc/fused_loca_ce.cu``)
 at a ragged row count and a ragged vocab, on peaked teacher logits with
 duplicated maxima and ignored labels; the autograd route of
-``fused_loca_ce_loss`` against dense float32 LoCa + CE; the teacher's
-float32 logits from bf16 operands; and the flash forward at the 7B
-teacher's head dim (K3, D = 128).  Needs a CUDA device; skips without one.
+``fused_loca_ce_loss`` against dense float32 LoCa + CE; the temperature KL
+forward and backward (K7/K8, ``csrc/fused_kl.cu``) at a small ragged shape
+with 1, 3 and 7 vocab splits and at the KD path's shape, its negative
+controls, the dW skip under a frozen head, and its autograd route against
+dense ``kd_kl_loss``; the teacher's float32 logits from bf16 operands; and
+the flash forward at the 7B teacher's head dim (K3, D = 128).  Needs a CUDA
+device; skips without one.
 
 Run on the card (the tests' conftest imports jax, which the card's machine
 may lack):
@@ -16,7 +20,9 @@ error <= 1e-2 x max(1, max |plain|).  The forward is f32 on both sides
 (the bf16 x bf16 products are exact in f32; only the summation order
 differs).  The backward rounds ds to bf16 on both sides before the two
 products and returns bf16 dh and dW (~2e-3 relative).  The tests show that
-these bounds fail a backward fed tsum = 0 and one fed g_kl = 0."""
+these bounds fail a K11 backward fed tsum = 0 and one fed g_kl = 0, and a
+K8 fed a mis-normalised teacher (lse_t + 1) and one fed g = 0 for half the
+rows."""
 
 import pytest
 import torch
@@ -25,11 +31,14 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     llava_onevision_tiny_teacher,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (
+    kd_kl_loss,
     loca_loss,
     masked_cross_entropy,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
+    _build,
     flash_attention as fa,
+    fused_kl as fkl,
     fused_loca as fl,
 )
 
@@ -155,6 +164,108 @@ def test_fused_loca_ce_loss_autograd_matches_dense(dev):
         assert ok, (name, errs)
 
 
+def _kl_inputs(dev, n, v, seed=0):
+    """hs, ws bf16 and peaked f32 teacher logits (std 3) at 1/T."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hs = torch.randn(n, D, generator=g, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(v, D, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    return hs, ws, torch.randn(n, v, generator=g, device=dev) * 3.0
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 7])
+def test_kl_forward_matches_plain_at_any_split(dev, nsplit):
+    """K7's sweep and combine at a ragged row count and vocab, the vocab cut
+    into 1, 3 or 7 splits (the cross-split rescale of Zt, U and W)."""
+    n, v, inv_t = 200, 1000, 1.25
+    hs, ws, tmat = _kl_inputs(dev, n, v)
+    part = torch.empty(6, nsplit, n, device=dev)
+    got = [torch.empty(n, device=dev) for _ in range(3)]
+    _build.kl_fwd(hs, ws, tmat, part, *got, inv_t)
+    torch.cuda.synchronize()
+    want = fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
+    for name, a, b in zip(("kl", "lse_s", "lse_t"), got, want):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 7])
+def test_kl_backward_matches_plain_at_any_split(dev, nsplit):
+    n, v, inv_t = 200, 1000, 1.25
+    hs, ws, tmat = _kl_inputs(dev, n, v, seed=1)
+    _, lse_s, lse_t = fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
+    g = torch.rand(n, device=dev) + 0.5
+    dh, dw = torch.empty_like(hs), torch.empty_like(ws)
+    _build.kl_bwd(hs, ws, tmat, lse_s, lse_t, g, torch.empty(nsplit, n, D, device=dev), dh, dw, inv_t)
+    torch.cuda.synchronize()
+    want_dh, want_dw = fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g, inv_t=inv_t)
+    for name, a, b in (("dh", dh, want_dh), ("dW", dw, want_dw)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+def test_kl_kernels_at_the_path_shape(dev):
+    """K7 and K8 through their wrappers at N = 3072 rows and the 151936-row
+    student head, with the dW skip: the same dh, no dW, one dh launch
+    more and no dW launch more."""
+    n, v, inv_t = 3072, 151936, 1.25
+    hs, ws, tmat = _kl_inputs(dev, n, v, seed=2)
+    fkl.reset_launch_counts()
+    got = fkl.kl_fwd(hs, ws, tmat, inv_t=inv_t)
+    want = fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
+    for name, a, b in zip(("kl", "lse_s", "lse_t"), got, want):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+    g = torch.ones(n, device=dev)
+    dh, dw = fkl.kl_bwd(hs, ws, tmat, want[1], want[2], g, inv_t=inv_t)
+    dh2, dw2 = fkl.kl_bwd(hs, ws, tmat, want[1], want[2], g, inv_t=inv_t, need_dw=False)
+    torch.cuda.synchronize()
+    assert dw2 is None and torch.equal(dh, dh2)
+    assert (fkl.kl_fwd.launches, fkl.kl_bwd.launches, fkl.kl_bwd.dw_launches) == (1, 2, 1)
+    want_dh, want_dw = fkl.kl_rows_bwd_ref(hs, ws, tmat, want[1], want[2], g, inv_t=inv_t)
+    for name, a, b in (("dh", dh, want_dh), ("dW", dw, want_dw)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+def test_kl_backward_bounds_see_faults(dev):
+    """A K8 fed a mis-normalised teacher (lse_t + 1) or a cotangent of 0 in
+    half the rows fails the bounds the kernels are held by."""
+    n, v, inv_t = 200, 1000, 1.25
+    hs, ws, tmat = _kl_inputs(dev, n, v, seed=3)
+    _, lse_s, lse_t = fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
+    g = torch.ones(n, device=dev)
+    want = fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g, inv_t=inv_t)
+    got = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t + 1.0, g, inv_t=inv_t)
+    assert not all(_close(a, b)[0] for a, b in zip(got, want))
+    half = g.clone()
+    half[::2] = 0.0
+    got = fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, half, inv_t=inv_t)
+    assert not all(_close(a, b)[0] for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("head_grad", [True, False], ids=["trained_head", "frozen_head"])
+def test_fused_kl_loss_autograd_matches_dense(dev, head_grad):
+    """Values and gradients of the kernel route against ``kd_kl_loss`` on
+    dense float32 logits; a frozen head launches no dW kernel."""
+    n, v, temp = 200, 1000, 0.8
+    hs, ws, tmat = _kl_inputs(dev, n, v, seed=4)
+    hs.requires_grad_(True)
+    ws.requires_grad_(head_grad)
+    fkl.reset_launch_counts()
+    loss = fkl.fused_kl_loss(hs, ws, tmat, temperature=temp)
+    leaves = (hs, ws) if head_grad else (hs,)
+    grads = torch.autograd.grad(loss, leaves)
+    assert (fkl.kl_fwd.launches, fkl.kl_bwd.launches, fkl.kl_bwd.dw_launches) == (1, 1, int(head_grad))
+
+    hf, wf = hs.detach().float().requires_grad_(True), ws.detach().float().requires_grad_(True)
+    want = kd_kl_loss((hf @ wf.T)[None], tmat[None] * temp, temp)
+    ref = torch.autograd.grad(want, (hf, wf)[:len(leaves)])
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name, a, b in zip(("dh", "dW"), grads, ref):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
 def test_teacher_logits_are_float32_from_bf16_operands(dev):
     from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
         common,
@@ -171,8 +282,9 @@ def test_teacher_logits_are_float32_from_bf16_operands(dev):
                                          dtype=torch.bfloat16)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic_kd_batch(cfg, 2, 96, seed=3).items()}
-    got = step._teacher_logits(teacher, batch, vocab=512, temperature=0.8)
+    got, t_vis = step._teacher_logits(teacher, batch, vocab=512, temperature=0.8)
     assert got.dtype == torch.float32 and got.shape == (2 * 96, 512)
+    assert t_vis.shape == (2, batch["tile_valid"].shape[1], cfg.vision.hidden_size)
     with torch.no_grad():
         _, _, _, hidden = teacher(
             input_ids=batch["teacher_input_ids"], attention_mask=batch["teacher_attention_mask"],

@@ -1,17 +1,17 @@
-"""The port's KD train step (logit_based, double_trouble phases 2 and 3) on
-the CPU against the JAX package's, on the same weights (``params_from_flax``
+"""The port's KD train step (logit_based, double_trouble phases 1, 2 and 3,
+feature_based) on the CPU against the JAX package's, on the same weights (``params_from_flax``
 for the tiny student and ``llava_onevision_tiny_teacher``, whose vocab is
 the student's + 64, so the teacher logits are truncated) and the same batch
 (two different micro-batches from ``synthetic_kd_batch`` on the
 accumulation axis), float32:
 
-* the loss and its LoCa and CE terms equal JAX ``make_loss_fn``
-  (``ce_impl="chunked"``), rtol 1e-5;
+* the loss and its terms (LoCa and CE; KL, NT-Xent and, in feature_based,
+  CE) equal JAX ``make_loss_fn`` (``ce_impl="chunked"``), rtol 1e-5;
 * every student gradient leaf, carried back with ``flax_from_state_dict``,
   equals ``jax.grad``'s, atol 1e-5 / rtol 1e-3;
 * the loss trace of 3 ``make_train_step`` steps at lr 1e-3 (with the
-  phase's freeze mask) equals JAX's, rtol 1e-4, and the teacher does not
-  move;
+  phase's freeze mask) equals JAX's, rtol 1e-4, the teacher does not move,
+  and what the phase freezes does not move;
 * ``make_eval_step`` gives the same loss and terms without gradients."""
 
 import numpy as np
@@ -63,8 +63,9 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 
 SCFG, TCFG = llava_onevision_tiny(), llava_onevision_tiny_teacher()
 LR = 1e-3
-MODES = [("logit_based", 0), ("double_trouble", 2), ("double_trouble", 3)]
-IDS = ["logit_based", "phase2", "phase3"]
+MODES = [("logit_based", 0), ("double_trouble", 2), ("double_trouble", 3), ("double_trouble", 1),
+         ("feature_based", 0)]
+IDS = ["logit_based", "phase2", "phase3", "phase1", "feature_based"]
 KEYS = ("pack_idx", "pack_weight", "pack_valid", "tile_valid")
 
 
@@ -135,12 +136,12 @@ def test_kd_loss_matches_jax(setup, jax_loss_and_grads, mode, phase):
     models = _port_models(*setup[:2])
     loss, metrics = make_loss_fn(models, _port_cfg(mode, phase))(_micro(_torch_batch(setup[2]), 0))
     want = jax_loss_and_grads[mode, phase][0]
-    assert set(metrics) == {"loca", "ce", "loss"}
+    assert set(metrics) == set(want)
     assert all(v.dtype == torch.float32 for v in metrics.values())
     np.testing.assert_allclose(loss.item(), want["loss"], rtol=1e-5)
-    for k in ("loca", "ce"):
+    for k in set(metrics) - {"loss"}:
         np.testing.assert_allclose(metrics[k].item(), want[k], rtol=1e-5, err_msg=k)
-    assert want["loca"] > 0
+    assert want.get("loca", want.get("kl")) > 0
 
 
 @pytest.mark.parametrize("mode,phase", MODES, ids=IDS)
@@ -177,6 +178,7 @@ def test_three_step_loss_trace_matches_jax(setup, mode, phase):
     models = _port_models(sparams, tparams)
     teacher_before = {k: v.clone() for k, v in models.teacher.state_dict().items()}
     tower_before = {k: v.clone() for k, v in models.student.vision_tower.state_dict().items()}
+    lm_before = {k: v.clone() for k, v in models.student.language_model.state_dict().items()}
     state = TrainState(models.student, make_optimizer(models.student, LR, kd_mode=mode, phase=phase))
     step = make_train_step(models, _port_cfg(mode, phase))
     tb = _torch_batch(batch)
@@ -188,10 +190,14 @@ def test_three_step_loss_trace_matches_jax(setup, mode, phase):
     assert got[2] < got[0]
     for k, v in models.teacher.state_dict().items():
         assert torch.equal(v, teacher_before[k]), k
-    # phase 2 freezes the vision tower; phase 3 and logit_based train it
+    # phase 2 freezes the vision tower, phase 1 the language model (the tied
+    # head included); the other modes train both
     tower_moved = any(not torch.equal(v, tower_before[k])
                       for k, v in models.student.vision_tower.state_dict().items())
     assert tower_moved == (phase != 2)
+    lm_moved = any(not torch.equal(v, lm_before[k])
+                   for k, v in models.student.language_model.state_dict().items())
+    assert lm_moved == (phase != 1 or mode != "double_trouble")
 
 
 def test_eval_step_has_the_kd_terms_without_gradients(setup, jax_loss_and_grads):
@@ -200,5 +206,16 @@ def test_eval_step_has_the_kd_terms_without_gradients(setup, jax_loss_and_grads)
                                                               _micro(_torch_batch(setup[2]), 0))
     want = jax_loss_and_grads["double_trouble", 3][0]
     for k in ("loss", "loca", "ce"):
+        assert not m[k].requires_grad
+        np.testing.assert_allclose(m[k].item(), want[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("mode,phase", MODES[3:], ids=IDS[3:])
+def test_eval_step_has_the_kl_terms_without_gradients(setup, jax_loss_and_grads, mode, phase):
+    models = _port_models(*setup[:2])
+    m = make_eval_step(models, _port_cfg(mode, phase))(None, None, _micro(_torch_batch(setup[2]), 0))
+    want = jax_loss_and_grads[mode, phase][0]
+    assert set(m) == set(want)
+    for k in want:
         assert not m[k].requires_grad
         np.testing.assert_allclose(m[k].item(), want[k], rtol=1e-5, err_msg=k)

@@ -222,6 +222,8 @@ def test_adamw_and_phase_masks_match_optax(kd_mode, phase):
             np.testing.assert_allclose(got, np.asarray(params[root][name]), rtol=1e-5, atol=1e-7)
             frozen = not phase_trainable_mask([f"{root}.{name}"], kd_mode, phase)[f"{root}.{name}"]
             assert np.array_equal(got, start) == frozen
+            # autograd computes no gradient for what the phase freezes
+            assert getattr(getattr(module, root), name).requires_grad == (not frozen)
 
 
 def _bf16_tree(rng, scale):
@@ -317,18 +319,9 @@ def test_optimizer_follows_its_schedule():
     np.testing.assert_allclose(lrs, [1e-2, 5e-3, 0.0], atol=1e-12)
 
 
-@pytest.mark.parametrize("kd_mode,phase,slice_", [
-    ("double_trouble", 1, "slice 5"),
-    ("feature_based", 0, "slice 5"),
-])
-def test_modes_with_a_teacher_are_not_ported_yet(setup, kd_mode, phase, slice_):
-    model = _port_model(setup[0])
-    with pytest.raises(NotImplementedError, match=slice_):
-        make_loss_fn(KDModels(model), PortTrainConfig(kd_mode=kd_mode, phase=phase))
-
-
 @pytest.mark.parametrize("kd_mode,phase", [
     ("logit_based", 0), ("double_trouble", 2), ("double_trouble", 3),
+    ("double_trouble", 1), ("feature_based", 0),
 ])
 def test_kd_modes_need_a_teacher(setup, kd_mode, phase):
     model = _port_model(setup[0])
