@@ -26,31 +26,43 @@ Phases (any failure raises, and the exit code is non-zero):
   5. serving path: greedy generation with the same student at full width
      and depth, with launch counts read around it; check the tokens and the
      prefill logits, and that the kernel path agrees with the plain path;
-  6. KD paths, all against one frozen LLaVA-OneVision-7B teacher (bf16,
+  6. int8 serving ([main8]): the same student quantized int8_full (its
+     decoder and SigLIP projections w8a8 through K12, the tied head bf16),
+     3 generate calls with exact launch counts, the prefill logits of the
+     kernel path against the plain path, and their cosine to the bf16
+     model's;
+  7. KD paths, all against one frozen LLaVA-OneVision-7B teacher (bf16,
      seeded random weights, built once), the student on the depth stream
      and the teacher on the RGB stream, both at full width and depth,
      through cli/train_online_kd.py's step (AdamW, lr 1e-5, A=2 x B=1, a
      fresh student each): 6 double-trouble phase-3 steps, 6 phase-1 steps
      (the KD CLI's default: temperature KL + NT-Xent, the language model
-     frozen) and 4 feature_based steps; for each, exact launch counts, a
+     frozen) and 4 feature_based steps; then ([kd8]) the same teacher
+     quantized in place as the benchmark configures it (int8_full, the
+     int8 embedding and the vocab-major int8 head, whose logits K10
+     makes) and 6 more phase-3 steps; for each, exact launch counts, a
      finite and falling loss, the mean time of the steps after the first
      two, samples/s and peak memory; for phase 1 also that the float32
      masters of the vision tower and the projector moved and the frozen
      language model (the tied head included) did not, bit for bit; then
      the phase-3 KD loss and gradients on the kernel path against dense
-     float32 LoCa + CE, and the phase-1 loss against dense float32 KL +
-     NT-Xent, on the plain path at full width and 2+2 layers of each model
-     (each loss and its KL term alone);
-  7. print one JSON line of kernel results (time, plain time, the least time
+     float32 LoCa + CE (with the bf16 and with the int8 teacher), and the
+     phase-1 loss against dense float32 KL + NT-Xent, on the plain path at
+     full width and 2+2 layers of each model (each loss and its KL term
+     alone);
+  8. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
-the temperature-KL K7 and K8 (with and without dW), and the flash forward
-at the teacher's D = 128 against their plain versions, and shows that the
-bounds fail a K11 backward fed tsum = 0 and one fed g_kl = 0, and a K8 fed a
-mis-normalised teacher (lse_t + 1) and one fed g = 0 for half the rows.
+the temperature-KL K7 and K8 (with and without dW), the flash forward at
+the teacher's D = 128, the w8a8 GEMM K12 (both activation forms, ragged K,
+a decode row) and the int8-head teacher logits K10 against their plain
+versions, and shows that the bounds fail a K11 backward fed tsum = 0 and
+one fed g_kl = 0, a K8 fed a mis-normalised teacher (lse_t + 1) and one fed
+g = 0 for half the rows, and K12 fed weight scales of 1 in half the columns
+and one that scales every row by the first row's amax.
 
 Needs torch with CUDA, nvcc and numpy; imports nothing of JAX or of the JAX
 package: configs and synthetic batches come from the port's own host layer.
@@ -58,6 +70,7 @@ package: configs and synthetic batches come from the port's own host layer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -118,9 +131,10 @@ FB_STEPS = 4
 # and relative Frobenius error <= 1e-2, for every output.  The forward is f32
 # on both sides; the backward rounds ds to bf16 on both sides.
 KD_TOL = 1e-2
-# The card's published peaks (H100 SXM, dense): bf16 tensor-core operations
-# and device-memory bytes per second.
+# The card's published peaks (H100 SXM, dense): bf16 and int8 tensor-core
+# operations and device-memory bytes per second.
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (  # noqa: E402
@@ -137,6 +151,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     Generator,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (  # noqa: E402
+    qwen2,
     set_attn_impl,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses import (  # noqa: E402
@@ -151,6 +166,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     fused_ce as fc,
     fused_kl as fkl,
     fused_loca as fl,
+    int8 as i8,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (  # noqa: E402
     step as kd_step,
@@ -189,6 +205,9 @@ KERNELS = {
     "fused_kl_fwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:197", lambda: fkl.kl_fwd.launches),
     # K8's dh kernel; its dW kernel is counted apart (a frozen head skips it)
     "fused_kl_bwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:243", lambda: fkl.kl_bwd.launches),
+    "int8_mm": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_matmul.launches),
+    "tmat_int8": ("csrc/tmat_int8.cu", "ops/fused_loca.py:1042",
+                  lambda: fl.materialize_teacher_logits_int8.launches),
 }
 # Every launch count a path is held to: the kernels', and K8's dW kernel.
 COUNTERS = {**{name: k[2] for name, k in KERNELS.items()},
@@ -200,6 +219,7 @@ def reset_counts() -> None:
     fc.reset_launch_counts()
     fl.reset_launch_counts()
     fkl.reset_launch_counts()
+    i8.reset_launch_counts()
 
 
 def read_counts() -> dict:
@@ -224,11 +244,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(least time in ms, what bounds it): the larger of the operations over
-    the bf16 peak and the bytes (each input read once, each output written
-    once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    their peak (bf16 unless given) and the bytes (each input read once,
+    each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -442,6 +462,7 @@ def kernel_phase(dev) -> list:
     torch.cuda.empty_cache()
     results += loca_kernel_phase(dev, g)
     results += kl_kernel_phase(dev, g)
+    results += int8_kernel_phase(dev, g)
     return results
 
 
@@ -596,6 +617,122 @@ def kl_kernel_phase(dev, g) -> list:
     del hs, ws, tmat
     torch.cuda.empty_cache()
     return results
+
+
+# K12 at the int8 paths' shapes: (label, rows N, K, M, k_block).  The
+# first is the one the kernels line reports.
+INT8_CASES = [
+    ("teacher gate_proj", 3072, 3584, 18944, None),
+    ("teacher down_proj", 3072, 18944, 3584, None),
+    ("SigLIP fc2, ragged K", 7290, 4304, 1152, None),
+    ("student decode gate_proj", 1, 896, 4864, None),
+    ("teacher gate_proj, K blocks of 512", 3072, 3584, 18944, i8.pick_block(3584)),
+]
+
+
+def int8_kernel_phase(dev, g) -> list:
+    """K12 in both activation forms and K10 against their plain versions at
+    the int8 paths' shapes, with bounds, plain times and yardsticks (never
+    called by the port): for K12 ``torch._int_mm`` on pre-quantized
+    operands (the product alone) and bf16 ``torch.mm`` on the dequantized
+    weight; for K10 bf16 ``torch.mm`` against the dequantized head, what the
+    bf16 head costs.  Two negative controls must fail K12's bounds: weight
+    scales of 1 in half the columns, and every row scaled by the first
+    row's amax."""
+    results, worst, first = [], 0.0, None
+    for label, n, k, m, kb in INT8_CASES:
+        x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+        wq, ws = i8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.02)
+
+        def kernel():
+            return i8.int8_matmul(x, wq, ws, k_block=kb)
+
+        def plain():
+            return i8.int8_matmul_ref(x, wq, ws, k_block=kb)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        tol = KERNEL_TOL * max(1.0, want.float().abs().max().item())
+        worst = max(worst, _hold(f"int8_mm {label}", [("out", got, want, tol)]))
+        if first is None:
+            bad_ws = ws.clone()
+            bad_ws[::2] = 1.0
+            _must_fail("int8_mm", "weight scales of 1 in half the columns",
+                       [(i8.int8_matmul(x, wq, bad_ws), want)])
+            xq = torch.empty(n, k, dtype=torch.int8, device=dev)
+            xs = torch.empty(n, 1, dtype=torch.float32, device=dev)
+            _build.int8_quantize(x, xq, xs, k, xla_form=True)
+            one_row = torch.empty_like(got)
+            _build.int8_gemm(xq, xs[:1].expand(n, 1).contiguous(), wq, ws, one_row, k)
+            _must_fail("int8_mm", "the first row's amax for every row", [(one_row, want)])
+            del bad_ws, one_row
+        del got, want
+        iters = 200 if n == 1 else 10
+        ms = time_ms(kernel, iters=iters)
+        plain_ms = time_ms(plain, iters=2, warmup=1)
+        least = bound(2 * n * k * m, nbytes(x, wq, ws) + n * m * 2, peak=PEAK_INT8_OPS)
+        w_bf16 = (wq.float() * ws[:, None]).to(torch.bfloat16)
+        mm_ms = time_ms(lambda: torch.mm(x, w_bf16.T), iters=iters)
+        int_mm_ms = None
+        if n > 16:  # torch._int_mm takes more than 16 rows
+            xq = torch.round(x.float() * (127.0 / x.float().abs().amax(1, keepdim=True))).to(torch.int8)
+            int_mm_ms = time_ms(lambda: torch._int_mm(xq, wq.T), iters=iters)
+        log(f"[kernel] int8_mm {label} [{n} x {k}] x [{m} x {k}]^T, k_block {kb or k}: kernel {ms:.4f} ms "
+            f"({2 * n * k * m / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound {least[0]:.4f} ms "
+            f"({least[1]}), torch._int_mm "
+            f"{'n/a' if int_mm_ms is None else f'{int_mm_ms:.4f} ms'}, bf16 torch.mm {mm_ms:.4f} ms")
+        if first is None:
+            first = (ms, plain_ms, least, int_mm_ms)
+        del x, wq, ws, w_bf16
+    torch.cuda.empty_cache()
+    results.append(_result("int8_mm", worst, first[0], first[1], first[2], first[3]))
+    results.append(tmat_kernel_phase(dev, g))
+    return results
+
+
+def tmat_kernel_phase(dev, g) -> dict:
+    """K10 at the KD path's shape: the teacher's final-norm hidden states
+    [3072, 3584] against the first 151936 rows of its int8 head [152128,
+    3584], f32 out at 1/T."""
+    tcfg, scfg = llava_onevision_7b(), llava_onevision_0_5b()
+    n, d, vt, vocab = 3072, tcfg.text.hidden_size, tcfg.text.vocab_size, scfg.text.vocab_size
+    inv_t = 1.0 / kd_loss_config_for("double_trouble").temperature
+    ht = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    wq, ws = i8.absmax_quantize_weight(torch.randn(vt, d, generator=g, device=dev) * 0.02)
+
+    def kernel():
+        return fl.materialize_teacher_logits_int8(ht, wq, ws, inv_t, vocab)
+
+    def plain():
+        return fl.materialize_teacher_logits_int8_ref(ht, wq, ws, inv_t, vocab)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = _hold("tmat_int8", [("tmat", got, want, KERNEL_TOL * max(1.0, want.abs().max().item()))])
+    del got, want
+    ms, plain_ms = time_ms(kernel, iters=5), time_ms(plain, iters=2, warmup=1)
+    w_bf16 = (wq[:vocab].float() * ws[:vocab, None]).to(torch.bfloat16)
+    library = time_ms(lambda: torch.mm(ht, w_bf16.T, out_dtype=torch.float32), iters=5)
+    del w_bf16
+    least = bound(2 * n * d * vocab, nbytes(ht, wq[:vocab], ws[:vocab]) + n * vocab * 4)
+    log(f"[kernel] tmat_int8 [{n} x {d}] x [{vocab} of {vt} x {d}]^T: {2 * n * d * vocab / ms / 1e9:.1f} TFLOP/s")
+    del ht, wq, ws
+    torch.cuda.empty_cache()
+    return _result("tmat_int8", err, ms, plain_ms, least, library)
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route every QLinear through the plain int8 product
+    (``int8_matmul_ref``) on the card: the plain path of the int8 checks."""
+    saved = qwen2.int8_matmul
+    qwen2.int8_matmul = i8.int8_matmul_ref
+    try:
+        yield
+    finally:
+        qwen2.int8_matmul = saved
 
 
 def _device_batch(batch, dev, streams=("student_",)) -> dict:
@@ -896,11 +1033,16 @@ def _agreement_models(dev):
     return student, teacher, _device_batch(batch, dev, streams=("student_", "teacher_"))
 
 
-def kd_agreement_phase(dev) -> None:
+def kd_agreement_phase(dev, int8: bool = False) -> None:
     """The KD loss and gradients on the kernel path against dense float32
     LoCa + masked CE on the plain path (plain attention, full logits), at
-    full width and 2 SigLIP + 2 Qwen2 layers of each model."""
+    full width and 2 SigLIP + 2 Qwen2 layers of each model; with ``int8``
+    the teacher quantized as in [kd8] (K12 and K10 on the kernel path, the
+    plain int8 product and the dequantized head on the plain path)."""
     student, teacher, tb = _agreement_models(dev)
+    tag = "kd8-agree" if int8 else "kd-agree"
+    if int8:
+        i8.quantize_model_int8(teacher, include_vision=True, include_embed_head=True)
     cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"))
     lc = cfg.loss
     names = ("language_model.embed_tokens.weight", "language_model.layers.0.self_attn.q_proj.weight",
@@ -923,12 +1065,14 @@ def kd_agreement_phase(dev) -> None:
     loca_grads_k = torch.autograd.grad(loca_k, leaves)
     launches = read_counts()
     for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_fwd_gqa_d128", "flash_bwd_mha", "flash_bwd_gqa",
-              "fused_loca_ce_fwd", "fused_loca_ce_bwd"):
+              "fused_loca_ce_fwd", "fused_loca_ce_bwd") + (("int8_mm", "tmat_int8") if int8 else ()):
         if launches[k] == 0:
             raise AssertionError(f"the KD kernel path skipped {k}: {launches}")
 
-    with torch.no_grad():
-        t_logits = _plain_forward(teacher, tb, "teacher")[0].float() @ teacher.language_model.lm_head.weight.float().T
+    with torch.no_grad(), plain_int8():
+        head_t = kd_step.dense_teacher_head(kd_step.teacher_head(teacher), torch.float32).float()
+        t_logits = _plain_forward(teacher, tb, "teacher")[0].float() @ head_t.T
+        del head_t
     s_logits = _plain_forward(student, tb, "student")[0].float() @ head.float().T
     loca = loca_loss(t_logits, s_logits, tb["labels"], lc.temperature, lc.loca_alpha)
     ce = masked_cross_entropy(s_logits, tb["labels"])
@@ -938,8 +1082,8 @@ def kd_agreement_phase(dev) -> None:
     loca_grads_p = torch.autograd.grad(loca, leaves)
     del s_logits, ce
 
-    _check_agreement("kd-agree", names, (("loss", loss_k, loss_p, grads_k, grads_p),
-                                         ("LoCa term", loca_k, loca, loca_grads_k, loca_grads_p)))
+    _check_agreement(tag, names, (("loss", loss_k, loss_p, grads_k, grads_p),
+                                  ("LoCa term", loca_k, loca, loca_grads_k, loca_grads_p)))
     del student, teacher, grads_k, grads_p, loca_grads_k, loca_grads_p, loca
     torch.cuda.empty_cache()
 
@@ -1068,6 +1212,125 @@ def main_path_phase(dev) -> dict:
     return dict(launches=launches, ms_call=ms_call, tok_s=tok_s)
 
 
+def main8_phase(dev) -> dict:
+    """Serving int8 ([main8]): the 0.5B student of the serving phase
+    quantized int8_full in place (``cli/inference.py --quant int8_full``:
+    its 24 x 7 decoder and 26 x 6 SigLIP projections become QLinear, the
+    tied embedding and head stay bf16), greedy generation with exact launch
+    counts (K12 in the prefill and in every decode step, SigLIP's only in
+    the prefill), and the prefill's next-token logits on the kernel path
+    against the plain path; their cosine to the bf16 model's is printed,
+    not held (the weights are random)."""
+    cfg = llava_onevision_0_5b()
+    t0 = time.perf_counter()
+    model = common.init_or_load_params(cfg, None, seed=0, attn_impl="flash", device=dev, dtype=torch.bfloat16)
+    batch = synthetic_kd_batch(cfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
+    keys = ("student_input_ids", "student_attention_mask", "student_pixel_values",
+            "pack_idx", "pack_weight", "pack_valid", "tile_valid")
+    tb = {k: torch.as_tensor(batch[k], device=dev) for k in keys}
+    gen = Generator(cfg, GenerateConfig(max_new_tokens=N_NEW, eos_token_id=-1))
+    with torch.no_grad():
+        logits, _, lengths = gen.prefill(model, tb)
+        last = int(lengths[0]) - 1
+        bf16_next = logits[0, last].float()
+        del logits
+    i8.quantize_model_int8(model, include_vision=True)
+    torch.cuda.synchronize()
+    lm_proj, v_proj = 7 * cfg.text.num_hidden_layers, 6 * cfg.vision.num_hidden_layers
+    n_q = sum(isinstance(m, qwen2.QLinear) for m in model.modules())
+    if n_q != lm_proj + v_proj:
+        raise AssertionError(f"{n_q} QLinear modules, expected {lm_proj + v_proj}")
+    log(f"[main8] model + batch set-up and int8_full quantization {time.perf_counter() - t0:.1f} s; "
+        f"{n_q} projections int8")
+
+    gen.generate(model, tb)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [gen.generate(model, tb) for _ in range(GEN_CALLS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_fwd_mha=cfg.vision.num_hidden_layers * GEN_CALLS,
+                flash_fwd_gqa=cfg.text.num_hidden_layers * GEN_CALLS,
+                int8_mm=(lm_proj + v_proj + (N_NEW - 1) * lm_proj) * GEN_CALLS)
+    log(f"[main8] launches over {GEN_CALLS} generate calls: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"int8 serving launch counts {launches} != {want}")
+    ms_call = wall * 1e3 / GEN_CALLS
+    tok_s = N_NEW / (wall / GEN_CALLS)
+    log(f"[main8] generate: {ms_call:.1f} ms/call, {tok_s:.1f} tok/s (B=1, {N_NEW} new tokens, int8_full)")
+    toks = outs[-1]["tokens"]
+    if toks.shape != (1, N_NEW) or not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
+        raise AssertionError(f"int8 tokens {toks}")
+    if not all(torch.equal(o["tokens"], toks) for o in outs):
+        raise AssertionError("repeated int8 generate calls disagree")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = gen.prefill(model, tb)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        kernel_next = logits[0, last].float()
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        set_attn_impl(model, "xla")
+        with plain_int8():
+            logits, _, _ = gen.prefill(model, tb)
+        plain_next = logits[0, last].float()
+        del logits
+    del model
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("non-finite int8 prefill logits")
+    cos = _cosine(kernel_next, plain_next)
+    log(f"[main8] prefill {prefill_ms:.1f} ms; next-token logits, kernel vs plain path: max_abs_diff="
+        f"{(kernel_next - plain_next).abs().max().item():.4e}, cosine={cos:.6f} (tol {PATH_COSINE}); "
+        f"int8 vs bf16 model cosine {_cosine(kernel_next, bf16_next):.6f} (not held: random weights)")
+    if not (cos >= PATH_COSINE):
+        raise AssertionError(f"int8 kernel path and plain path disagree (cosine {cos})")
+    return dict(launches=launches, ms_call=ms_call, tok_s=tok_s)
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def kd8_phase(dev, teacher) -> dict:
+    """[kd8]: the shared bf16 teacher quantized in place into the benchmark's
+    configuration (int8_full, the int8 embedding and the vocab-major int8
+    head), its logits per micro-batch timed before and after (CUDA events),
+    then 6 phase-3 steps: K12 in all 28 x 7 + 26 x 6 teacher projections
+    and K10 once per micro-batch, beside the phase-3 kernels."""
+    scfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
+    temp = kd_loss_config_for("double_trouble").temperature
+    batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], seed=3)
+    tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
+
+    def teacher_ms():
+        return time_ms(lambda: kd_step._teacher_logits(teacher, tb, scfg.text.vocab_size, temp), iters=3,
+                       warmup=1)
+
+    bf16_ms, bf16_bytes = teacher_ms(), _param_bytes(teacher)
+    t0 = time.perf_counter()
+    i8.quantize_model_int8(teacher, include_vision=True, include_embed_head=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    int8_ms, int8_bytes = teacher_ms(), _param_bytes(teacher)
+    del tb
+    torch.cuda.empty_cache()
+    log(f"[kd8] teacher quantized in place in {quant_s:.1f} s: weights {bf16_bytes / 1e9:.2f} GB bf16 -> "
+        f"{int8_bytes / 1e9:.2f} GB; teacher forward + logits per micro-batch {bf16_ms:.1f} ms bf16 -> "
+        f"{int8_ms:.1f} ms int8 (CUDA events)")
+    n_proj = 7 * tcfg.text.num_hidden_layers + 6 * tcfg.vision.num_hidden_layers
+    r = kd_path(dev, teacher, "kd8", "double_trouble", 3, KD_STEPS,
+                _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1, int8_mm=n_proj, tmat_int8=1))
+    r.update(teacher_ms=int8_ms, teacher_ms_bf16=bf16_ms)
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -1101,24 +1364,30 @@ def main() -> int:
     train = training_phase(dev)
     agreement_phase(dev)
     serve = main_path_phase(dev)
+    serve8 = main8_phase(dev)
     teacher = _build_teacher(dev)
     kd = kd_training_phase(dev, teacher)
     kd1 = kd_phase1_phase(dev, teacher)
     kdfb = feature_based_phase(dev, teacher)
+    kd8 = kd8_phase(dev, teacher)
     del teacher
     torch.cuda.empty_cache()
     kd_agreement_phase(dev)
+    kd_agreement_phase(dev, int8=True)
     kd_phase1_agreement_phase(dev)
     # launches: the driven paths, each counted from 0 around its own run
-    paths = (train, serve, kd, kd1, kdfb)
+    paths = (train, serve, serve8, kd, kd1, kdfb, kd8)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
         f"({ACCUM / (train['step_ms'] / 1e3):.3f} samples/s), peak {train['peak'] / 2**30:.2f} GiB; "
-        f"generate {serve['ms_call']:.1f} ms/call")
-    for name, r in (("KD phase 3", kd), ("KD phase 1", kd1), ("feature_based", kdfb)):
+        f"generate {serve['ms_call']:.1f} ms/call, int8_full {serve8['ms_call']:.1f} ms/call")
+    for name, r in (("KD phase 3", kd), ("KD phase 1", kd1), ("feature_based", kdfb),
+                    ("KD phase 3, int8 teacher", kd8)):
         log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "
+        f"{kd8['teacher_ms']:.1f} ms int8")
     log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "
         f"(phase 1 {kd1['launches']['fused_kl_bwd_dw']}, feature_based {kdfb['launches']['fused_kl_bwd_dw']})")
 

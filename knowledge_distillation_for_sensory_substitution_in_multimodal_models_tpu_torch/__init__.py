@@ -14,14 +14,17 @@ tower, the projector and anyres packing, the Qwen2 LM with a KV cache, the
 ``Generator``, and the inference CLI; its baseline_depth training -- masked
 CE over the fused route, the train and eval steps with gradient
 accumulation, AdamW over float32 masters, checkpoints, the epoch loop and
-the train CLI; and online KD against the frozen bf16 7B teacher --
-logit_based and double_trouble phases 2 and 3 (LoCa + CE), the phase
-hand-off and the KD CLI.  The kernels on those paths are hand-written CUDA
-for Hopper: the flash-attention forward (D = 64, 72 and 128) and backward
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, bound in
-``ops/flash_attention.py``), the vocab-streaming cross-entropy
-(``csrc/fused_ce.cu``, ``ops/fused_ce.py``) and the combined LoCa + CE
-(``csrc/fused_loca_ce.cu``, ``ops/fused_loca.py``).
+the train CLI; online KD against the frozen 7B teacher -- every KD mode
+and phase (LoCa + CE; KL + NT-Xent), the phase hand-off and the KD CLI;
+and int8 (w8a8) serving and the int8 teacher.  The kernels on those paths
+are hand-written CUDA for Hopper: the flash-attention forward (D = 64, 72
+and 128) and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, bound
+in ``ops/flash_attention.py``), the vocab-streaming cross-entropy
+(``csrc/fused_ce.cu``, ``ops/fused_ce.py``), the combined LoCa + CE
+(``csrc/fused_loca_ce.cu``, ``ops/fused_loca.py``), the temperature KL
+(``csrc/fused_kl.cu``, ``ops/fused_kl.py``), and, for int8 serving and the
+int8 teacher, the w8a8 GEMM (``csrc/int8_mm.cu``, ``ops/int8.py``) and the
+teacher's logits from its int8 head (``csrc/tmat_int8.cu``).
 """
 
 __version__ = "0.1.0"

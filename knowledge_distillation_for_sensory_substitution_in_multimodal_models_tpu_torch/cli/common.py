@@ -23,6 +23,9 @@ from ..configs import (
 from ..models.llava_onevision import LlavaOnevision, init_weights
 
 ATTN_IMPLS = ("xla", "flash")
+# --quant / --teacher_quant: "int8" quantizes the LM's decoder-block
+# projections, "int8_full" the SigLIP encoder's too (w8a8, ops/int8.py).
+QUANT_MODES = ("none", "int8", "int8_full")
 
 
 def load_env(path: str = ".env") -> dict:
@@ -223,13 +226,18 @@ def init_or_load_params(
     device: torch.device,
     dtype: torch.dtype,
     trainable: bool = False,
+    quant: str = "none",
 ) -> LlavaOnevision:
     """Build the model on ``device`` in ``dtype``: weights from a local HF
     snapshot, or a seeded random init drawn tensor by tensor in float32 (so
     the 7B teacher never exists as a whole in float32 on the card).
     ``trainable=False`` (serving, the frozen teacher) freezes the weights in
     eval mode; ``True`` gives a model in train mode whose parameters require
-    grad."""
+    grad.  ``quant`` (``QUANT_MODES``, frozen models only) then quantizes
+    the model in place on ``device``, one projection at a time, as the JAX
+    CLIs quantize the bf16 tree once after building it."""
+    if quant not in QUANT_MODES or (quant != "none" and trainable):
+        raise ValueError(f"quant must be one of {QUANT_MODES}, and 'none' for a trainable model; got {quant!r}")
     model = LlavaOnevision(cfg, attn_impl=attn_impl, device=device, dtype=dtype)
     if weights_path:
         from ..models.convert import load_llava_onevision_params
@@ -238,4 +246,8 @@ def init_or_load_params(
     else:
         init_weights(model, seed)
     model.requires_grad_(trainable)
+    if quant != "none":
+        from ..ops.int8 import quantize_model_int8
+
+        quantize_model_int8(model, include_vision=quant == "int8_full")
     return model.train() if trainable else model.eval()

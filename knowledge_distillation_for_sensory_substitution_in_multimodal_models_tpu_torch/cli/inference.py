@@ -1,5 +1,8 @@
 """Single-sample inference demo (port of the JAX package's ``cli/inference.py``):
 encode one depth image, generate one answer, print a one-row DataFrame.
+``--quant int8`` serves the student with w8a8 decoder-block projections,
+``int8_full`` with the SigLIP encoder's too (the tied embedding and head
+stay float, as in the JAX CLI).
 
 Offline smoke on the CPU:
   python -m knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli.inference \\
@@ -24,20 +27,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pixel_data_type", type=str, default="depth", choices=["depth", "rgb"])
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--root_data_dir", type=str, default=None)
-    p.add_argument("--quant", type=str, default="none", choices=["none", "int8", "int8_full"],
-                   help="only 'none' is ported; int8 serving waits for the int8 port")
+    p.add_argument("--quant", type=str, default="none", choices=common.QUANT_MODES,
+                   help="int8: w8a8 LM projections; int8_full: the SigLIP projections too")
     common.add_device_flags(p)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.quant != "none":
-        raise SystemExit(
-            f"--quant {args.quant} is not ported yet: the w8a8 int8 projections wait "
-            "for ROADMAP.md queue 1 item 5 (the teacher's int8 quantization) and "
-            "queue 2 K12 (int8_matmul_pallas)"
-        )
     if args.student_ckpt_path:
         raise SystemExit(
             "--student_ckpt_path is not ported yet: it waits for the checkpoint port "
@@ -64,7 +61,7 @@ def main(argv=None):
     model = common.init_or_load_params(
         scfg, args.student_weights, args.seed,
         attn_impl=common.resolve_attn_impl(args, device),
-        device=device, dtype=common.model_dtype(device),
+        device=device, dtype=common.model_dtype(device), quant=args.quant,
     )
     tok = common.make_tokenizer(args, scfg)
 

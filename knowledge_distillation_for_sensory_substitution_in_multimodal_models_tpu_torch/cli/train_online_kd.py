@@ -3,8 +3,10 @@ flag parity with the reference's per-config ``train_online_kd.py`` scripts).
 
 ``--kd_mode {logit_based,feature_based,double_trouble}`` and ``--phase
 {1,2,3}``: the 0.5B student learns from the frozen LLaVA-OneVision-7B teacher
-(bf16, built with ``seed + 1``), the student on the depth stream and the
-teacher on the RGB stream.  Every mode runs: ``double_trouble`` phase 1
+(bf16, built with ``seed + 1``; ``--teacher_quant int8`` then quantizes its
+decoder-block projections to w8a8 on the device, ``int8_full`` its SigLIP
+encoder's too, its head staying bf16), the student on the depth stream and
+the teacher on the RGB stream.  Every mode runs: ``double_trouble`` phase 1
 (the default: temperature KL + NT-Xent, the language model frozen), phase 2
 (LoCa + CE, the vision tower frozen) and phase 3, ``logit_based`` (LoCa +
 CE) and ``feature_based`` (KL + CE + NT-Xent).  A fresh double_trouble
@@ -12,9 +14,8 @@ phase N > 1 run starts from phase N - 1's best checkpoint (the reference's
 phase hand-off); ``--load_checkpoint`` resumes this phase's own best.
 Checkpoints go to ``<checkpoint_dir>/kd_{mode}_phase{phase}``.
 
-Refused with the ROADMAP.md item that ports them: ``--teacher_quant int8``
-/ ``int8_full`` (slice 4), ``--loca_faithful_indexing`` (queue 1 item 6)
-and ``--dataset daquar`` (queue 1 item 1).
+Refused with the ROADMAP.md item that ports them: ``--loca_faithful_indexing``
+(queue 1 item 6) and ``--dataset daquar`` (queue 1 item 1).
 
 Offline smoke on the CPU (tiny configs, synthetic SUNRGBD tree), the
 three-phase chain:
@@ -42,9 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning_rate", type=float, default=1e-5)
     p.add_argument("--root_data_dir", type=str, default=None,
                    help="overrides ROOT_DATA_DIR from .env")
-    p.add_argument("--teacher_quant", type=str, default="none",
-                   choices=["none", "int8", "int8_full"],
-                   help="only none (bf16) is ported")
+    p.add_argument("--teacher_quant", type=str, default="none", choices=common.QUANT_MODES,
+                   help="int8: w8a8 teacher LM projections; int8_full: its SigLIP projections too")
     p.add_argument("--loca_faithful_indexing", action="store_true",
                    help="the reference's full-tensor LoCa indexing (not ported)")
     p.add_argument("--mask_prompt_labels", action="store_true",
@@ -54,10 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """SystemExit naming the ROADMAP.md item for what this port cannot run."""
-    if args.teacher_quant != "none":
-        raise SystemExit(
-            f"--teacher_quant {args.teacher_quant} is not ported yet: it comes with ROADMAP.md "
-            "slice 4 (the int8 teacher); the bf16 teacher is --teacher_quant none")
     if args.loca_faithful_indexing:
         raise SystemExit(
             "--loca_faithful_indexing is not ported yet: ROADMAP.md queue 1 item 6")
@@ -105,7 +101,8 @@ def main(argv=None):
                                          attn_impl=attn_impl, device=device, dtype=dtype,
                                          trainable=True)
     teacher = common.init_or_load_params(tcfg, args.teacher_weights, args.seed + 1,
-                                         attn_impl=attn_impl, device=device, dtype=dtype)
+                                         attn_impl=attn_impl, device=device, dtype=dtype,
+                                         quant=args.teacher_quant)
     cfg = TrainConfig(
         batch_size=args.batch_size, max_epochs=args.max_epochs,
         subset_percentage=args.subset_percentage,

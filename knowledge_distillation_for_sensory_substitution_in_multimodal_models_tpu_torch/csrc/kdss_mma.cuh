@@ -1,6 +1,8 @@
 // Shared device helpers of the port's kernels: bf16 packing, 32-bit
-// fragment loads from shared memory, the mma.sync m16n8k16 bf16 -> f32
-// tensor-core product, and the zero-filling tile copy of the flash kernels.
+// fragment loads from shared memory, the mma.sync m16n8k16 bf16 -> f32 and
+// m16n8k32 s8 -> s32 tensor-core products, the zero-filling tile copy of
+// the flash kernels, and the asynchronous 16-byte copy (cp.async) of the
+// int8 GEMMs.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gi + ti):
 //   A (16 x 16, row-major): a0 = A[gi][2ti..2ti+1],     a1 = A[gi+8][2ti..],
@@ -48,6 +50,46 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a (16x32, row-major) * b (32x8, column-major); s8 operands, exact
+// s32 accumulators.  Its fragments hold the same bytes, lane for lane, as
+// the bf16 m16n8k16 ones above (4 int8 where those hold 2 bf16):
+//   a0 = A[gi][4ti..4ti+3], a1 = A[gi+8][4ti..], a2 = A[gi][4ti+16..],
+//   a3 = A[gi+8][4ti+16..];  b0 = B[4ti..4ti+3][gi], b1 = B[4ti+16..][gi];
+//   c0,c1 = C[gi][2ti..2ti+1], c2,c3 = C[gi+8][2ti..].
+__device__ __forceinline__ void mma16832_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 b16 matrices (each 8 rows of 16 bytes) from shared memory:
+// lane l gives the address of row l % 8 of matrix l / 8, and register i of
+// lane (gi, ti) receives bytes 4ti..4ti+3 of row gi of matrix i, which is
+// the fragment layout of both mma products above.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* s) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// `pred` false zero-fills the 16 bytes and reads nothing (`g` must still be
+// a valid address).
+__device__ __forceinline__ void cp_async16(void* s, const void* g, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(g),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // A fragment of the 16 rows starting at `row0` of a row-major shared tile

@@ -18,7 +18,12 @@ of numpy arrays that the JAX package's ``models/convert.py`` emits:
 * LayerNorm ``scale`` -> ``weight``; ``Embed.embedding`` -> ``weight`` (the
   tied head reads it);
 * ``layers_{i}`` scopes -> ``layers.{i}``; everything else (biases, RMSNorm
-  weights, ``position_embedding``, ``image_newline``) copies through.
+  weights, ``position_embedding``, ``image_newline``) copies through;
+* the int8 leaves of ``quantize_lm_params_int8``: QDense ``kernel_q``
+  [in, out] -> ``weight_q`` [out, in] (int8), except the head's, which the
+  JAX package already stores vocab-major [Vt, Dt] and which copies as it
+  is; ``kernel_scale`` -> ``weight_scale``; QEmbed ``embedding_q`` /
+  ``embedding_scale`` -> ``weight_q`` / ``weight_scale``.
 
 :func:`flax_from_state_dict` is its inverse: a ``state_dict`` (or its
 gradients, by the same names) back into the Flax tree layout, as numpy
@@ -156,18 +161,26 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def params_from_flax(tree: Mapping, cfg: LlavaOnevisionConfig) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` tree of ``LlavaOnevision`` -> torch ``state_dict``."""
+    """Flax ``params`` tree of ``LlavaOnevision`` (bf16/f32, or int8 from
+    ``quantize_lm_params_int8``) -> torch ``state_dict``."""
     sd = {}
     for key, arr in _flatten(tree).items():
         name = re.sub(r"\blayers_(\d+)\b", r"layers.\1", key)
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
-            name = name[: -len("kernel")] + "weight"
+        module, _, leaf = name.rpartition(".")
+        if leaf in ("kernel_q", "embedding_q"):
+            if leaf == "kernel_q" and not module.endswith("lm_head"):
+                arr = arr.T
+            sd[module + ".weight_q"] = torch.from_numpy(np.array(arr, dtype=np.int8, order="C"))
+            continue
+        if leaf in ("kernel_scale", "embedding_scale"):
+            name = module + ".weight_scale"
+        elif leaf == "kernel":
+            name = module + ".weight"
             arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
         elif leaf in ("scale", "embedding"):
-            name = name[: -len(leaf)] + "weight"
+            name = module + ".weight"
         sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
-    n_lm = sum(k.startswith("language_model.layers.") and k.endswith("o_proj.weight") for k in sd)
+    n_lm = sum(re.match(r"language_model\.layers\.\d+\..*o_proj\.weight(_q)?$", k) is not None for k in sd)
     if n_lm != cfg.text.num_hidden_layers:
         raise ValueError(f"tree has {n_lm} LM layers, config {cfg.text.num_hidden_layers}")
     return sd
@@ -179,14 +192,23 @@ _LAYER_NORMS = ("layer_norm1", "layer_norm2", "post_layernorm")
 
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
     """Torch ``state_dict`` -> nested Flax ``params`` tree of numpy arrays
-    (float32), the inverse of :func:`params_from_flax`."""
+    (float32, and int8 for the quantized weights), the inverse of
+    :func:`params_from_flax`."""
     tree: Dict = {}
     for name, t in sd.items():
-        arr = t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        arr = t.numpy() if t.dtype == torch.int8 else t.float().numpy()
         parts = re.sub(r"\blayers\.(\d+)\b", r"layers_\1", name).split(".")
         module, leaf = parts[:-1], parts[-1]
-        if leaf == "weight":
-            if arr.ndim == 2 and module[-1] == "embed_tokens":
+        embed = module[-1:] == ["embed_tokens"]
+        if leaf == "weight_q":
+            leaf = "embedding_q" if embed else "kernel_q"
+            if not embed and module[-1] != "lm_head":
+                arr = arr.T
+        elif leaf == "weight_scale":
+            leaf = "embedding_scale" if embed else "kernel_scale"
+        elif leaf == "weight":
+            if arr.ndim == 2 and embed:
                 leaf = "embedding"
             elif arr.ndim == 2:
                 leaf, arr = "kernel", arr.T

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import LlavaOnevisionConfig
-from .qwen2 import Qwen2LM, RMSNorm
+from .qwen2 import QEmbedding, QLinear, Qwen2LM, RMSNorm
 from .siglip import SigLIPVisionTower
 
 
@@ -41,14 +41,20 @@ class MultiModalProjector(nn.Module):
 
 
 class LlavaOnevision(nn.Module):
-    def __init__(self, cfg: LlavaOnevisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+    """``lm_quant`` / ``vision_quant`` ("none" or "int8"): w8a8 projections
+    in the LM's decoder blocks / the SigLIP encoder; ``embed_quant``: the
+    int8 token embedding and vocab-major head (untied LMs); the projector
+    stays float (the JAX ``LlavaOnevision`` fields of the same names)."""
+
+    def __init__(self, cfg: LlavaOnevisionConfig, attn_impl: str = "xla", device=None, dtype=None,
+                 lm_quant: str = "none", vision_quant: str = "none", embed_quant: str = "none"):
         super().__init__()
         self.cfg = cfg
         fk = dict(device=device, dtype=dtype)
-        self.vision_tower = SigLIPVisionTower(cfg.vision, attn_impl, **fk)
+        self.vision_tower = SigLIPVisionTower(cfg.vision, attn_impl, vision_quant, **fk)
         self.multi_modal_projector = MultiModalProjector(cfg, **fk)
         self.image_newline = nn.Parameter(torch.empty(cfg.text.hidden_size, **fk))
-        self.language_model = Qwen2LM(cfg.text, attn_impl, **fk)
+        self.language_model = Qwen2LM(cfg.text, attn_impl, lm_quant, embed_quant, **fk)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -157,7 +163,12 @@ def init_weights(model: LlavaOnevision, seed: int) -> LlavaOnevision:
     N(0, 0.02) token and position embeddings, N(0, 1/sqrt(D)) image newline.
     Draws on a ``torch.Generator`` on the model's device, one tensor at a
     time in float32, and casts each into its parameter: a bf16 model gets
-    the same numbers, rounded, without a float32 copy of the whole model."""
+    the same numbers, rounded, without a float32 copy of the whole model.
+    A model built with int8 modules is refused: draw the float weights, then
+    quantize (``ops/int8.py::quantize_model_int8``)."""
+    if any(isinstance(m, (QLinear, QEmbedding)) for m in model.modules()):
+        raise ValueError("init_weights draws float weights: build the model without quant modes "
+                         "and quantize it after")
     g = torch.Generator(device=model.device).manual_seed(seed)
 
     def fill(param, draw, **kw):

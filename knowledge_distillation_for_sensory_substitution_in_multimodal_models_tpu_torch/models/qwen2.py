@@ -7,8 +7,15 @@ cache serves autoregressive decoding.
 Unlike the JAX package's functional cache update, the KV cache here is a
 list of preallocated per-layer ``{"k", "v"}`` tensors of shape
 [B, total, Hkv, D], written in place; the returned caches are the same
-tensors.  (QDense/QEmbed int8 projections, remat and the sequence-chunked
-MLP are not ported yet.)
+tensors.  (Remat and the sequence-chunked MLP are not ported yet.)
+
+``quant="int8"`` builds the block projections as :class:`QLinear` (w8a8,
+the JAX ``QDense``) and ``embed_quant="int8"`` the token embedding as
+:class:`QEmbedding` (the JAX ``QEmbed``) and the untied head as a
+``QLinear`` holding the vocab-major int8 head, for the frozen teacher and
+int8 serving.  A bf16 model is quantized in place by
+``ops/int8.py::quantize_model_int8``; a model built with these modes takes
+a quantized state dict (``models/convert.py::params_from_flax``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from torch import nn
 
 from ..configs import Qwen2Config
 from ..ops.attention import dot_product_attention, gqa_decode_attention
+from ..ops.int8 import absmax_quantize_weight, int8_matmul, quantize_embedding_int8
 
 
 class RMSNorm(nn.Module):
@@ -75,17 +83,86 @@ def write_cache(cache: torch.Tensor, x: torch.Tensor, index: Union[int, torch.Te
     cache[rows, pos] = x
 
 
+class QLinear(nn.Module):
+    """Int8 (w8a8) drop-in for ``nn.Linear`` on frozen paths (the JAX
+    ``QDense``): ``weight_q`` int8 [out, in] (the torch layout, the
+    transpose of the JAX ``kernel_q``), ``weight_scale`` f32 [out], an
+    optional bias.  The output comes from ``ops/int8.py::int8_matmul`` in
+    its XLA form (the JAX default) in the input's dtype; the bias is added
+    after that cast, in that dtype, as ``QDense`` adds it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight_q = nn.Parameter(
+            torch.zeros(out_features, in_features, dtype=torch.int8, device=device), requires_grad=False)
+        self.weight_scale = nn.Parameter(
+            torch.ones(out_features, dtype=torch.float32, device=device), requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype), requires_grad=False)
+                     if bias else None)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear) -> "QLinear":
+        """The absmax int8 quantization of ``lin`` (per output channel)."""
+        q = cls(lin.in_features, lin.out_features, bias=lin.bias is not None, device=lin.weight.device,
+                dtype=lin.weight.dtype)
+        q.weight_q.data, q.weight_scale.data = absmax_quantize_weight(lin.weight)
+        if lin.bias is not None:
+            q.bias.data = lin.bias.detach()
+        return q
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int8_matmul(x, self.weight_q, self.weight_scale, out_dtype=x.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class QEmbedding(nn.Module):
+    """Int8 drop-in for ``nn.Embedding`` (the JAX ``QEmbed``):
+    ``weight_q`` int8 [V, D] with a per-row f32 ``weight_scale`` [V, 1]; a
+    lookup gathers the int8 row times its scale, then casts to ``dtype``.
+    Untied models only: a tied head must stay float."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, device=None, dtype=None):
+        super().__init__()
+        self.dtype = dtype or torch.get_default_dtype()
+        self.weight_q = nn.Parameter(
+            torch.zeros(num_embeddings, embedding_dim, dtype=torch.int8, device=device), requires_grad=False)
+        self.weight_scale = nn.Parameter(
+            torch.ones(num_embeddings, 1, dtype=torch.float32, device=device), requires_grad=False)
+
+    @classmethod
+    @torch.no_grad()
+    def from_embedding(cls, emb: nn.Embedding) -> "QEmbedding":
+        q = cls(emb.num_embeddings, emb.embedding_dim, device=emb.weight.device, dtype=emb.weight.dtype)
+        q.weight_q.data, q.weight_scale.data = quantize_embedding_int8(emb.weight)
+        return q
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        rows = self.weight_q[input_ids].float()
+        return (rows * self.weight_scale[input_ids, 0][..., None]).to(self.dtype)
+
+
+def linear_cls(quant: str):
+    """``nn.Linear`` for ``quant="none"``, :class:`QLinear` for ``"int8"``."""
+    if quant not in ("none", "int8"):
+        raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
+    return QLinear if quant == "int8" else nn.Linear
+
+
 class Qwen2Attention(nn.Module):
-    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none", device=None,
+                 dtype=None):
         super().__init__()
         self.cfg = cfg
         self.attn_impl = attn_impl
         fk = dict(device=device, dtype=dtype)
         hd, b = cfg.head_dim, cfg.attention_bias
-        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_attention_heads * hd, bias=b, **fk)
-        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
-        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
-        self.o_proj = nn.Linear(cfg.num_attention_heads * hd, cfg.hidden_size, bias=False, **fk)
+        lin = linear_cls(quant)
+        self.q_proj = lin(cfg.hidden_size, cfg.num_attention_heads * hd, bias=b, **fk)
+        self.k_proj = lin(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
+        self.v_proj = lin(cfg.hidden_size, cfg.num_key_value_heads * hd, bias=b, **fk)
+        self.o_proj = lin(cfg.num_attention_heads * hd, cfg.hidden_size, bias=False, **fk)
 
     def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
         c = self.cfg
@@ -134,25 +211,27 @@ class Qwen2Attention(nn.Module):
 
 
 class Qwen2MLP(nn.Module):
-    def __init__(self, cfg: Qwen2Config, device=None, dtype=None):
+    def __init__(self, cfg: Qwen2Config, quant: str = "none", device=None, dtype=None):
         super().__init__()
         fk = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **fk)
+        lin = linear_cls(quant)
+        self.gate_proj = lin(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.up_proj = lin(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.down_proj = lin(cfg.intermediate_size, cfg.hidden_size, **fk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class Qwen2Layer(nn.Module):
-    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none", device=None,
+                 dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
-        self.self_attn = Qwen2Attention(cfg, attn_impl, **fk)
+        self.self_attn = Qwen2Attention(cfg, attn_impl, quant, **fk)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
-        self.mlp = Qwen2MLP(cfg, **fk)
+        self.mlp = Qwen2MLP(cfg, quant, **fk)
 
     def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
         h, new_cache = self.self_attn(self.input_layernorm(x), cos, sin, mask, cache, cache_index)
@@ -165,19 +244,27 @@ class Qwen2LM(nn.Module):
     """Decoder LM.  Call with input_ids OR precomputed inputs_embeds.
 
     Returns (logits, new_caches); new_caches is None unless caches were given.
+    ``quant="int8"``: w8a8 block projections; ``embed_quant="int8"``: the
+    int8 token embedding and int8 vocab-major head (untied models only).
     """
 
-    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none",
+                 embed_quant: str = "none", device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         fk = dict(device=device, dtype=dtype)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
+        if embed_quant == "int8" and cfg.tie_word_embeddings:
+            raise ValueError("embed_quant='int8' is for untied (frozen-teacher) models: "
+                             "a tied head must stay float")
+        head = linear_cls(embed_quant)
+        self.embed_tokens = (QEmbedding if embed_quant == "int8" else nn.Embedding)(
+            cfg.vocab_size, cfg.hidden_size, **fk)
         self.layers = nn.ModuleList(
-            Qwen2Layer(cfg, attn_impl, **fk) for _ in range(cfg.num_hidden_layers)
+            Qwen2Layer(cfg, attn_impl, quant, **fk) for _ in range(cfg.num_hidden_layers)
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **fk)
+            self.lm_head = head(cfg.hidden_size, cfg.vocab_size, bias=False, **fk)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)

@@ -3,7 +3,9 @@
 Conv patch embed + learned position embeddings (no CLS), pre-LN encoder
 layers with biased QKV and a gelu-tanh MLP, and a final ``post_layernorm``.
 The tower returns ``(last_hidden, post_ln)``, both [N, T, D]: the projector
-reads the first, feature KD the second.
+reads the first, feature KD the second.  ``quant="int8"`` builds the
+attention and MLP projections as w8a8 ``QLinear`` (the JAX
+``vision_quant``); the patch conv, norms and position embedding stay float.
 """
 
 from __future__ import annotations
@@ -16,19 +18,22 @@ from torch import nn
 
 from ..configs import SigLIPVisionConfig
 from ..ops.attention import dot_product_attention
+from .qwen2 import linear_cls
 
 
 class SigLIPAttention(nn.Module):
-    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", quant: str = "none", device=None,
+                 dtype=None):
         super().__init__()
         self.cfg = cfg
         self.attn_impl = attn_impl
         fk = dict(bias=True, device=device, dtype=dtype)
         d = cfg.hidden_size
-        self.q_proj = nn.Linear(d, d, **fk)
-        self.k_proj = nn.Linear(d, d, **fk)
-        self.v_proj = nn.Linear(d, d, **fk)
-        self.out_proj = nn.Linear(d, d, **fk)
+        lin = linear_cls(quant)
+        self.q_proj = lin(d, d, **fk)
+        self.k_proj = lin(d, d, **fk)
+        self.v_proj = lin(d, d, **fk)
+        self.out_proj = lin(d, d, **fk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -42,24 +47,26 @@ class SigLIPAttention(nn.Module):
 
 
 class SigLIPMLP(nn.Module):
-    def __init__(self, cfg: SigLIPVisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: SigLIPVisionConfig, quant: str = "none", device=None, dtype=None):
         super().__init__()
         fk = dict(bias=True, device=device, dtype=dtype)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **fk)
+        lin = linear_cls(quant)
+        self.fc1 = lin(cfg.hidden_size, cfg.intermediate_size, **fk)
+        self.fc2 = lin(cfg.intermediate_size, cfg.hidden_size, **fk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))  # gelu_pytorch_tanh
 
 
 class SigLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", quant: str = "none", device=None,
+                 dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
-        self.self_attn = SigLIPAttention(cfg, attn_impl, **fk)
+        self.self_attn = SigLIPAttention(cfg, attn_impl, quant, **fk)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
-        self.mlp = SigLIPMLP(cfg, **fk)
+        self.mlp = SigLIPMLP(cfg, quant, **fk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x))
@@ -69,7 +76,8 @@ class SigLIPEncoderLayer(nn.Module):
 class SigLIPVisionTower(nn.Module):
     """Returns (last_layer_hidden, post_layernorm_hidden), both [N, T, D]."""
 
-    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", device=None, dtype=None):
+    def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", quant: str = "none", device=None,
+                 dtype=None):
         super().__init__()
         self.cfg = cfg
         fk = dict(device=device, dtype=dtype)
@@ -80,7 +88,7 @@ class SigLIPVisionTower(nn.Module):
             torch.empty(cfg.tokens_per_patch, cfg.hidden_size, **fk)
         )
         self.layers = nn.ModuleList(
-            SigLIPEncoderLayer(cfg, attn_impl, **fk) for _ in range(cfg.num_hidden_layers)
+            SigLIPEncoderLayer(cfg, attn_impl, quant, **fk) for _ in range(cfg.num_hidden_layers)
         )
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
 

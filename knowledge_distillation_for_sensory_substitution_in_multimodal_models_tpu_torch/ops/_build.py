@@ -11,7 +11,8 @@ nothing falls back.
 
 Nothing here runs at import: ``load_library`` is called by the first kernel
 launch.  The launchers below take tensors already checked by the op
-modules (``flash_attention``, ``fused_ce``, ``fused_loca``, ``fused_kl``);
+modules (``flash_attention``, ``fused_ce``, ``fused_loca``, ``fused_kl``,
+``int8``);
 pointers stay alive until the kernels end because the callers hold the
 tensors and the launches are ordered on the current stream with their
 later use.
@@ -120,6 +121,12 @@ def load_library() -> ctypes.CDLL:
         # h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw (or null), N, V, DM, nsplit,
         # inv_t, stream
         "kdss_kl_bwd": [vp] * 9 + [ci] * 4 + [cf, vp],
+        # x, xq, xs, N, K, k_block, div_scale, stream
+        "kdss_int8_quantize": [vp] * 3 + [ci] * 4 + [vp],
+        # xq, xs, wq, ws, out, N, K, M, k_block, out_f32, stream
+        "kdss_int8_gemm": [vp] * 5 + [ci] * 5 + [vp],
+        # h, wq, ws, out, N, V, D, inv_t, stream
+        "kdss_tmat_int8": [vp] * 4 + [ci] * 3 + [cf, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -230,3 +237,30 @@ def kl_bwd(h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw, inv_t) -> None:
     _launch("kdss_kl_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lse_s.data_ptr(),
             lse_t.data_ptr(), g.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
             w.shape[0], dm, dh_part.shape[0], float(inv_t))
+
+
+def int8_quantize(x, xq, xs, k_block: int, xla_form: bool) -> None:
+    """K12 pass 1: bf16 x [N, K] -> int8 xq [N, K] and the f32 scale of each
+    row's K block, xs [N, ceil(K / k_block)]."""
+    n, k = x.shape
+    _aligned(x, xq)
+    _launch("kdss_int8_quantize", x.device, x.data_ptr(), xq.data_ptr(), xs.data_ptr(), n, k,
+            int(k_block), int(xla_form))
+
+
+def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
+    """K12 pass 2: out [N, M] (bf16 or f32) from pass 1's xq and xs, the int8
+    weight [M, K] and its f32 per-channel scale [M]."""
+    n, k = xq.shape
+    _aligned(xq, wq, out)
+    _launch("kdss_int8_gemm", xq.device, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
+
+
+def tmat_int8(h, wq, ws, out, inv_t: float) -> None:
+    """K10: the f32 teacher logits out [N, V] at 1/T from bf16 h [N, D] and the
+    first V rows of the vocab-major int8 head wq with their scales ws."""
+    n, d = h.shape
+    _aligned(h, wq, out)
+    _launch("kdss_tmat_int8", h.device, h.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            n, out.shape[1], d, float(inv_t))

@@ -24,12 +24,17 @@ terms:
   :func:`loca_ce_rows_bwd_ref`, which compute logits per row chunk in
   float32 and never hold more than one chunk's [rows, V] block.
 
+:func:`materialize_teacher_logits_int8` builds ``tmat`` from an int8
+teacher head: the kernel of ``csrc/tmat_int8.cu`` (K10, the JAX
+``_materialize_t_int8``) on CUDA, its plain version
+:func:`materialize_teacher_logits_int8_ref` on the CPU.
+
 The JAX package's TPU variants (the recompute form, bf16 and row-chunked
-tmat, the fused single-sweep backward, the int8 head) are not carried over.
+tmat, the fused single-sweep backward) are not carried over.
 
 Counters: ``loca_ce_fwd.launches`` and ``loca_ce_bwd.launches``, one per
-call (each call launches its pass and combine kernels together).  CPU calls
-never count.
+call (each call launches its pass and combine kernels together), and
+``materialize_teacher_logits_int8.launches``.  CPU calls never count.
 """
 
 from __future__ import annotations
@@ -178,7 +183,47 @@ def loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, g_kl, g_ce, *, inv_t: float, e
     return dh, dw
 
 
-WRAPPERS = (loca_ce_fwd, loca_ce_bwd)
+def materialize_teacher_logits_int8_ref(ht, wq, ws, inv_t: float, vocab: int):
+    """Plain version of K10: f32 [N, vocab] = ((ht . bf(wq[:vocab])^T) * ws[:vocab])
+    * inv_t, the int8 head cast exactly to ht's dtype and the product
+    accumulated in f32 (the JAX ``_materialize_t`` with the int8 head)."""
+    w = wq[:vocab].to(ht.dtype)
+    t = ht @ w.T if ht.dtype == torch.float32 else torch.mm(ht, w.T, out_dtype=torch.float32)
+    return t.mul_(ws[:vocab]).mul_(inv_t)
+
+
+def materialize_teacher_logits_int8(ht, wq, ws, inv_t: float, vocab: int):
+    """The teacher's logits at 1/T, truncated to the student's ``vocab``,
+    from its final-norm hidden states ``ht`` [N, Dt] and its vocab-major int8
+    head ``wq`` [Vt, Dt] with per-row scales ``ws`` [Vt]: f32 [N, vocab],
+    the ``tmat`` of :func:`fused_loca_ce_loss` and ``fused_kl_loss``.  K10 on
+    CUDA (reading the head's first ``vocab`` rows in place), the plain
+    version on the CPU."""
+    if not 0 < vocab <= wq.shape[0]:
+        raise ValueError(f"vocab {vocab} must be in (0, {wq.shape[0]}]")
+    if ht.device.type == "cpu":
+        return materialize_teacher_logits_int8_ref(ht, wq, ws, inv_t, vocab)
+    n, d = ht.shape
+    if ht.dtype != torch.bfloat16 or not ht.is_contiguous():
+        raise ValueError(f"ht must be contiguous bfloat16 [N, D], got {ht.dtype}")
+    if wq.dtype != torch.int8 or wq.shape[1:] != (d,) or not wq.is_contiguous():
+        raise ValueError(f"wq must be contiguous int8 [Vt, {d}], got {wq.dtype} {tuple(wq.shape)}")
+    if ws.dtype != torch.float32 or ws.shape != wq.shape[:1] or not ws.is_contiguous():
+        raise ValueError(f"ws must be contiguous float32 [{wq.shape[0]}]")
+    if d % 16 or vocab % 2:
+        raise ValueError(f"K10 takes D a multiple of 16 and an even vocab, got D={d}, vocab={vocab}")
+    for t in (wq, ws):
+        if t.device != ht.device:
+            raise ValueError(f"operands on {t.device} and {ht.device}")
+    from ._build import tmat_int8 as launch
+
+    out = torch.empty(n, vocab, dtype=torch.float32, device=ht.device)
+    launch(ht, wq[:vocab], ws[:vocab], out, inv_t)
+    materialize_teacher_logits_int8.launches += 1
+    return out
+
+
+WRAPPERS = (loca_ce_fwd, loca_ce_bwd, materialize_teacher_logits_int8)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,198 @@
+"""Int8 (w8a8) projections for the frozen KD teacher and int8 serving (port
+of the JAX package's ``ops/int8.py``).
+
+Scheme, as in the JAX package (symmetric w8a8):
+
+* weights: per-output-channel absmax int8 (:func:`absmax_quantize_weight`),
+  quantized once; a torch weight is [out, in], so its scale is one per row,
+  and ``weight_q`` is the transpose of the JAX ``kernel_q`` [in, out];
+* activations: per-row dynamic absmax int8, quantized on the fly;
+* an exact int32 product, rescaled in f32, out in the model dtype.
+
+:func:`int8_matmul` computes the two activation forms of the JAX package
+through one kernel, K12 (``csrc/int8_mm.cu``), chosen by ``k_block``:
+
+* ``k_block=None``: one absmax per row over the whole of K, the JAX
+  ``int8_matmul_xla``.  It is what ``int8_matmul(impl="auto")`` resolves to,
+  so what every JAX CLI computes, and it is the form ``QLinear`` uses;
+* ``k_block=pick_block(K)``: one absmax per row per K block, the numerics
+  of the JAX Pallas kernel ``int8_matmul_pallas`` (``KDSS_INT8_IMPL=pallas``
+  there).  The two agree exactly only when K <= the block.
+
+On a CUDA tensor the wrapper launches K12 or raises; on a CPU tensor it runs
+the plain version :func:`int8_matmul_ref`, which computes both forms with the
+same arithmetic (the integer products summed exactly in float64).  K12 has
+no backward (the JAX package defines none): inputs must not require grad.
+
+:func:`quantize_model_int8` is the counterpart of the JAX
+``quantize_lm_params_int8``: it replaces a model's ``nn.Linear`` projections
+(and optionally its token embedding and untied head) by their int8 modules
+in place, one module at a time, so a bf16 model is never held twice.
+
+Counter: ``int8_matmul.launches``, one per call that launches K12 (its
+quantize and GEMM kernels together).  CPU calls never count.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+# Modules whose weight becomes (weight_q, weight_scale); they match the
+# QLinear call sites of models/qwen2.py and models/siglip.py.
+QUANTIZED_PROJ_NAMES = frozenset(
+    {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
+)
+# SigLIP encoder projections; the patch conv, norms and position embedding
+# stay bf16.
+QUANTIZED_VISION_NAMES = frozenset({"q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"})
+
+# K12's K-block preference (the JAX ``_INT8_BK``).
+K_BLOCK = 512
+
+
+def pick_block(dim: int, pref: int = K_BLOCK) -> int:
+    """Largest power-of-two block <= pref that divides dim (>= 128): the JAX
+    ``_pick_block``, K12's K block (512 at the 7B widths, 128 at 896 and
+    1152)."""
+    b = pref
+    while b > 128 and dim % b:
+        b //= 2
+    return b
+
+
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c as an IEEE division (PyTorch turns division by a Python scalar
+    into a product with its reciprocal on CUDA, and ``c / tensor`` into one
+    everywhere)."""
+    return a / torch.full_like(a, c)
+
+
+def absmax_quantize_weight(w: torch.Tensor, clip: float = 127.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[out, in] float -> (int8 [out, in], f32 per-row scale [out]);
+    ``dequant = wq * scale[:, None]``, symmetric, so zero maps to zero."""
+    wf = w.float()
+    scale = _div(wf.abs().amax(dim=1), clip).clamp_min(1e-8)
+    wq = torch.round(wf / scale[:, None]).clamp_(-clip, clip).to(torch.int8)
+    return wq, scale
+
+
+def quantize_embedding_int8(emb: torch.Tensor, clip: float = 127.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[V, D] embedding -> (int8 [V, D], f32 [V, 1] per-row scale): a lookup
+    gathers one row and its one scale."""
+    eq, scale = absmax_quantize_weight(emb, clip)
+    return eq, scale[:, None]
+
+
+def int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                    out_dtype: torch.dtype = torch.bfloat16, k_block: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K12: x [..., K] @ dequant(wq [M, K])^T -> [..., M].
+
+    Per K block of x's rows (the whole of K for ``k_block=None``): amax =
+    max(|x|, 1e-6), xq = clip(round(x * (127 / amax)), -127, 127) (half to
+    even, as ``jnp.round``), acc = xq . wq summed exactly (float64) and
+    rounded once to f32.  ``k_block=None``: y = (acc * (amax / 127)) * ws;
+    else y = (sum over blocks of acc * (amax * (1/127))) * ws.  Then cast."""
+    k = x.shape[-1]
+    xf = x.float()
+    wd = wq.double()
+    kb = k if k_block is None else k_block
+    y = None
+    for k0 in range(0, k, kb):
+        xb = xf[..., k0:k0 + kb]
+        amax = xb.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+        xq = torch.round(xb * (torch.full_like(amax, 127.0) / amax)).clamp_(-127, 127)
+        acc = (xq.double() @ wd[:, k0:k0 + kb].T).float()
+        if k_block is None:
+            y = acc * _div(amax, 127.0)
+        else:
+            term = acc * (amax * (1.0 / 127.0))
+            y = term if y is None else y + term
+    return (y * ws).to(out_dtype)
+
+
+def kernel_args(x2: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype, k_block) -> None:
+    """Check what K12 takes; raise ValueError on anything else."""
+    if x2.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {x2.device}")
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bfloat16, got {x2.dtype}")
+    k = x2.shape[1]
+    if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[1] != k or not wq.is_contiguous():
+        raise ValueError(f"wq must be contiguous int8 [M, {k}], got {wq.dtype} {tuple(wq.shape)}")
+    m = wq.shape[0]
+    if ws.dtype != torch.float32 or ws.shape != (m,) or not ws.is_contiguous():
+        raise ValueError(f"ws must be contiguous float32 [{m}], got {ws.dtype} {tuple(ws.shape)}")
+    for t in (wq, ws):
+        if t.device != x2.device:
+            raise ValueError(f"operands on {t.device} and {x2.device}")
+    if k % 16 or m % 8:
+        raise ValueError(f"K12 takes K a multiple of 16 and M of 8, got K={k}, M={m}")
+    if k_block is not None and (k_block <= 0 or k_block % 64):
+        raise ValueError(f"k_block must be a positive multiple of 64 or None, got {k_block}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+
+
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                out_dtype: torch.dtype = torch.bfloat16, k_block: Optional[int] = None) -> torch.Tensor:
+    """x [..., K] @ dequant(wq [M, K])^T with per-row dynamic activation
+    quantization -> [..., M] in ``out_dtype``: K12 on CUDA, the plain
+    version on the CPU (see the module docstring for ``k_block``)."""
+    if x.requires_grad or wq.requires_grad or ws.requires_grad:
+        raise ValueError("int8_matmul has no backward: its inputs must not require grad")
+    if x.device.type == "cpu":
+        return int8_matmul_ref(x, wq, ws, out_dtype, k_block)
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).contiguous()
+    kernel_args(x2, wq, ws, out_dtype, k_block)
+    from . import _build
+
+    n, m, dev = x2.shape[0], wq.shape[0], x2.device
+    kb = k if k_block is None else k_block
+    xq = torch.empty(n, k, dtype=torch.int8, device=dev)
+    xs = torch.empty(n, -(-k // kb), dtype=torch.float32, device=dev)
+    out = torch.empty(n, m, dtype=out_dtype, device=dev)
+    _build.int8_quantize(x2, xq, xs, kb, xla_form=k_block is None)
+    _build.int8_gemm(xq, xs, wq, ws, out, kb)
+    int8_matmul.launches += 1
+    return out.reshape(*lead, m)
+
+
+def reset_launch_counts() -> None:
+    int8_matmul.launches = 0
+
+
+reset_launch_counts()
+
+
+@torch.no_grad()
+def quantize_model_int8(model, include_vision: bool = False, include_embed_head: bool = False):
+    """Quantize a ``LlavaOnevision`` (or a bare ``Qwen2LM``) in place and
+    return it: the decoder-block projections (``QUANTIZED_PROJ_NAMES``)
+    become ``QLinear``; ``include_vision`` also the SigLIP encoder
+    projections (``QUANTIZED_VISION_NAMES``); ``include_embed_head`` the
+    token embedding (``QEmbedding``, per-row scales) and the untied head (a
+    ``QLinear`` whose ``weight_q`` is the vocab-major [Vt, Dt] int8 head with
+    per-row scales, which the KD step hands to K10).  Norms, the patch conv
+    and the projector stay as they are.  Each module is replaced as soon as
+    it is quantized, so its float weight is freed before the next one."""
+    from ..models.qwen2 import QEmbedding, QLinear
+
+    def swap(root, names):
+        for parent in list(root.modules()):
+            for name, child in list(parent.named_children()):
+                if name in names and isinstance(child, torch.nn.Linear):
+                    setattr(parent, name, QLinear.from_linear(child))
+
+    lm = getattr(model, "language_model", model)
+    swap(lm.layers, QUANTIZED_PROJ_NAMES)
+    if include_vision and hasattr(model, "vision_tower"):
+        swap(model.vision_tower.layers, QUANTIZED_VISION_NAMES)
+    if include_embed_head:
+        if lm.cfg.tie_word_embeddings:
+            raise ValueError("a tied head must stay float: quantize it with include_embed_head=False")
+        lm.embed_tokens = QEmbedding.from_embedding(lm.embed_tokens)
+        lm.lm_head = QLinear.from_linear(lm.lm_head)
+    return model

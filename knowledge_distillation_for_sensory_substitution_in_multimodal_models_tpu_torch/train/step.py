@@ -27,8 +27,10 @@ Every mode of the JAX step is ported (`step.py:282-301`):
 The frozen teacher runs under ``torch.no_grad()`` on the RGB stream (the
 ``teacher_*`` batch keys), once per micro-batch; its logits at 1/T,
 truncated to the student vocab, are one float32 matrix product (the JAX
-``_materialize_t``).  The reference's faithful LoCa indexing raises
-``NotImplementedError`` naming its ROADMAP item.
+``_materialize_t``), or, for an int8 head (``quantize_model_int8`` with
+``include_embed_head``), the K10 kernel (the JAX ``_materialize_t_int8``).
+The reference's faithful LoCa indexing raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
 axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
@@ -44,9 +46,10 @@ import torch
 from ..configs import TrainConfig
 from ..losses.kd_losses import IGNORE_INDEX, masked_ntxent_loss
 from ..models.llava_onevision import LlavaOnevision
+from ..models.qwen2 import QLinear
 from ..ops.fused_ce import fused_ce_loss
 from ..ops.fused_kl import fused_kl_loss
-from ..ops.fused_loca import fused_loca_ce_loss
+from ..ops.fused_loca import fused_loca_ce_loss, materialize_teacher_logits_int8
 from .optimizer import Optimizer
 
 _LOCA_MODES = ("logit_based", ("double_trouble", 2), ("double_trouble", 3))
@@ -73,6 +76,27 @@ def _fused_head(model: LlavaOnevision) -> torch.Tensor:
     the untied ``lm_head`` (a torch Linear stores [out, in] = [V, D])."""
     lm = model.language_model
     return lm.embed_tokens.weight if model.cfg.text.tie_word_embeddings else lm.lm_head.weight
+
+
+def teacher_head(model: LlavaOnevision):
+    """The teacher's head as :func:`_fused_head` gives it, or, for an int8
+    head, the (``weight_q`` int8 [Vt, Dt], ``weight_scale`` f32 [Vt]) pair,
+    vocab-major, which K10 reads in place (the JAX ``teacher_head``)."""
+    head = getattr(model.language_model, "lm_head", None)
+    if isinstance(head, QLinear):
+        return head.weight_q, head.weight_scale
+    return _fused_head(model)
+
+
+def dense_teacher_head(wt, dtype=torch.bfloat16) -> torch.Tensor:
+    """A :func:`teacher_head` as a dense [Vt, Dt] matrix in ``dtype``: an int8
+    pair dequantized per row (one [Vt, Dt] temporary, which K10 avoids), a
+    float head as it is (the JAX ``dense_teacher_head``, in the port's
+    [V, D] head layout)."""
+    if isinstance(wt, tuple):
+        wq, ws = wt
+        return (wq.float() * ws[:, None]).to(dtype)
+    return wt
 
 
 def _forward_hidden(model: LlavaOnevision, batch: Dict[str, torch.Tensor], prefix: str):
@@ -105,14 +129,17 @@ def _teacher_logits(teacher: LlavaOnevision, batch: Dict[str, torch.Tensor], voc
     student vocab: float32 [B * S, vocab] (the JAX ``_materialize_t``); and
     its per-tile vision features [B, P, Dv] from the same forward.
 
-    One matrix product of the final-norm hidden states with a row slice of
-    the untied ``lm_head`` [Vt, Dt] (no copy of the head); bf16 operands
-    accumulate into a float32 result, as the JAX dot's
-    ``preferred_element_type``.  It stays outside any kernel, as in the JAX
-    package."""
+    A float head: one matrix product of the final-norm hidden states with a
+    row slice of the untied ``lm_head`` [Vt, Dt] (no copy of the head); bf16
+    operands accumulate into a float32 result, as the JAX dot's
+    ``preferred_element_type``, outside any kernel, as in the JAX package.
+    An int8 head: K10 over the first ``vocab`` rows of the int8 head."""
     t_hidden, t_vis = _forward_hidden(teacher, batch, "teacher")
     th = t_hidden.reshape(-1, t_hidden.shape[-1])
-    wt = _fused_head(teacher)[:vocab]
+    wt = teacher_head(teacher)
+    if isinstance(wt, tuple):
+        return materialize_teacher_logits_int8(th, *wt, 1.0 / temperature, vocab), t_vis
+    wt = wt[:vocab]
     if th.dtype == torch.float32:
         t = th @ wt.T
     else:

@@ -232,7 +232,7 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_every_port_module_loads_no_jax():
     """A fresh process (this one has jax loaded by tests/conftest.py)."""
     modules = sorted(m.name for m in pkgutil.walk_packages([PORT_DIR], PKG + "."))
-    assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.cli.train_online_kd"} <= set(modules)
+    assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.ops.int8", f"{PKG}.cli.train_online_kd"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

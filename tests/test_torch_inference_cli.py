@@ -1,10 +1,12 @@
-"""The port's inference CLI on the CPU, its refusals, and its freedom from jax."""
+"""The port's inference CLI on the CPU (bf16 and int8 serving), its refusals,
+and its freedom from jax."""
 
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
     common,
@@ -24,9 +26,28 @@ def test_inference_cli_prints_one_row(tmp_path, capsys):
     assert "what is the object number 0?" in lines[1]
 
 
+@pytest.mark.parametrize("quant", ["int8", "int8_full"])
+def test_inference_cli_int8_prints_one_row(tmp_path, capsys, monkeypatch, quant):
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.qwen2 import (
+        QLinear,
+    )
+
+    built = []
+    init = common.init_or_load_params
+    monkeypatch.setattr(common, "init_or_load_params", lambda *a, **kw: built.append(init(*a, **kw)) or built[-1])
+    inference.main(["--synthetic_data", "--cpu", "--max_new_tokens", "4", "--quant", quant,
+                    "--root_data_dir", str(tmp_path)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and "what is the object number 0?" in lines[1]
+    (model,) = built
+    lm = model.language_model
+    assert isinstance(lm.layers[0].mlp.down_proj, QLinear)
+    assert isinstance(model.vision_tower.layers[0].mlp.fc1, QLinear) == (quant == "int8_full")
+    assert isinstance(lm.embed_tokens, torch.nn.Embedding)  # the tied head stays float
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--quant", "int8"], "int8"),
-    (["--student_ckpt_path", "x/ckpt"], "checkpoint"),
+    pytest.param(["--student_ckpt_path", "x/ckpt"], "checkpoint", id="flags1-checkpoint"),
 ])
 def test_inference_cli_refuses_unported_options(flags, match):
     with pytest.raises(SystemExit, match=match):

@@ -1,0 +1,147 @@
+"""The port's int8 kernels on the card against their plain PyTorch versions:
+the w8a8 GEMM (K12, ``csrc/int8_mm.cu``) in the XLA form and in its K-block
+form, at ragged K, M and N, at N = 1 (a decode step) and at a K that the
+K block does not divide; the int8-head teacher logits (K10,
+``csrc/tmat_int8.cu``) over one and several vocab tiles and a ragged row
+count; ``QLinear`` on the card; and that the wrappers refuse what the
+kernels do not take.  Needs a CUDA device; skips without one.
+
+Run on the card (the tests' conftest imports jax, which the card's machine
+may lack):
+    python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py
+
+Tolerances, as in ``chip_smoke.py``: max abs error <= 2e-2 x max(1, max
+|plain|) and relative Frobenius error <= 1e-2.  K12 and its plain version do
+the same integer sums and the same f32 epilogue, so they differ at most by
+an output rounding; K10 and its plain version differ by f32 summation order.
+The tests show that these bounds fail K12 fed weight scales of 1 in half
+the columns, and K12 that scales every row by the first row's amax."""
+
+import pytest
+import torch
+
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.qwen2 import (
+    QLinear,
+)
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
+    _build,
+    fused_loca as fl,
+    int8,
+)
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-2
+FRO_TOL = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built for sm_90a)")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    fro = ((got - want).norm() / want.norm()).item()
+    return err <= TOL * max(1.0, want.abs().max().item()) and fro <= FRO_TOL, (err, fro)
+
+
+def _operands(dev, n, k, m, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, k, generator=g, device=dev) * 3).to(torch.bfloat16)
+    if n > 2:
+        x[1] = 0  # the 1e-6 amax floor
+    wq, ws = int8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.05)
+    return x, wq, ws
+
+
+@pytest.mark.parametrize("n,k,m,k_block,out_dtype", [
+    (300, 1024, 264, None, torch.float32),     # ragged N and M, the XLA form
+    (300, 1024, 264, 512, torch.float32),      # K12's form, two K blocks
+    (129, 4304, 1152, None, torch.bfloat16),   # SigLIP fc2's ragged K, a partial last K step
+    (129, 4304, 1152, 128, torch.bfloat16),    # a K block that does not divide K
+    (7, 896, 4864, None, torch.bfloat16),      # the student's gate_proj at a few rows
+    (1, 896, 4864, None, torch.bfloat16),      # one decode row
+    (1, 896, 4864, 128, torch.float32),
+], ids=["xla", "kblock", "ragged_k", "ragged_kblock", "few_rows", "decode", "decode_kblock"])
+def test_int8_matmul_matches_plain(dev, n, k, m, k_block, out_dtype):
+    x, wq, ws = _operands(dev, n, k, m)
+    int8.reset_launch_counts()
+    got = int8.int8_matmul(x, wq, ws, out_dtype, k_block=k_block)
+    torch.cuda.synchronize()
+    assert int8.int8_matmul.launches == 1
+    assert got.shape == (n, m) and got.dtype == out_dtype
+    ok, errs = _close(got, int8.int8_matmul_ref(x, wq, ws, out_dtype, k_block=k_block))
+    assert ok, errs
+
+
+def test_int8_matmul_forms_differ_past_one_k_block(dev):
+    x, wq, ws = _operands(dev, 64, 2048, 256, seed=1)
+    xla = int8.int8_matmul(x, wq, ws, torch.float32)
+    kb = int8.int8_matmul(x, wq, ws, torch.float32, k_block=int8.pick_block(2048))
+    one = int8.int8_matmul(x[:, :512].contiguous(), wq[:, :512].contiguous(), ws, torch.float32)
+    one_kb = int8.int8_matmul(x[:, :512].contiguous(), wq[:, :512].contiguous(), ws, torch.float32, k_block=512)
+    assert not torch.equal(xla, kb)
+    assert _close(one_kb, one)[0]  # a single K block: the two forms agree
+
+
+def test_int8_bounds_see_faults(dev):
+    """Weight scales of 1 in half the columns, and every row scaled by the
+    first row's amax, fail the bounds the kernel is held by."""
+    x, wq, ws = _operands(dev, 256, 1024, 512, seed=2)
+    want = int8.int8_matmul_ref(x, wq, ws, torch.float32)
+    bad_ws = ws.clone()
+    bad_ws[::2] = 1.0
+    assert not _close(int8.int8_matmul(x, wq, bad_ws, torch.float32), want)[0]
+    xq = torch.empty(256, 1024, dtype=torch.int8, device=dev)
+    xs = torch.empty(256, 1, dtype=torch.float32, device=dev)
+    _build.int8_quantize(x, xq, xs, 1024, xla_form=True)
+    out = torch.empty(256, 512, dtype=torch.float32, device=dev)
+    _build.int8_gemm(xq, xs[:1].expand(256, 1).contiguous(), wq, ws, out, 1024)
+    assert not _close(out, want)[0]
+    _build.int8_gemm(xq, xs, wq, ws, out, 1024)
+    assert _close(out, want)[0]
+
+
+def test_qlinear_on_the_card_matches_plain(dev):
+    lin = torch.nn.Linear(1152, 4304, device=dev, dtype=torch.bfloat16)
+    q = QLinear.from_linear(lin)
+    x = torch.randn(2, 50, 1152, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        got = q(x)
+    want = int8.int8_matmul_ref(x, q.weight_q, q.weight_scale, torch.bfloat16) + q.bias
+    assert got.shape == (2, 50, 4304)
+    ok, errs = _close(got, want)
+    assert ok, errs
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
+    x, wq, ws = _operands(dev, 16, 96, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8.int8_matmul(x.float(), wq, ws)
+    with pytest.raises(ValueError, match="multiple"):
+        int8.int8_matmul(x[:, :88].contiguous(), wq[:, :88].contiguous(), ws)
+    with pytest.raises(ValueError, match="k_block"):
+        int8.int8_matmul(x, wq, ws, k_block=96)
+    with pytest.raises(ValueError, match="no backward"):
+        int8.int8_matmul(x.float().requires_grad_(True), wq, ws)
+
+
+@pytest.mark.parametrize("n,vt,vocab,d", [
+    (200, 136, 128, 256),      # one vocab tile, ragged rows
+    (257, 1040, 1000, 3584),   # several vocab tiles, a ragged last one, the teacher's width
+    (3, 640, 640, 96),         # a few rows, D not a multiple of the 32-column step
+], ids=["one_tile", "several_tiles", "few_rows"])
+def test_k10_matches_plain(dev, n, vt, vocab, d):
+    g = torch.Generator(device=dev).manual_seed(n)
+    ht = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    wq, ws = int8.absmax_quantize_weight(torch.randn(vt, d, generator=g, device=dev) * 0.05)
+    fl.reset_launch_counts()
+    got = fl.materialize_teacher_logits_int8(ht, wq, ws, 1.25, vocab)
+    torch.cuda.synchronize()
+    assert fl.materialize_teacher_logits_int8.launches == 1
+    assert got.shape == (n, vocab) and got.dtype == torch.float32
+    ok, errs = _close(got, fl.materialize_teacher_logits_int8_ref(ht, wq, ws, 1.25, vocab))
+    assert ok, errs

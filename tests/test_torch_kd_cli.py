@@ -3,8 +3,9 @@ tiny student against the tiny teacher on the synthetic SUNRGBD tree and
 writes its best checkpoint; phase 3 starts from it (the phase hand-off) and
 writes its own; the three-phase chain 1 -> 2 -> 3 hands off twice, phase 1
 moving only what it trains; logit_based, feature_based and the CLI's
-default (double_trouble phase 1) run; and what the port cannot run yet is
-refused with the ROADMAP.md item that ports it."""
+default (double_trouble phase 1) run; phase 2 trains against the int8
+teacher (``--teacher_quant int8`` and ``int8_full``); and what the port
+cannot run yet is refused with the ROADMAP.md item that ports it."""
 
 import math
 import os
@@ -145,11 +146,31 @@ def test_three_phase_chain(tmp_path, capsys):
     assert {"vision_tower", "language_model"} <= _moved_roots(p2, p3)
 
 
+@pytest.mark.parametrize("teacher_quant", ["int8", "int8_full"])
+def test_int8_teacher_trains(tmp_path, capsys, monkeypatch, teacher_quant):
+    """The teacher is built in float, then quantized once in place: its LM
+    projections, and with int8_full its SigLIP projections too."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import int8
+
+    calls = []
+    quantize = int8.quantize_model_int8
+
+    def spy(model, include_vision=False, include_embed_head=False):
+        calls.append((include_vision, include_embed_head))
+        return quantize(model, include_vision, include_embed_head)
+
+    monkeypatch.setattr(int8, "quantize_model_int8", spy)
+    _run(tmp_path, "--phase", "2", "--teacher_quant", teacher_quant)
+    out = capsys.readouterr().out
+    _val_loss(out)
+    assert "training complete" in out
+    assert calls == [(teacher_quant == "int8_full", False)]
+    assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_double_trouble_phase2"))
+
+
 @pytest.mark.parametrize("extra,match", [
-    (("--phase", "2", "--teacher_quant", "int8"), "slice 4"),
-    (("--phase", "2", "--teacher_quant", "int8_full"), "slice 4"),
-    (("--phase", "2", "--loca_faithful_indexing"), "queue 1 item 6"),
-    (("--phase", "2", "--dataset", "daquar"), "daquar"),
+    pytest.param(("--phase", "2", "--loca_faithful_indexing"), "queue 1 item 6", id="extra2-queue 1 item 6"),
+    pytest.param(("--phase", "2", "--dataset", "daquar"), "daquar", id="extra3-daquar"),
 ])
 def test_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
