@@ -7,7 +7,7 @@ Phases (any failure raises, and the exit code is non-zero):
   2. build the kernel library from the sources in this checkout
      (into build/kernels/, one nvcc per source, in parallel) and print the
      build time;
-  3. hold each of the nine kernels against its plain PyTorch version at the
+  3. hold each kernel against its plain PyTorch version at the
      main paths' shapes, in bf16 on the card (max abs error after an f32
      cast <= 2e-2, dW by a relative bound on its max norm, and every output
      by its relative Frobenius error <= 1e-2), show that these bounds fail
@@ -35,7 +35,11 @@ Phases (any failure raises, and the exit code is non-zero):
      seeded random weights, built once), the student on the depth stream
      and the teacher on the RGB stream, both at full width and depth,
      through cli/train_online_kd.py's step (AdamW, lr 1e-5, A=2 x B=1, a
-     fresh student each): 6 double-trouble phase-3 steps, 6 phase-1 steps
+     fresh student each): 6 double-trouble phase-3 steps, 6 phase-3 steps
+     with the faithful LoCa ([kdF]: chunked_faithful_loca over the f32
+     teacher logits, CE through K5/K6), then K9's path, the op API
+     fused_loca_loss, forward and backward on one [kdF] micro-batch and
+     held to K11's LoCa term there; 6 phase-1 steps
      (the KD CLI's default: temperature KL + NT-Xent, the language model
      frozen) and 4 feature_based steps; then ([kd8]) the same teacher
      quantized in place as the benchmark configures it (int8_full, the
@@ -46,21 +50,28 @@ Phases (any failure raises, and the exit code is non-zero):
      masters of the vision tower and the projector moved and the frozen
      language model (the tied head included) did not, bit for bit; then
      the phase-3 KD loss and gradients on the kernel path against dense
-     float32 LoCa + CE (with the bf16 and with the int8 teacher), and the
+     float32 LoCa + CE (with the bf16 teacher, with the faithful LoCa, and
+     with the int8 teacher), and the
      phase-1 loss against dense float32 KL + NT-Xent, on the plain path at
      full width and 2+2 layers of each model (each loss and its KL term
      alone);
-  8. print one JSON line of kernel results (time, plain time, the least time
+  8. [tiny]: the baseline and KD CLIs with --synthetic_data on the card
+     without --real_model (the tiny configs: the CLIs choose the plain
+     routes from their widths and head dims, and no kernel launches), one
+     of them on the synthetic DAQUAR tree with the faithful LoCa;
+  9. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
+K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
 the temperature-KL K7 and K8 (with and without dW), the flash forward at
 the teacher's D = 128, the w8a8 GEMM K12 (both activation forms, ragged K,
 a decode row) and the int8-head teacher logits K10 against their plain
 versions, and shows that the bounds fail a K11 backward fed tsum = 0 and
-one fed g_kl = 0, a K8 fed a mis-normalised teacher (lse_t + 1) and one fed
+one fed g_kl = 0, a K9 backward fed tsum = 0 and one fed g = 0 for half
+the rows, a K8 fed a mis-normalised teacher (lse_t + 1) and one fed
 g = 0 for half the rows, and K12 fed weight scales of 1 in half the columns
 and one that scales every row by the first row's amax.
 
@@ -73,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -160,6 +172,9 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     masked_cross_entropy,
     masked_ntxent_loss,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.losses.chunked import (  # noqa: E402
+    chunked_faithful_loca,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention as fa,
@@ -202,6 +217,9 @@ KERNELS = {
                           lambda: fl.loca_ce_fwd.launches),
     "fused_loca_ce_bwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:1168",
                           lambda: fl.loca_ce_bwd.launches),
+    # K9, LoCa without CE: K11's source with its CE flag off
+    "fused_loca_fwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:388", lambda: fl.loca_fwd.launches),
+    "fused_loca_bwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:463", lambda: fl.loca_bwd.launches),
     "fused_kl_fwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:197", lambda: fkl.kl_fwd.launches),
     # K8's dh kernel; its dW kernel is counted apart (a frozen head skips it)
     "fused_kl_bwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:243", lambda: fkl.kl_bwd.launches),
@@ -540,7 +558,87 @@ def loca_kernel_phase(dev, g) -> list:
     results.append(_result("fused_loca_ce_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
                            bound(6 * n * d * vocab,
                                  2 * nbytes(hs, ws) + nbytes(tmat, lab, lab_ce, stats, ones, ones))))
-    del hs, ws, tmat, stats
+    del stats
+    results += loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, lc.loca_alpha, kw)
+    del hs, ws, tmat
+    torch.cuda.empty_cache()
+    return results
+
+
+def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, alpha, kw) -> list:
+    """K9 (LoCa without CE) forward and backward against their plain
+    versions on ``loca_kernel_phase``'s inputs, two negative controls
+    (tsum = 0, and g = 0 in half the rows), and K9 against K11's LoCa part
+    on the same inputs: its KL rows against K11's, its dh and dW against
+    K11's backward with g_ce = 0."""
+    n, d, vocab = hs.shape[0], hs.shape[1], ws.shape[0]
+
+    def bounds(want):
+        return KD_TOL * max(1.0, want.float().abs().max().item())
+
+    def fwd():
+        return fl.loca_fwd(hs, ws, tmat, lab, alpha=alpha, **kw)
+
+    def fwd_plain():
+        return fl.loca_rows_ref(hs, ws, tmat, lab, alpha=alpha, **kw)
+
+    got = fwd()
+    torch.cuda.synchronize()
+    want = fwd_plain()
+    s1 = fl.ROW_STATS.index("lse_s1")
+    if got[1][s1].any() or want[1][s1].any():
+        raise AssertionError("K9 computes no CE: lse_s1 must stay 0")
+    outs = [("kl", got[0], want[0])] + [(name, a, b) for i, (name, a, b) in
+                                        enumerate(zip(fl.ROW_STATS, got[1], want[1])) if i != s1]
+    err = _hold("fused_loca_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in outs])
+    stats = want[1]
+    # K11's LoCa rows and statistics on the same inputs
+    kl11, _, st11 = fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=alpha, **kw)
+    keep = [i for i in range(len(fl.ROW_STATS)) if i != s1]
+    _hold("fused_loca_fwd vs K11", [("kl", got[0], kl11, bounds(kl11))]
+          + [(fl.ROW_STATS[i], got[1][i], st11[i], bounds(st11[i])) for i in keep])
+    log(f"[kernel] fused_loca_fwd: KL rows and statistics bit-equal to K11's: "
+        f"{torch.equal(got[0], kl11) and torch.equal(got[1][keep], st11[keep])}")
+    results = [_result("fused_loca_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
+                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, *got)))]
+    del got, want, kl11, st11
+
+    ones, zeros = torch.ones(n, device=hs.device), torch.zeros(n, device=hs.device)
+    dh, dw = fl.loca_bwd(hs, ws, tmat, lab, stats, ones, **kw)
+    dh_only, no_dw = fl.loca_bwd(hs, ws, tmat, lab, stats, ones, need_dw=False, **kw)
+    torch.cuda.synchronize()
+    if no_dw is not None or not torch.equal(dh_only, dh):
+        raise AssertionError("K9 without dW gave a dW or another dh")
+    want_dh, want_dw = fl.loca_rows_bwd_ref(hs, ws, tmat, lab, stats, ones, **kw)
+    err = _hold("fused_loca_bwd", [("dh", dh, want_dh, bounds(want_dh)), ("dW", dw, want_dw, bounds(want_dw))])
+    dh11, dw11 = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, zeros, **kw)
+    _hold("fused_loca_bwd vs K11 with g_ce = 0", [("dh", dh, dh11, bounds(dh11)), ("dW", dw, dw11, bounds(dw11))])
+    log(f"[kernel] fused_loca_bwd: dh and dW bit-equal to K11's with g_ce = 0: "
+        f"{torch.equal(dh, dh11) and torch.equal(dw, dw11)}")
+    del dh, dw, dh_only, dh11, dw11
+    # a backward that loses the p_sT * tsum term ...
+    no_tsum = stats.clone()
+    no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
+    faulty = fl.loca_bwd(hs, ws, tmat, lab, no_tsum, ones, **kw)
+    _must_fail("fused_loca_bwd", "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
+    # ... and one that loses the cotangent of every other row
+    half = ones.clone()
+    half[::2] = 0.0
+    faulty = fl.loca_bwd(hs, ws, tmat, lab, stats, half, **kw)
+    _must_fail("fused_loca_bwd", "g = 0 in half the rows", list(zip(faulty, (want_dh, want_dw))))
+    del faulty, want_dh, want_dw, no_tsum
+
+    def bwd():
+        return fl.loca_bwd(hs, ws, tmat, lab, stats, ones, **kw)
+
+    def bwd_plain():
+        return fl.loca_rows_bwd_ref(hs, ws, tmat, lab, stats, ones, **kw)
+
+    # no single PyTorch call computes the LoCa rows or their gradient over
+    # a streamed head
+    results.append(_result("fused_loca_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
+                           bound(6 * n * d * vocab, 2 * nbytes(hs, ws) + nbytes(tmat, lab, stats, ones))))
+    del stats
     torch.cuda.empty_cache()
     return results
 
@@ -757,7 +855,7 @@ def training_phase(dev) -> dict:
     batch = synthetic_kd_batch(cfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = _device_batch(batch, dev)
     tcfg = TrainConfig(kd_mode="baseline", accumulate_grad_batches=ACCUM, learning_rate=LR,
-                       cosine_t_max=0)
+                       cosine_t_max=0, ce_impl="fused")
     state = TrainState(model, make_optimizer(model, LR))
     step = make_train_step(KDModels(model), tcfg)
     torch.cuda.synchronize()
@@ -838,7 +936,7 @@ def agreement_phase(dev) -> None:
     leaves = [params[n] for n in names]
 
     reset_counts()
-    loss_k, _ = make_loss_fn(KDModels(model), TrainConfig(kd_mode="baseline"))(tb)
+    loss_k, _ = make_loss_fn(KDModels(model), TrainConfig(kd_mode="baseline", ce_impl="fused"))(tb)
     grads_k = torch.autograd.grad(loss_k, leaves)
     launches = read_counts()
     for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_bwd_mha", "flash_bwd_gqa", "fused_ce_fwd", "fused_ce_bwd"):
@@ -884,27 +982,30 @@ def _build_teacher(dev):
 
 
 def kd_path(dev, teacher, tag: str, mode: str, phase: int, steps: int, per_micro: dict,
-            vision_moves: bool = False) -> dict:
+            vision_moves: bool = False, faithful: bool = False, probe=None) -> dict:
     """``steps`` KD train steps of the 0.5B student (a fresh one, full width
     and depth) in ``mode``/``phase`` against the frozen ``teacher``: exact
     launch counts (``per_micro`` per micro-batch), a finite and falling loss,
     the mean time of the steps after the first ``KD_WARMUP``, samples/s and
     peak memory; that every parameter the phase freezes kept its bits and,
     with ``vision_moves``, that every float32 master of the vision tower and
-    the projector moved."""
+    the projector moved.  ``faithful`` sets ``loca_faithful_indexing``;
+    ``probe(student, tb)``, if given, runs after the steps and its result
+    is returned under "probe"."""
     scfg = llava_onevision_0_5b()
     t0 = time.perf_counter()
     student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16, trainable=True)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
-    cfg = TrainConfig(kd_mode=mode, phase=phase, loss=kd_loss_config_for(mode),
-                      accumulate_grad_batches=ACCUM, learning_rate=KD_LR, cosine_t_max=0)
+    loss = dataclasses.replace(kd_loss_config_for(mode), loca_faithful_indexing=faithful)
+    cfg = TrainConfig(kd_mode=mode, phase=phase, loss=loss, accumulate_grad_batches=ACCUM,
+                      learning_rate=KD_LR, cosine_t_max=0, ce_impl="fused")
     state = TrainState(student, make_optimizer(student, KD_LR, kd_mode=mode, phase=phase))
     step = make_train_step(KDModels(student, teacher), cfg)
     torch.cuda.synchronize()
     n_s = sum(p.numel() for p in student.parameters())
-    log(f"[{tag}] {mode} phase {phase}: student ({n_s / 1e6:.1f} M params, bf16; float32 masters) + batch "
+    log(f"[{tag}] {mode} phase {phase}{', faithful LoCa' if faithful else ''}: student ({n_s / 1e6:.1f} M params, bf16; float32 masters) + batch "
         f"set-up {time.perf_counter() - t0:.1f} s; memory after set-up "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; A={ACCUM} x B=1, "
         f"{int(tb['student_attention_mask'][0].sum())} tokens in a {tb['student_input_ids'].shape[-1]} bucket")
@@ -954,9 +1055,13 @@ def kd_path(dev, teacher, tag: str, mode: str, phase: int, steps: int, per_micro
         f"bits; vision tower + projector: {len(moved)} of {len(masters0)} float32 masters moved")
     if len(kept) != len(frozen) or len(moved) != len(masters0):
         raise AssertionError(f"{mode} phase {phase}: a frozen parameter moved or a trained master did not")
-    del state, step, student, tb
+    del state, step
+    out = dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+    if probe is not None:
+        out["probe"] = probe(student, tb)
+    del student, tb
     torch.cuda.empty_cache()
-    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+    return out
 
 
 def _kd_per_micro(**loss_kernels) -> dict:
@@ -973,6 +1078,63 @@ def kd_training_phase(dev, teacher) -> dict:
     """6 double-trouble phase-3 steps: K11 for LoCa + CE."""
     return kd_path(dev, teacher, "kd", "double_trouble", 3, KD_STEPS,
                    _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1))
+
+
+def kd_faithful_phase(dev, teacher) -> dict:
+    """[kdF]: 6 double-trouble phase-3 steps with ``loca_faithful_indexing``
+    (the reference's full-tensor LoCa writes): LoCa from
+    ``losses/chunked.py::chunked_faithful_loca`` over the step's f32 teacher
+    logits, CE through K5/K6, K11 not launched.  Then K9's op path on one
+    micro-batch of the trained student (``loca_op_path``)."""
+    return kd_path(dev, teacher, "kdF", "double_trouble", 3, KD_STEPS,
+                   _kd_per_micro(fused_ce_fwd=1, fused_ce_bwd=1), faithful=True,
+                   probe=lambda student, tb: loca_op_path(student, teacher, tb))
+
+
+def loca_op_path(student, teacher, tb) -> dict:
+    """K9's path, the op API ``ops/fused_loca.py::fused_loca_loss`` (the JAX
+    ``fused_loca_loss``; no train step calls it), on the first micro-batch
+    of [kdF]: the student's final-norm hidden states [3072, 896] and its
+    tied head, the teacher's f32 logits at 1/T, the unshifted labels.  The
+    counts are set to 0 just before its forward and backward and read just
+    after; then its value and gradients are held to K11's LoCa term (its
+    backward with g_ce = 0) on the same inputs."""
+    lc = kd_loss_config_for("double_trouble")
+    micro = {k: v[0] for k, v in tb.items()}
+    with torch.no_grad():
+        s_hidden, _ = kd_step._forward_hidden(student, micro, "student")
+        head = student.language_model.embed_tokens.weight
+        tmat, _ = kd_step._teacher_logits(teacher, micro, head.shape[0], lc.temperature)
+    flat = s_hidden.reshape(-1, s_hidden.shape[-1]).detach().requires_grad_(True)
+    w = head.detach().requires_grad_(True)
+    labels = micro["labels"].reshape(-1)
+    kw = dict(temperature=lc.temperature, alpha=lc.loca_alpha)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loca9 = fl.fused_loca_loss(flat, w, tmat, labels, **kw)
+    g9 = torch.autograd.grad(loca9, (flat, w))
+    torch.cuda.synchronize()
+    op_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(fused_loca_fwd=1, fused_loca_bwd=1)
+    log(f"[kdF-op] fused_loca_loss on a [kdF] micro-batch ({flat.shape[0]} rows): loss {loca9.item():.6e}, "
+        f"forward + backward {op_ms:.1f} ms (host clock); launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"K9 op path launch counts {launches} != {want}")
+    loca11, _ = fl.fused_loca_ce_loss(flat, w, tmat, labels, kd_step.ce_labels(micro["labels"]), **kw)
+    g11 = torch.autograd.grad(loca11, (flat, w))
+    rel = abs(loca9.item() - loca11.item()) / abs(loca11.item())
+    log(f"[kdF-op] K9 vs K11's LoCa term: {loca9.item():.9e} vs {loca11.item():.9e}, rel diff {rel:.3e}; "
+        f"dh and dW bit-equal: {all(torch.equal(a, b) for a, b in zip(g9, g11))}")
+    if not (math.isfinite(loca9.item()) and rel <= 1e-5):
+        raise AssertionError(f"K9 and K11 disagree on the LoCa term: {loca9.item()} vs {loca11.item()}")
+    _hold("kdF-op K9 vs K11 gradients", [
+        (name, a, b, KD_TOL * max(1.0, b.float().abs().max().item())) for name, a, b in zip(("dh", "dW"), g9, g11)])
+    del tmat, flat, w, g9, g11
+    return dict(launches=launches, ms=op_ms)
 
 
 def kd_phase1_phase(dev, teacher) -> dict:
@@ -1033,17 +1195,21 @@ def _agreement_models(dev):
     return student, teacher, _device_batch(batch, dev, streams=("student_", "teacher_"))
 
 
-def kd_agreement_phase(dev, int8: bool = False) -> None:
+def kd_agreement_phase(dev, int8: bool = False, faithful: bool = False) -> None:
     """The KD loss and gradients on the kernel path against dense float32
     LoCa + masked CE on the plain path (plain attention, full logits), at
     full width and 2 SigLIP + 2 Qwen2 layers of each model; with ``int8``
     the teacher quantized as in [kd8] (K12 and K10 on the kernel path, the
-    plain int8 product and the dequantized head on the plain path)."""
+    plain int8 product and the dequantized head on the plain path); with
+    ``faithful`` the faithful LoCa as in [kdF] (``chunked_faithful_loca``
+    and K5/K6 on the kernel path, dense ``loca_loss(faithful_indexing=True)``
+    on the plain path)."""
     student, teacher, tb = _agreement_models(dev)
-    tag = "kd8-agree" if int8 else "kd-agree"
+    tag = "kd8-agree" if int8 else "kdF-agree" if faithful else "kd-agree"
     if int8:
         i8.quantize_model_int8(teacher, include_vision=True, include_embed_head=True)
-    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"))
+    loss = dataclasses.replace(kd_loss_config_for("double_trouble"), loca_faithful_indexing=faithful)
+    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=loss, ce_impl="fused")
     lc = cfg.loss
     names = ("language_model.embed_tokens.weight", "language_model.layers.0.self_attn.q_proj.weight",
              "vision_tower.layers.0.mlp.fc1.weight")
@@ -1058,23 +1224,31 @@ def kd_agreement_phase(dev, int8: bool = False) -> None:
     s_hidden, _ = kd_step._forward_hidden(student, tb, "student")
     head = student.language_model.embed_tokens.weight
     tmat, _ = kd_step._teacher_logits(teacher, tb, head.shape[0], lc.temperature)
-    loca_k, _ = fl.fused_loca_ce_loss(s_hidden.reshape(-1, s_hidden.shape[-1]), head, tmat,
-                                      tb["labels"].reshape(-1), kd_step.ce_labels(tb["labels"]),
-                                      temperature=lc.temperature, alpha=lc.loca_alpha)
-    del tmat
+    flat = s_hidden.reshape(-1, s_hidden.shape[-1])
+    if faithful:
+        loca_k = chunked_faithful_loca(flat, head, tb["labels"].reshape(-1), tmat, temperature=lc.temperature,
+                                       alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size)
+    else:
+        loca_k, _ = fl.fused_loca_ce_loss(flat, head, tmat, tb["labels"].reshape(-1),
+                                          kd_step.ce_labels(tb["labels"]), temperature=lc.temperature,
+                                          alpha=lc.loca_alpha)
+    del tmat, flat
     loca_grads_k = torch.autograd.grad(loca_k, leaves)
     launches = read_counts()
+    loss_kernels = ("fused_ce_fwd", "fused_ce_bwd") if faithful else ("fused_loca_ce_fwd", "fused_loca_ce_bwd")
     for k in ("flash_fwd_mha", "flash_fwd_gqa", "flash_fwd_gqa_d128", "flash_bwd_mha", "flash_bwd_gqa",
-              "fused_loca_ce_fwd", "fused_loca_ce_bwd") + (("int8_mm", "tmat_int8") if int8 else ()):
+              *loss_kernels) + (("int8_mm", "tmat_int8") if int8 else ()):
         if launches[k] == 0:
             raise AssertionError(f"the KD kernel path skipped {k}: {launches}")
+    if faithful and launches["fused_loca_ce_fwd"] + launches["fused_loca_ce_bwd"]:
+        raise AssertionError(f"the faithful path launched K11: {launches}")
 
     with torch.no_grad(), plain_int8():
         head_t = kd_step.dense_teacher_head(kd_step.teacher_head(teacher), torch.float32).float()
         t_logits = _plain_forward(teacher, tb, "teacher")[0].float() @ head_t.T
         del head_t
     s_logits = _plain_forward(student, tb, "student")[0].float() @ head.float().T
-    loca = loca_loss(t_logits, s_logits, tb["labels"], lc.temperature, lc.loca_alpha)
+    loca = loca_loss(t_logits, s_logits, tb["labels"], lc.temperature, lc.loca_alpha, faithful_indexing=faithful)
     ce = masked_cross_entropy(s_logits, tb["labels"])
     loss_p = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
     del t_logits
@@ -1095,7 +1269,8 @@ def kd_phase1_agreement_phase(dev) -> None:
     model; and the KL term alone, which its 1 / (N V) normalisation makes
     tiny beside NT-Xent."""
     student, teacher, tb = _agreement_models(dev)
-    cfg = TrainConfig(kd_mode="double_trouble", phase=1, loss=kd_loss_config_for("double_trouble"))
+    cfg = TrainConfig(kd_mode="double_trouble", phase=1, loss=kd_loss_config_for("double_trouble"),
+                      ce_impl="fused")
     lc = cfg.loss
     names = ("vision_tower.layers.0.mlp.fc1.weight", "multi_modal_projector.linear_1.weight",
              "vision_tower.layers.0.self_attn.q_proj.weight")
@@ -1133,6 +1308,50 @@ def kd_phase1_agreement_phase(dev) -> None:
                                           ("KL term", kl_k, kl, kl_grads_k, kl_grads_p)))
     del student, teacher, grads_k, grads_p, kl_grads_k, kl_grads_p, kl, con
     torch.cuda.empty_cache()
+
+
+# [tiny]: (label, CLI module, its extra flags)
+TINY_RUNS = (
+    ("baseline_depth", "train", ()),
+    ("KD double_trouble phase 1 (the CLI's default)", "train_online_kd", ()),
+    ("KD phase 2, faithful LoCa, DAQUAR", "train_online_kd",
+     ("--phase", "2", "--loca_faithful_indexing", "--dataset", "daquar")),
+)
+
+
+def tiny_cli_phase() -> None:
+    """[tiny]: the baseline and KD CLIs with ``--synthetic_data`` and
+    neither ``--real_model`` nor ``--cpu``: the tiny configs train on the
+    card.  Their width and head dims are not the kernels', so the CLIs pick
+    the plain routes from the configs (``common.resolve_ce_impl``,
+    ``common.resolve_attn_impl``) and no kernel launches.  Data and
+    checkpoints go to build/chip_smoke_tiny/ in this checkout."""
+    import importlib
+    import io
+    import re
+    import shutil
+
+    root = _build.BUILD_DIR.parent / "chip_smoke_tiny"
+    shutil.rmtree(root, ignore_errors=True)
+    for label, cli, extra in TINY_RUNS:
+        mod = importlib.import_module(f"{PKG}.cli.{cli}")
+        d = root / cli / str(len(extra))
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(["--synthetic_data", "--accumulate_grad_batches", "1", "--num_workers", "1",
+                      "--root_data_dir", str(d / "data"), "--checkpoint_dir", str(d / "ck"),
+                      "--tensorboard_dir", str(d / "tb"), *extra])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counts().items() if v}
+        val = [float(x) for x in re.findall(r"val_loss (\S+)", out.getvalue())]
+        log(f"[tiny] {cli} {' '.join(extra)}: {label}, {secs:.1f} s; val_loss {val}; kernel launches {launches}")
+        if len(val) != 1 or not math.isfinite(val[0]) or "training complete" not in out.getvalue():
+            raise AssertionError(f"the tiny {cli} run did not finish: {out.getvalue()[-2000:]}")
+        if launches:
+            raise AssertionError(f"the tiny {cli} run launched kernels: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main_path_phase(dev) -> dict:
@@ -1367,23 +1586,27 @@ def main() -> int:
     serve8 = main8_phase(dev)
     teacher = _build_teacher(dev)
     kd = kd_training_phase(dev, teacher)
+    kdf = kd_faithful_phase(dev, teacher)
     kd1 = kd_phase1_phase(dev, teacher)
     kdfb = feature_based_phase(dev, teacher)
     kd8 = kd8_phase(dev, teacher)
     del teacher
     torch.cuda.empty_cache()
     kd_agreement_phase(dev)
+    kd_agreement_phase(dev, faithful=True)
     kd_agreement_phase(dev, int8=True)
     kd_phase1_agreement_phase(dev)
+    tiny_cli_phase()
     # launches: the driven paths, each counted from 0 around its own run
-    paths = (train, serve, serve8, kd, kd1, kdfb, kd8)
+    # (K9's: the op path on a [kdF] micro-batch)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
         f"({ACCUM / (train['step_ms'] / 1e3):.3f} samples/s), peak {train['peak'] / 2**30:.2f} GiB; "
         f"generate {serve['ms_call']:.1f} ms/call, int8_full {serve8['ms_call']:.1f} ms/call")
-    for name, r in (("KD phase 3", kd), ("KD phase 1", kd1), ("feature_based", kdfb),
-                    ("KD phase 3, int8 teacher", kd8)):
+    for name, r in (("KD phase 3", kd), ("KD phase 3, faithful LoCa", kdf), ("KD phase 1", kd1),
+                    ("feature_based", kdfb), ("KD phase 3, int8 teacher", kd8)):
         log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "

@@ -1,7 +1,8 @@
 """Shared CLI plumbing (port of the JAX package's ``cli/common.py``):
 ``.env`` loading, the flags this port implements, tiny/real config choice,
-the tokenizer, the synthetic dataset tree, device set-up,
-``resolve_attn_impl``, ``make_datasets`` and ``init_or_load_params``.
+the tokenizer, the synthetic SUNRGBD and DAQUAR trees, device set-up, the
+attention and loss routes (``resolve_attn_impl``, ``resolve_ce_impl``),
+``make_datasets`` and ``init_or_load_params``.
 """
 
 from __future__ import annotations
@@ -128,6 +129,52 @@ def ensure_synthetic_dataset(root: str, n: int = 12, seed: int = 0, size=None) -
     return root
 
 
+def ensure_synthetic_daquar(root: str, n: int = 8, seed: int = 0) -> str:
+    """Write a tiny DAQUAR-layout tree under ``root``: images/<name>.png and
+    depth/<name>_depth.png, the three split CSVs at the root."""
+    import pandas as pd
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        h, w = [(48, 64), (40, 56)][i % 2]
+        name = f"image{i}"
+        Image.fromarray(rng.integers(0, 255, (h, w, 3)).astype(np.uint8)).save(
+            os.path.join(root, "images", f"{name}.png"))
+        Image.fromarray(rng.integers(0, 65535, (h, w)).astype(np.uint16)).save(
+            os.path.join(root, "depth", f"{name}_depth.png"))
+        rows.append({
+            "Question_Id": i,
+            "Questions": f"what is in the image {i}?",
+            "Answers": ["chair", "table"][i % 2],
+            "Image_Path": f"{name}.png",
+            "Depth_Path": f"{name}_depth.png",
+        })
+    df = pd.DataFrame(rows)
+    for split in ("train_dataset.csv", "val_dataset.csv", "test_dataset.csv"):
+        df.to_csv(os.path.join(root, split), index=False)
+    return root
+
+
+def data_root(args) -> str:
+    """``--root_data_dir``, else ROOT_DATA_DIR; with ``--synthetic_data`` a
+    synthetic tree of ``--dataset``'s layout written there (a fresh
+    temporary directory if neither is set)."""
+    import tempfile
+
+    root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
+    if args.synthetic_data:
+        root = root or tempfile.mkdtemp(prefix="kdss_synth_")
+        make = ensure_synthetic_daquar if args.dataset == "daquar" else ensure_synthetic_dataset
+        root = make(root)
+    if not root:
+        raise SystemExit("set ROOT_DATA_DIR (.env) or pass --root_data_dir / --synthetic_data")
+    return root
+
+
 def add_reference_flags(p: argparse.ArgumentParser, accum_default: int = 64) -> None:
     """The six reference CLI flags (`phase1/train_online_kd.py:65-70`)."""
     p.add_argument("--batch_size", type=int, default=1)
@@ -152,14 +199,13 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
 
 
 def make_datasets(args, root: str):
-    """(train_ds, val_ds) on the port's jax-free SUNRGBD reader.  DAQUAR is
-    refused until its reader is ported."""
-    if args.dataset == "daquar":
-        raise SystemExit(
-            "--dataset daquar is not ported yet: its reader is ROADMAP.md queue 1 item 1"
-        )
-    from ..data.dataset import SUNRGBDVQADataset
+    """(train_ds, val_ds) on the port's jax-free readers, for ``--dataset
+    sunrgbd|daquar``."""
+    from ..data.dataset import DAQUARVQADataset, SUNRGBDVQADataset
 
+    if args.dataset == "daquar":
+        return (DAQUARVQADataset(root, args.train_csv, args.subset_percentage),
+                DAQUARVQADataset(root, args.val_csv, args.subset_percentage))
     return (
         SUNRGBDVQADataset(root, args.train_csv, args.subset_percentage,
                           depth_encoding=args.depth_encoding),
@@ -209,12 +255,28 @@ def model_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-def resolve_attn_impl(args, device: torch.device) -> str:
-    """``--attn_impl`` if given, else the kernel arm on CUDA and the plain
-    path on the CPU (the JAX package picks "pallas" on a TPU, "xla" on CPU)."""
+def resolve_attn_impl(args, device: torch.device, cfg, trainable: bool = False) -> str:
+    """``--attn_impl`` if given, else the flash kernels on CUDA for a config
+    whose head dims they take (the backward's too for a model that trains),
+    and the plain path otherwise: on the CPU (as the JAX package picks
+    "pallas" on a TPU and "xla" on the CPU) and for the tiny configs."""
     if args.attn_impl:
         return args.attn_impl
-    return "flash" if device.type == "cuda" else "xla"
+    from ..ops.flash_attention import BWD_HEAD_DIMS, KERNEL_HEAD_DIMS
+
+    dims = BWD_HEAD_DIMS if trainable else KERNEL_HEAD_DIMS
+    taken = cfg.vision.head_dim in dims and cfg.text.head_dim in dims
+    return "flash" if device.type == "cuda" and taken else "xla"
+
+
+def resolve_ce_impl(device: torch.device, cfg) -> str:
+    """The route of the vocabulary losses (``TrainConfig.ce_impl``): the
+    fused kernels on CUDA for a student whose width they take, else the
+    plain chunked route (on the CPU and for the tiny configs), as the JAX
+    CLIs pick "fused" only on one TPU chip at a real config."""
+    from ..ops.fused_ce import KERNEL_DIMS
+
+    return "fused" if device.type == "cuda" and cfg.text.hidden_size in KERNEL_DIMS else "chunked"
 
 
 def init_or_load_params(

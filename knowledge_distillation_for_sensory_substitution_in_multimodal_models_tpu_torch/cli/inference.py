@@ -38,7 +38,7 @@ def main(argv=None):
     if args.student_ckpt_path:
         raise SystemExit(
             "--student_ckpt_path is not ported yet: it waits for the checkpoint port "
-            "(ROADMAP.md queue 1 item 9); use --student_weights for an HF snapshot"
+            "(ROADMAP.md queue 1 item 1); use --student_weights for an HF snapshot"
         )
     common.load_env()
     device = common.setup_device(args)
@@ -60,7 +60,7 @@ def main(argv=None):
     scfg, _ = common.model_configs(args)
     model = common.init_or_load_params(
         scfg, args.student_weights, args.seed,
-        attn_impl=common.resolve_attn_impl(args, device),
+        attn_impl=common.resolve_attn_impl(args, device, scfg),
         device=device, dtype=common.model_dtype(device), quant=args.quant,
     )
     tok = common.make_tokenizer(args, scfg)

@@ -1,7 +1,11 @@
 """Baseline fine-tune CLI (port of the JAX package's ``cli/train.py``, parity
 with the reference's `distillation/baseline_depth/train.py` and
 `baseline_rgb05b/train.py`): the 0.5B student alone, masked CE, the pixel
-stream selected by ``--pixel_stream {depth,rgb}``.
+stream selected by ``--pixel_stream {depth,rgb}``, the SUNRGBD or
+(``--dataset daquar``) the DAQUAR layout.  The CE route and the attention
+route are chosen from the config (``common.resolve_ce_impl``,
+``common.resolve_attn_impl``): the kernels on CUDA at the real widths, the
+plain paths on the CPU and for the tiny config.
 
 Offline smoke on the CPU (tiny config, synthetic SUNRGBD tree):
   python -m knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli.train \\
@@ -12,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import tempfile
 
 from . import common
 
@@ -40,12 +43,7 @@ def main(argv=None):
     from ..train.checkpoint import CheckpointManager
     from ..train.loop import load_checkpoint_state, run_training, to_device
 
-    root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
-    if args.synthetic_data and args.dataset == "sunrgbd":
-        root = common.ensure_synthetic_dataset(root or tempfile.mkdtemp(prefix="kdss_synth_"))
-    if not root:
-        raise SystemExit("set ROOT_DATA_DIR (.env) or pass --root_data_dir / --synthetic_data")
-    train_ds, val_ds = common.make_datasets(args, root)
+    train_ds, val_ds = common.make_datasets(args, common.data_root(args))
 
     scfg, _ = common.model_configs(args)
     tok = common.make_tokenizer(args, scfg)
@@ -77,7 +75,7 @@ def main(argv=None):
 
     model = common.init_or_load_params(
         scfg, args.student_weights, args.seed,
-        attn_impl=common.resolve_attn_impl(args, device),
+        attn_impl=common.resolve_attn_impl(args, device, scfg, trainable=True),
         device=device, dtype=common.model_dtype(device), trainable=True,
     )
     cfg = TrainConfig(
@@ -86,7 +84,9 @@ def main(argv=None):
         load_checkpoint=args.load_checkpoint, augmentation=args.augmentation,
         accumulate_grad_batches=args.accumulate_grad_batches,
         learning_rate=args.learning_rate, kd_mode="baseline",
-        pixel_stream=args.pixel_stream, cosine_t_max=0, ce_impl="fused",
+        pixel_stream=args.pixel_stream, cosine_t_max=0,
+        loss_chunk_size=32 if common.is_tiny(args) else 256,
+        ce_impl=common.resolve_ce_impl(device, scfg),
     )
     state = TrainState(model, make_optimizer(model, cfg.learning_rate))
 

@@ -9,13 +9,18 @@ encoder's too, its head staying bf16), the student on the depth stream and
 the teacher on the RGB stream.  Every mode runs: ``double_trouble`` phase 1
 (the default: temperature KL + NT-Xent, the language model frozen), phase 2
 (LoCa + CE, the vision tower frozen) and phase 3, ``logit_based`` (LoCa +
-CE) and ``feature_based`` (KL + CE + NT-Xent).  A fresh double_trouble
-phase N > 1 run starts from phase N - 1's best checkpoint (the reference's
-phase hand-off); ``--load_checkpoint`` resumes this phase's own best.
-Checkpoints go to ``<checkpoint_dir>/kd_{mode}_phase{phase}``.
+CE) and ``feature_based`` (KL + CE + NT-Xent); ``--loca_faithful_indexing``
+takes the LoCa term with the reference's full-tensor column writes.  A
+fresh double_trouble phase N > 1 run starts from phase N - 1's best
+checkpoint (the reference's phase hand-off); ``--load_checkpoint`` resumes
+this phase's own best.  Checkpoints go to
+``<checkpoint_dir>/kd_{mode}_phase{phase}``.  ``--dataset daquar`` reads the
+DAQUAR layout (with ``--synthetic_data``, a synthetic DAQUAR tree).
 
-Refused with the ROADMAP.md item that ports them: ``--loca_faithful_indexing``
-(queue 1 item 6) and ``--dataset daquar`` (queue 1 item 1).
+The routes are chosen from the configs before anything runs: the fused
+vocabulary kernels on CUDA for the 896-wide student, the plain chunked
+route otherwise (``common.resolve_ce_impl``); the flash kernels for the
+head dims they take (``common.resolve_attn_impl``), per model.
 
 Offline smoke on the CPU (tiny configs, synthetic SUNRGBD tree), the
 three-phase chain:
@@ -26,8 +31,8 @@ three-phase chain:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
-import tempfile
 
 from . import common
 
@@ -46,22 +51,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--teacher_quant", type=str, default="none", choices=common.QUANT_MODES,
                    help="int8: w8a8 teacher LM projections; int8_full: its SigLIP projections too")
     p.add_argument("--loca_faithful_indexing", action="store_true",
-                   help="the reference's full-tensor LoCa indexing (not ported)")
+                   help="replicate the reference's full-tensor LoCa fancy indexing instead of "
+                        "the paper-correct per-position calibration")
     p.add_argument("--mask_prompt_labels", action="store_true",
                    help="supervise only the assistant-answer tokens")
     return p
 
 
-def refuse_unported(args) -> None:
-    """SystemExit naming the ROADMAP.md item for what this port cannot run."""
-    if args.loca_faithful_indexing:
-        raise SystemExit(
-            "--loca_faithful_indexing is not ported yet: ROADMAP.md queue 1 item 6")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     common.load_env()
     device = common.setup_device(args)
 
@@ -72,12 +70,7 @@ def main(argv=None):
     from ..train.checkpoint import CheckpointManager, find_best_checkpoint
     from ..train.loop import load_checkpoint_state, run_training, to_device
 
-    root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
-    if args.synthetic_data and args.dataset == "sunrgbd":
-        root = common.ensure_synthetic_dataset(root or tempfile.mkdtemp(prefix="kdss_synth_"))
-    if not root:
-        raise SystemExit("set ROOT_DATA_DIR (.env) or pass --root_data_dir / --synthetic_data")
-    train_ds, val_ds = common.make_datasets(args, root)
+    train_ds, val_ds = common.make_datasets(args, common.data_root(args))
 
     scfg, tcfg = common.model_configs(args)
     tok = common.make_tokenizer(args, scfg)
@@ -95,21 +88,24 @@ def main(argv=None):
         num_workers=args.num_workers, drop_ragged=False,
     )
 
-    attn_impl = common.resolve_attn_impl(args, device)
     dtype = common.model_dtype(device)
     student = common.init_or_load_params(scfg, args.student_weights, args.seed,
-                                         attn_impl=attn_impl, device=device, dtype=dtype,
-                                         trainable=True)
+                                         attn_impl=common.resolve_attn_impl(args, device, scfg, True),
+                                         device=device, dtype=dtype, trainable=True)
     teacher = common.init_or_load_params(tcfg, args.teacher_weights, args.seed + 1,
-                                         attn_impl=attn_impl, device=device, dtype=dtype,
-                                         quant=args.teacher_quant)
+                                         attn_impl=common.resolve_attn_impl(args, device, tcfg),
+                                         device=device, dtype=dtype, quant=args.teacher_quant)
+    loss_cfg = kd_loss_config_for(args.kd_mode)
+    if args.loca_faithful_indexing:
+        loss_cfg = dataclasses.replace(loss_cfg, loca_faithful_indexing=True)
     cfg = TrainConfig(
         batch_size=args.batch_size, max_epochs=args.max_epochs,
         subset_percentage=args.subset_percentage,
         load_checkpoint=args.load_checkpoint, augmentation=args.augmentation,
         accumulate_grad_batches=args.accumulate_grad_batches,
-        learning_rate=args.learning_rate, kd_mode=args.kd_mode, phase=args.phase,
-        loss=kd_loss_config_for(args.kd_mode), ce_impl="fused",
+        learning_rate=args.learning_rate, kd_mode=args.kd_mode, phase=args.phase, loss=loss_cfg,
+        loss_chunk_size=32 if common.is_tiny(args) else 256,
+        ce_impl=common.resolve_ce_impl(device, scfg),
     )
     state = TrainState(student, make_optimizer(
         student, cfg.learning_rate, cosine_t_max=cfg.cosine_t_max,

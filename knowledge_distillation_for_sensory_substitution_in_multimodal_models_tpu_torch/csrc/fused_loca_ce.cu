@@ -1,16 +1,28 @@
 // Combined LoCa-KL + cross-entropy over the vocabulary for Hopper (sm_90a):
 // the distillation loss of double-trouble phases 2/3 and logit_based, and
-// its backward, without ever writing the student's [N, V] logits.
+// its backward, without ever writing the student's [N, V] logits; and, with
+// the template flag CE = false, the LoCa-KL rows alone.
 //
 // Replaces the Pallas TPU kernels of the JAX package's ops/fused_loca.py
-// (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/),
-// K11 in its single-device "materialize" form:
+// (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/)
+// in their single-device "materialize" form:
+//   K11 (CE = true):
 //   * forward, `_loca_ce_rows_kernels` (kernels `_stats_ce_kernel`,
 //     `_klts_fwd_kernel`): per-row statistics, then the calibrated-KL row
 //     sums and tsum (the sum of the live calibrated probabilities);
 //   * backward, `_loca_ce_rows_bwd` (kernels `_dhs_ce_kernel`,
 //     `_dws_ce_kernel`): d_hidden and d_head from the cotangents (g_kl, g_ce)
 //     of the KL and CE rows.
+//   K9 (CE = false), LoCa without CE:
+//   * forward, `_row_stats` (kernel `_stats_kernel`) and `_call_rows` with
+//     `_kl_fwd_kernel`: the same statistics without lse_s1, the student's
+//     gold logit or the CE rows (lab_ce is never read), then the KL rows;
+//   * backward, `_call_rows` with `_tsum_kernel`, `_dhs_kernel` and
+//     `_dws_kernel`: d_hidden and d_head from the cotangent g of the KL rows
+//     alone.  The TPU computes tsum in a separate backward sweep
+//     (`_tsum_kernel`); here the forward's KL pass sums it, as for K11: it
+//     is the same sum over the same live calibrated probabilities, and it
+//     needs the same logits that pass already holds.
 // h [N, DM] and the student head w [V, DM] ("vd", the tied embedding) are
 // bf16; tmat [N, V] f32 is the teacher's logits already scaled by 1/T and
 // truncated to the student vocab (computed once outside, as the JAX
@@ -28,7 +40,7 @@
 //           over loca_j > 0, tsum = sum of loca_j where also
 //           log p_sT,j > log eps;
 //   backward: ds = (p_sT * tsum - live * loca) * g_kl / T
-//               + (p_s1 - onehot_ce) * g_ce   (rows with lab_ce >= 0),
+//               + (p_s1 - onehot_ce) * g_ce   (rows with lab_ce >= 0; K11 only),
 //           rounded to bf16 (as the JAX kernels round it), then
 //           dh = ds w and dW = ds^T h.
 // Columns v >= V of a ragged last tile are masked everywhere; rows past N
@@ -40,12 +52,13 @@
 // thread keeps online (max, sum) pairs and the top-2 over its own columns;
 // the four threads of a row merge at the end, and a per-row combine kernel
 // merges the vocab splits in a fixed order.  The backward is the shared dh
-// and dW kernels with the combined ds (`LocaCERows`).
+// and dW kernels with the combined ds (`LocaRows`).
 //
-// What bounds it on the H100, at N = 3072, DM = 896, V = 151936: the least
-// work is one logits product (0.84 TFLOP, 0.85 ms at 989 TFLOP/s) in the
-// forward and three (2.51 TFLOP, 2.54 ms) in the backward, against 1.87 GB
-// of tmat (0.56 ms at 3.35 TB/s): tensor-core bound.  This first version
+// What bounds it on the H100, at N = 3072, DM = 896, V = 151936 (K9 and
+// K11 alike): the least work is one logits product (0.84 TFLOP, 0.85 ms at
+// 989 TFLOP/s) in the forward and three (2.51 TFLOP, 2.54 ms) in the
+// backward, against 1.87 GB of tmat (0.56 ms at 3.35 TB/s): tensor-core
+// bound.  This first version
 // computes the logits twice in the forward (pass 2 needs pass 1's row
 // statistics) and once in each backward kernel, feeds mma.sync from
 // synchronous shared-memory loads, and reads tmat four times (7.5 GB).
@@ -61,7 +74,8 @@ using namespace kdss;
 // ---- forward ------------------------------------------------------------
 
 // Pass-1 partials per (split, row): lse_s1, lse_sT, lse_t, m1, m2, gold_t,
-// gold_s1.  Pass 2 reuses the first two planes for kl and tsum.
+// gold_s1 (planes 0 and 6 are left unwritten when CE = false).  Pass 2
+// reuses the first two planes for kl and tsum.
 constexpr int NPART = 7;
 // Row statistics handed from the forward to the backward, f32 [NROWS, N].
 enum Row { R_LSE_ST = 0, R_LSE_T, R_SCALE, R_TVAL, R_LSE_S1, R_TSUM, NROWS };
@@ -88,7 +102,7 @@ __device__ __forceinline__ void top2_merge(float& m1, float& m2, float b1, float
   m2 = second;
 }
 
-template <int DM>
+template <int DM, bool CE>
 __global__ void __launch_bounds__(F_THREADS)
     loca_stats_kernel(const bf* __restrict__ h, const bf* __restrict__ w,
                       const float* __restrict__ tmat, const int* __restrict__ lab,
@@ -115,7 +129,7 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     lt[i] = rows[i] < N ? lab[rows[i]] : -1;
-    lc[i] = rows[i] < N ? lab_ce[rows[i]] : -1;
+    lc[i] = CE && rows[i] < N ? lab_ce[rows[i]] : -1;
   }
 
   for (int t = t0; t < t1; ++t) {
@@ -132,7 +146,7 @@ __global__ void __launch_bounds__(F_THREADS)
         const int r = e >> 1, col = v0 + nt * 8 + ti * 2 + (e & 1);
         if (col < V) {
           tile_max[r] = fmaxf(tile_max[r], acc[nt][e]);
-          if (col == lc[r]) gold_s[r] += acc[nt][e];
+          if (CE && col == lc[r]) gold_s[r] += acc[nt][e];
           if (col == lt[r]) gold_t[r] += tv[nt][e];
           top2_merge(m1[r], m2[r], tv[nt][e], -INFINITY);
         } else {
@@ -145,7 +159,7 @@ __global__ void __launch_bounds__(F_THREADS)
     for (int r = 0; r < 2; ++r) {
       const float nm = fmaxf(ms[r], tile_max[r]);
       bs[r] = base_of(nm);
-      l1[r] *= exp2f((ms[r] - bs[r]) * LOG2E);
+      if (CE) l1[r] *= exp2f((ms[r] - bs[r]) * LOG2E);
       lT[r] *= exp2f((ms[r] - bs[r]) * cT);
       ms[r] = nm;
       bt[r] = base_of(m1[r]);
@@ -156,7 +170,7 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        l1[r] += exp2f((acc[nt][e] - bs[r]) * LOG2E);
+        if (CE) l1[r] += exp2f((acc[nt][e] - bs[r]) * LOG2E);
         lT[r] += exp2f((acc[nt][e] - bs[r]) * cT);
         lt_sum[r] += exp2f((tv[nt][e] - bt[r]) * LOG2E);
       }
@@ -167,7 +181,7 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float M = quad_max(ms[r]), bM = base_of(M);
-    const float s1 = quad_sum(l1[r] * exp2f((ms[r] - bM) * LOG2E));
+    const float s1 = CE ? quad_sum(l1[r] * exp2f((ms[r] - bM) * LOG2E)) : 0.f;
     const float sT = quad_sum(lT[r] * exp2f((ms[r] - bM) * cT));
     float q1 = m1[r], q2 = m2[r];
 #pragma unroll
@@ -176,16 +190,16 @@ __global__ void __launch_bounds__(F_THREADS)
       top2_merge(q1, q2, b1, b2);
     }
     const float st = quad_sum(lt_sum[r] * exp2f((m1[r] - base_of(q1)) * LOG2E));
-    const float gt = quad_sum(gold_t[r]), gs = quad_sum(gold_s[r]);
+    const float gt = quad_sum(gold_t[r]), gs = CE ? quad_sum(gold_s[r]) : 0.f;
     if (ti == 0 && rows[r] < N) {
       const long o = (long)split * N + rows[r], plane = (long)nsplit * N;
-      part[0 * plane + o] = s1 > 0.f ? M + log2f(s1) * LN2 : -INFINITY;
+      if (CE) part[0 * plane + o] = s1 > 0.f ? M + log2f(s1) * LN2 : -INFINITY;
       part[1 * plane + o] = sT > 0.f ? M * inv_t + log2f(sT) * LN2 : -INFINITY;
       part[2 * plane + o] = st > 0.f ? q1 + log2f(st) * LN2 : -INFINITY;
       part[3 * plane + o] = q1;
       part[4 * plane + o] = q2;
       part[5 * plane + o] = gt;
-      part[6 * plane + o] = gs;
+      if (CE) part[6 * plane + o] = gs;
     }
   }
 }
@@ -202,13 +216,15 @@ __device__ __forceinline__ float merge_lse(const float* p, long plane_stride, in
   return mx + logf(sum);
 }
 
-__global__ void loca_stats_combine(const float* __restrict__ part, const int* __restrict__ lab,
-                                   const int* __restrict__ lab_ce, float* __restrict__ rowstats,
-                                   float* __restrict__ ce, int N, int nsplit, float alpha) {
+// CE = false leaves lse_s1 at 0 and neither reads lab_ce nor writes ce.
+template <bool CE>
+__global__ void loca_stats_combine(const float* __restrict__ part, const int* __restrict__ lab_ce,
+                                   float* __restrict__ rowstats, float* __restrict__ ce, int N,
+                                   int nsplit, float alpha) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const long plane = (long)nsplit * N;
-  const float lse_s1 = merge_lse(part, 0 * plane, n, N, nsplit);
+  const float lse_s1 = CE ? merge_lse(part, 0 * plane, n, N, nsplit) : 0.f;
   const float lse_sT = merge_lse(part, 1 * plane, n, N, nsplit);
   const float lse_t = merge_lse(part, 2 * plane, n, N, nsplit);
   float m1 = -INFINITY, m2 = -INFINITY, gold_t = 0.f, gold_s = 0.f;
@@ -216,7 +232,7 @@ __global__ void loca_stats_combine(const float* __restrict__ part, const int* __
     const long o = (long)s * N + n;
     top2_merge(m1, m2, part[3 * plane + o], part[4 * plane + o]);
     gold_t += part[5 * plane + o];
-    gold_s += part[6 * plane + o];
+    if (CE) gold_s += part[6 * plane + o];
   }
   const float p_gt = expf(gold_t - lse_t), p_2nd = expf(m2 - lse_t);
   const float scale = alpha / (1.f - p_gt + p_2nd);
@@ -225,7 +241,7 @@ __global__ void loca_stats_combine(const float* __restrict__ part, const int* __
   rowstats[R_SCALE * (long)N + n] = scale;
   rowstats[R_TVAL * (long)N + n] = 1.f - scale * (1.f - p_gt);
   rowstats[R_LSE_S1 * (long)N + n] = lse_s1;
-  ce[n] = lab_ce[n] >= 0 ? lse_s1 - gold_s : 0.f;
+  if (CE) ce[n] = lab_ce[n] >= 0 ? lse_s1 - gold_s : 0.f;
 }
 
 // The calibrated teacher probability at one column, and its log (natural).
@@ -332,8 +348,11 @@ __global__ void loca_kl_combine(const float* __restrict__ part, float* __restric
 // ---- backward -----------------------------------------------------------
 
 // The combined ds of the JAX `_combined_ds` from the forward's row
-// statistics and the cotangents (g_kl, g_ce) of the KL and CE rows.
-struct LocaCERows {
+// statistics and the cotangents (g_kl, g_ce) of the KL and CE rows; with
+// CE = false (K9) the LoCa part alone, the JAX `_dhs_kernel` / `_dws_kernel`
+// ds, and neither lab_ce nor g_ce is read.
+template <bool CE>
+struct LocaRows {
   // lse_sT, lse_t, scale, tval, lse_s1, g_kl / T, g_ce, tsum, then (int)
   // lab, lab_ce, live (the row is < N)
   static constexpr int NSTAT = 11;
@@ -350,9 +369,9 @@ struct LocaCERows {
       f[rows + i] = in ? rowstats[R_LSE_T * (long)N + n] : 0.f;
       f[2 * rows + i] = in ? rowstats[R_SCALE * (long)N + n] : 0.f;
       f[3 * rows + i] = in ? rowstats[R_TVAL * (long)N + n] : 0.f;
-      f[4 * rows + i] = in ? rowstats[R_LSE_S1 * (long)N + n] : 0.f;
+      f[4 * rows + i] = CE && in ? rowstats[R_LSE_S1 * (long)N + n] : 0.f;
       f[5 * rows + i] = in ? g_kl[n] * inv_t : 0.f;
-      const int lc = in ? lab_ce[n] : -1;
+      const int lc = CE && in ? lab_ce[n] : -1;
       f[6 * rows + i] = lc >= 0 ? g_ce[n] : 0.f;
       f[7 * rows + i] = in ? rowstats[R_TSUM * (long)N + n] : 0.f;
       fi[i] = in ? lab[n] : -1;
@@ -372,13 +391,16 @@ struct LocaCERows {
     const float loca = lab_r < 0 ? p_t : (col == lab_r ? f[3 * rows + r] : f[2 * rows + r] * p_t);
     const bool live = log_ps > log_eps && loca > 0.f;
     float ds = (p_sT * f[7 * rows + r] - (live ? loca : 0.f)) * f[5 * rows + r];
-    const float p_s1 = exp2f((x - f[4 * rows + r]) * LOG2E);
-    ds += (p_s1 - (col == fi[rows + r] ? 1.f : 0.f)) * f[6 * rows + r];
+    if constexpr (CE) {
+      const float p_s1 = exp2f((x - f[4 * rows + r]) * LOG2E);
+      ds += (p_s1 - (col == fi[rows + r] ? 1.f : 0.f)) * f[6 * rows + r];
+    }
     return ds;
   }
 };
 
-template <int DM>
+// The forward; CE = false takes lab_ce and ce as null.
+template <int DM, bool CE>
 cudaError_t fwd(const bf* h, const bf* w, const float* tmat, const int* lab, const int* lab_ce,
                 float* part, float* rowstats, float* kl, float* ce, int N, int V, int nsplit,
                 float inv_t, float alpha, float log_eps, cudaStream_t st) {
@@ -386,10 +408,10 @@ cudaError_t fwd(const bf* h, const bf* w, const float* tmat, const int* lab, con
   const int per = (n_vt + nsplit - 1) / nsplit;
   const dim3 grid((N + F_BM - 1) / F_BM, nsplit);
   const int cblocks = (N + 127) / 128;
-  loca_stats_kernel<DM><<<grid, F_THREADS, 0, st>>>(h, w, tmat, lab, lab_ce, part, N, V, per, inv_t);
+  loca_stats_kernel<DM, CE><<<grid, F_THREADS, 0, st>>>(h, w, tmat, lab, lab_ce, part, N, V, per, inv_t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  loca_stats_combine<<<cblocks, 128, 0, st>>>(part, lab, lab_ce, rowstats, ce, N, nsplit, alpha);
+  loca_stats_combine<CE><<<cblocks, 128, 0, st>>>(part, lab_ce, rowstats, ce, N, nsplit, alpha);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   loca_kl_kernel<DM><<<grid, F_THREADS, 0, st>>>(h, w, tmat, lab, rowstats, part, N, V, per, inv_t,
@@ -398,6 +420,11 @@ cudaError_t fwd(const bf* h, const bf* w, const float* tmat, const int* lab, con
   if (err != cudaSuccess) return err;
   loca_kl_combine<<<cblocks, 128, 0, st>>>(part, kl, rowstats, N, nsplit);
   return cudaGetLastError();
+}
+
+inline bool bad_args(int N, int V, int DM, int nsplit, float inv_t) {
+  // DM: the 0.5B student's width, the one compiled
+  return N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f) || DM != 896;
 }
 
 }  // namespace kdss_loca_ce
@@ -413,10 +440,8 @@ int kdss_loca_ce_fwd(const void* h, const void* w, const void* tmat, const void*
                      const void* lab_ce, void* part, void* rowstats, void* kl, void* ce, int N,
                      int V, int DM, int nsplit, float inv_t, float alpha, float log_eps,
                      void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);  // the 0.5B student's width
-  return static_cast<int>(fwd<896>(
+  if (bad_args(N, V, DM, nsplit, inv_t)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd<896, true>(
       static_cast<const bf*>(h), static_cast<const bf*>(w), static_cast<const float*>(tmat),
       static_cast<const int*>(lab), static_cast<const int*>(lab_ce), static_cast<float*>(part),
       static_cast<float*>(rowstats), static_cast<float*>(kl), static_cast<float*>(ce), N, V,
@@ -429,12 +454,39 @@ int kdss_loca_ce_bwd(const void* h, const void* w, const void* tmat, const void*
                      const void* lab_ce, const void* rowstats, const void* g_kl, const void* g_ce,
                      void* dh_part, void* dh, void* dw, int N, int V, int DM, int nsplit,
                      float inv_t, float log_eps, void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);
-  const LocaCERows rows{static_cast<const float*>(tmat), static_cast<const float*>(rowstats),
-                        static_cast<const float*>(g_kl), static_cast<const float*>(g_ce),
-                        static_cast<const int*>(lab), static_cast<const int*>(lab_ce), inv_t, log_eps};
+  if (bad_args(N, V, DM, nsplit, inv_t)) return static_cast<int>(cudaErrorInvalidValue);
+  const LocaRows<true> rows{static_cast<const float*>(tmat), static_cast<const float*>(rowstats),
+                            static_cast<const float*>(g_kl), static_cast<const float*>(g_ce),
+                            static_cast<const int*>(lab), static_cast<const int*>(lab_ce), inv_t,
+                            log_eps};
+  return static_cast<int>(launch_bwd<896>(static_cast<const bf*>(h), static_cast<const bf*>(w), rows,
+                                          static_cast<float*>(dh_part), static_cast<bf*>(dh),
+                                          static_cast<bf*>(dw), N, V, nsplit,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// K9 forward (LoCa alone).  part: f32 scratch [7, nsplit, N]; rowstats: f32
+// [6, N] in K11's order, lse_s1 left at 0; kl: f32 [N].
+int kdss_loca_fwd(const void* h, const void* w, const void* tmat, const void* lab, void* part,
+                  void* rowstats, void* kl, int N, int V, int DM, int nsplit, float inv_t,
+                  float alpha, float log_eps, void* stream) {
+  if (bad_args(N, V, DM, nsplit, inv_t)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd<896, false>(
+      static_cast<const bf*>(h), static_cast<const bf*>(w), static_cast<const float*>(tmat),
+      static_cast<const int*>(lab), nullptr, static_cast<float*>(part),
+      static_cast<float*>(rowstats), static_cast<float*>(kl), nullptr, N, V, nsplit, inv_t, alpha,
+      log_eps, static_cast<cudaStream_t>(stream)));
+}
+
+// K9 backward.  dh_part: f32 scratch [nsplit, N, DM]; dh [N, DM] bf16 and,
+// unless dw is null, dw [V, DM] bf16; g f32 [N], the cotangent of the KL rows.
+int kdss_loca_bwd(const void* h, const void* w, const void* tmat, const void* lab,
+                  const void* rowstats, const void* g, void* dh_part, void* dh, void* dw, int N,
+                  int V, int DM, int nsplit, float inv_t, float log_eps, void* stream) {
+  if (bad_args(N, V, DM, nsplit, inv_t)) return static_cast<int>(cudaErrorInvalidValue);
+  const LocaRows<false> rows{static_cast<const float*>(tmat), static_cast<const float*>(rowstats),
+                             static_cast<const float*>(g), nullptr,
+                             static_cast<const int*>(lab), nullptr, inv_t, log_eps};
   return static_cast<int>(launch_bwd<896>(static_cast<const bf*>(h), static_cast<const bf*>(w), rows,
                                           static_cast<float*>(dh_part), static_cast<bf*>(dh),
                                           static_cast<bf*>(dw), N, V, nsplit,

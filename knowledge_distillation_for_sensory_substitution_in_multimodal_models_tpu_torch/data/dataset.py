@@ -1,10 +1,13 @@
-"""SUNRGBD VQA row reader (jax-free counterpart of the JAX package's
-``data/dataset.py::SUNRGBDVQADataset``, which imports the jax depth module).
+"""SUNRGBD and DAQUAR VQA row readers (jax-free counterparts of the JAX
+package's ``data/dataset.py::SUNRGBDVQADataset`` and ``DAQUARVQADataset``,
+whose module imports the jax depth module).
 
-CSV at ``<root>/SUNRGBD/csv_data/<name>`` with columns [Question_Id,
-Questions, Answers, Image_Path, Depth_Path, ...] addressed positionally;
-image paths are joined under ``<root>/SUNRGBD`` with the duplicated
-"SUNRGBD" segment stripped; the depth stream goes through the numpy
+SUNRGBD: CSV at ``<root>/SUNRGBD/csv_data/<name>`` with columns
+[Question_Id, Questions, Answers, Image_Path, Depth_Path, ...] addressed
+positionally; image paths are joined under ``<root>/SUNRGBD`` with the
+duplicated "SUNRGBD" segment stripped.  DAQUAR (NYU-Depth): CSV at
+``<root>/<name>``, images at ``<root>/images/<stem>.png`` and
+``<root>/depth/<stem>_depth.png``.  The depth stream goes through the numpy
 encoders of ``data/depth.py``.
 """
 
@@ -73,3 +76,30 @@ class SUNRGBDVQADataset:
                 depth_raw, imagenet_bake=self.depth_encoding == "prewitt_imagenet"
             )
         return str(self.df.iloc[idx, 1]), str(self.df.iloc[idx, 2]), rgb, depth3, idx
+
+
+class DAQUARVQADataset(SUNRGBDVQADataset):
+    """DAQUAR (NYU-Depth) variant: the CSV at the root, the path scheme
+    ``images/<name>.png`` + ``depth/<name>_depth.png`` and the Prewitt depth
+    encoding; ``subset_percentage`` head-slices without a floor."""
+
+    def __init__(
+        self,
+        root_data_dir: str,
+        csv_file_name: str,
+        subset_percentage: Optional[float] = None,
+    ):
+        import pandas as pd
+
+        self.df = pd.read_csv(os.path.join(root_data_dir, csv_file_name))
+        if subset_percentage is not None:
+            self.df = self.df.iloc[: int(len(self.df) * subset_percentage)]
+        self.dataset_directory = root_data_dir
+        self.depth_encoding = "prewitt"
+
+    def image_paths(self, idx: int) -> Tuple[str, str]:
+        stem = os.path.splitext(os.path.basename(str(self.df.iloc[idx, 3])))[0]
+        return (
+            os.path.join(self.dataset_directory, "images", f"{stem}.png"),
+            os.path.join(self.dataset_directory, "depth", f"{stem}_depth.png"),
+        )

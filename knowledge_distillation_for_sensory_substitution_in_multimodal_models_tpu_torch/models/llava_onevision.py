@@ -40,6 +40,40 @@ class MultiModalProjector(nn.Module):
         return self.linear_2(F.gelu(self.linear_1(x)))  # exact gelu, as HF "gelu"
 
 
+class _PackTaps(torch.autograd.Function):
+    """packed[b, m] = sum_k w[b, m, k] * bank[b, idx[b, m, k]], the bilinear
+    taps of the anyres pack, forward as sequential single-tap gathers.
+
+    The autograd backward of ``torch.gather`` on CUDA scatter-adds with
+    atomics, and the taps hit the same bank rows many times, so the bank's
+    gradient (the projector's and the vision tower's) changed its low bits
+    from run to run.  Here the backward is one batched product with the tap
+    matrix W [B, M, n] (W[b, m, j] = the summed weights of the taps of m at
+    j, built tap by tap, each scatter writing distinct places):
+    d bank = W^T d packed."""
+
+    @staticmethod
+    def forward(ctx, bank, idx, w):
+        d = bank.shape[-1]
+        packed = None
+        for k in range(idx.shape[-1]):
+            tap = torch.gather(bank, 1, idx[:, :, k, None].expand(-1, -1, d))  # [B, M, D]
+            term = tap * w[:, :, k, None]
+            packed = term if packed is None else packed + term
+        ctx.save_for_backward(idx, w)
+        ctx.bank_rows = bank.shape[1]
+        return packed
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        b, m, taps = idx.shape
+        tap_matrix = torch.zeros(b, m, ctx.bank_rows, dtype=torch.float32, device=g.device)
+        for k in range(taps):
+            tap_matrix.scatter_add_(2, idx[:, :, k, None], w[:, :, k, None].float())
+        return torch.bmm(tap_matrix.transpose(1, 2).to(g.dtype), g), None, None
+
+
 class LlavaOnevision(nn.Module):
     """``lm_quant`` / ``vision_quant`` ("none" or "int8"): w8a8 projections
     in the LM's decoder blocks / the SigLIP encoder; ``embed_quant``: the
@@ -76,7 +110,8 @@ class LlavaOnevision(nn.Module):
         """Gather-pack projected tile features into [B, M, Dt].
 
         bank[b] = concat(projected[b].reshape(P*T, D), image_newline); the
-        four bilinear taps run as sequential single-tap gathers.
+        four bilinear taps run as sequential single-tap gathers
+        (:class:`_PackTaps`, whose backward is deterministic).
         """
         b, p, t, d = projected.shape
         bank = torch.cat(
@@ -84,13 +119,7 @@ class LlavaOnevision(nn.Module):
              self.image_newline.to(projected.dtype)[None, None, :].expand(b, 1, d)],
             dim=1,
         )
-        idx = pack_idx.long()
-        w = pack_weight.to(projected.dtype)
-        packed = None
-        for k in range(pack_idx.shape[-1]):
-            tap = torch.gather(bank, 1, idx[:, :, k, None].expand(-1, -1, d))  # [B, M, D]
-            term = tap * w[:, :, k, None]
-            packed = term if packed is None else packed + term
+        packed = _PackTaps.apply(bank, pack_idx.long(), pack_weight.to(projected.dtype))
         return packed * pack_valid[..., None].to(projected.dtype)
 
     def merge_image_features(self, input_ids, inputs_embeds, packed):

@@ -116,6 +116,12 @@ def load_library() -> ctypes.CDLL:
         # h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, N, V, DM,
         # nsplit, inv_t, log_eps, stream
         "kdss_loca_ce_bwd": [vp] * 11 + [ci] * 4 + [cf] * 2 + [vp],
+        # h, w, tmat, lab, part, rowstats, kl, N, V, DM, nsplit, inv_t, alpha,
+        # log_eps, stream
+        "kdss_loca_fwd": [vp] * 7 + [ci] * 4 + [cf] * 3 + [vp],
+        # h, w, tmat, lab, rowstats, g, dh_part, dh, dw (or null), N, V, DM,
+        # nsplit, inv_t, log_eps, stream
+        "kdss_loca_bwd": [vp] * 9 + [ci] * 4 + [cf] * 2 + [vp],
         # h, w, tmat, part, kl, lse_s, lse_t, N, V, DM, nsplit, inv_t, stream
         "kdss_kl_fwd": [vp] * 7 + [ci] * 4 + [cf, vp],
         # h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw (or null), N, V, DM, nsplit,
@@ -218,6 +224,25 @@ def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, 
             lab.data_ptr(), lab_ce.data_ptr(), rowstats.data_ptr(), g_kl.data_ptr(),
             g_ce.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n, w.shape[0],
             dm, dh_part.shape[0], float(inv_t), float(log_eps))
+
+
+def loca_fwd(h, w, tmat, lab, part, rowstats, kl, inv_t, alpha, log_eps) -> None:
+    """LoCa forward without CE (K9) over a [V, DM] head and an f32 [N, V]
+    teacher-logit matrix."""
+    n, dm = h.shape
+    _aligned(h, w)
+    _launch("kdss_loca_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
+            part.data_ptr(), rowstats.data_ptr(), kl.data_ptr(), n, w.shape[0], dm, part.shape[1],
+            float(inv_t), float(alpha), float(log_eps))
+
+
+def loca_bwd(h, w, tmat, lab, rowstats, g, dh_part, dh, dw, inv_t, log_eps) -> None:
+    """LoCa backward without CE (K9): dh, and dW unless ``dw`` is None."""
+    n, dm = h.shape
+    _aligned(h, w, dh, dw)
+    _launch("kdss_loca_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
+            rowstats.data_ptr(), g.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
+            w.shape[0], dm, dh_part.shape[0], float(inv_t), float(log_eps))
 
 
 def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:

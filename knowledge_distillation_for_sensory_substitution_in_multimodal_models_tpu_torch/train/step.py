@@ -13,24 +13,30 @@ in the bf16 parameter dtype).
 
 Every mode of the JAX step is ported (`step.py:282-301`):
 
-* ``baseline``: the student alone, masked CE over the fused vocab-streaming
-  route;
+* ``baseline``: the student alone, masked CE;
 * ``logit_based`` and ``double_trouble`` phase 2: LoCa + CE; phase 3:
-  gamma * (LoCa + CE) + (1 - gamma) * CE, LoCa + CE in one combined
-  vocab-streaming pipeline (``ops/fused_loca.py``);
+  gamma * (LoCa + CE) + (1 - gamma) * CE;
 * ``double_trouble`` phase 1: w_kl * KL + w_c * NT-Xent; ``feature_based``:
-  w_kl * KL + w_ce * CE + w_c * NT-Xent.  The temperature KL streams the
-  vocabulary (``ops/fused_kl.py``), CE takes the fused route, and NT-Xent
-  runs over the per-tile vision features of both towers (plain PyTorch, as
-  the JAX package leaves it to XLA).
+  w_kl * KL + w_ce * CE + w_c * NT-Xent.  NT-Xent runs over the per-tile
+  vision features of both towers (plain PyTorch, as the JAX package leaves
+  it to XLA).
+
+``TrainConfig.ce_impl`` picks the route of the vocabulary terms, as in the
+JAX step: ``"fused"`` streams the vocabulary through the kernels (CE through
+``ops/fused_ce.py``, the temperature KL through ``ops/fused_kl.py``, LoCa +
+CE through one combined pipeline, ``ops/fused_loca.py``); ``"chunked"`` is
+the plain autograd route on any device, per row chunk of float32 logits
+(``losses/chunked.py::chunked_kd_terms``), for what the kernels do not take
+(a width other than 896).  ``loss.loca_faithful_indexing`` takes LoCa from
+``losses/chunked.py::chunked_faithful_loca`` (the reference's full-tensor
+column writes), whatever ``ce_impl``; CE then takes ``ce_impl``'s route.
 
 The frozen teacher runs under ``torch.no_grad()`` on the RGB stream (the
 ``teacher_*`` batch keys), once per micro-batch; its logits at 1/T,
 truncated to the student vocab, are one float32 matrix product (the JAX
 ``_materialize_t``), or, for an int8 head (``quantize_model_int8`` with
 ``include_embed_head``), the K10 kernel (the JAX ``_materialize_t_int8``).
-The reference's faithful LoCa indexing raises ``NotImplementedError``
-naming its ROADMAP item.
+Every LoCa, KL and faithful-LoCa term reads that one matrix.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
 axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
@@ -44,6 +50,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..configs import TrainConfig
+from ..losses.chunked import chunked_faithful_loca, chunked_kd_terms
 from ..losses.kd_losses import IGNORE_INDEX, masked_ntxent_loss
 from ..models.llava_onevision import LlavaOnevision
 from ..models.qwen2 import QLinear
@@ -147,63 +154,78 @@ def _teacher_logits(teacher: LlavaOnevision, batch: Dict[str, torch.Tensor], voc
     return t.mul_(1.0 / temperature), t_vis
 
 
+CE_IMPLS = ("fused", "chunked")
+
+
 def make_loss_fn(models: KDModels, cfg: TrainConfig):
     """``loss_fn(micro_batch) -> (loss, metrics)`` on ``models.student``'s
     current parameters (the teacher, if any, is frozen).
 
-    baseline: CE over the fused route: the final-norm hidden states, flattened
-    to [B * S, D], against the head in its [V, D] layout with the shifted
+    Every term reads the final-norm hidden states flattened to [B * S, D]
+    and the head in its [V, D] layout.  baseline: CE over the shifted
     labels.  logit_based / double_trouble phases 2 and 3: LoCa (unshifted
-    labels, T and alpha from ``cfg.loss``) and CE (shifted labels) from one
-    combined pipeline over the same hidden states and head, against the
-    teacher's logits.  double_trouble phase 1 / feature_based: the
-    temperature KL over the same hidden states and head against the
-    teacher's logits, NT-Xent over the flattened tile features [B * P, Dv]
-    of both towers (padded tiles masked), and for feature_based the CE.
-    Metrics are f32 scalars.
+    labels, T and alpha from ``cfg.loss``) and CE against the teacher's
+    logits, one combined pipeline under ``ce_impl="fused"`` unless LoCa is
+    the faithful one.  double_trouble phase 1 / feature_based: the
+    temperature KL against the teacher's logits, NT-Xent over the flattened
+    tile features [B * P, Dv] of both towers (padded tiles masked), and for
+    feature_based the CE.  Metrics are f32 scalars.
     """
     mode, phase = cfg.kd_mode, cfg.phase
     key = (mode, phase) if mode == "double_trouble" else mode
     if mode != "baseline" and key not in _LOCA_MODES + _KL_MODES:
         raise ValueError(f"unknown kd_mode {mode!r}" + (f" phase {phase}" if mode == "double_trouble" else ""))
+    if cfg.ce_impl not in CE_IMPLS:
+        raise ValueError(f"ce_impl must be one of {CE_IMPLS}, got {cfg.ce_impl!r}")
     lc = cfg.loss
-    if mode != "baseline":
-        if models.teacher is None:
-            raise ValueError(f"kd_mode {mode!r} requires a teacher model")
-        if lc.loca_faithful_indexing:
-            raise NotImplementedError(
-                "loca_faithful_indexing (the reference's full-tensor LoCa writes) is not "
-                "ported: ROADMAP.md queue 1 item 6")
+    if mode != "baseline" and models.teacher is None:
+        raise ValueError(f"kd_mode {mode!r} requires a teacher model")
     student, teacher = models.student, models.teacher
+    need_loca, need_kl = key in _LOCA_MODES, key in _KL_MODES
+    need_ce = mode in ("baseline", "feature_based") or need_loca
+    faithful = need_loca and lc.loca_faithful_indexing
+    fused = cfg.ce_impl == "fused"
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
         s_hidden, s_vis = _forward_hidden(student, batch, "student")
         flat = s_hidden.reshape(-1, s_hidden.shape[-1])
         head = _fused_head(student)
         labels = batch["labels"]
-        if mode == "baseline":
-            ce = fused_ce_loss(flat, head, ce_labels(labels), w_layout="vd")
-            return ce, {"ce": ce.detach().float(), "loss": ce.detach().float()}
-        tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
-        if key in _LOCA_MODES:
-            loca, ce = fused_loca_ce_loss(flat, head, tmat, labels.reshape(-1), ce_labels(labels),
-                                          temperature=lc.temperature, alpha=lc.loca_alpha)
-            if phase == 3 and mode == "double_trouble":
-                loss = lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
-            else:
-                loss = loca + ce
-            terms = {"loca": loca, "ce": ce}
+        loca_labels, shifted = labels.reshape(-1), ce_labels(labels)
+        tmat = t_vis = None
+        if mode != "baseline":
+            tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
+        terms = {}
+        if fused and need_loca and not faithful:
+            terms["loca"], terms["ce"] = fused_loca_ce_loss(
+                flat, head, tmat, loca_labels, shifted, temperature=lc.temperature, alpha=lc.loca_alpha)
+        elif fused:
+            if need_kl:
+                terms["kl"] = fused_kl_loss(flat, head, tmat, temperature=lc.temperature)
+            if need_ce:
+                terms["ce"] = fused_ce_loss(flat, head, shifted, w_layout="vd")
         else:
-            kl = fused_kl_loss(flat, head, tmat, temperature=lc.temperature)
-            con = masked_ntxent_loss(s_vis.flatten(0, 1), t_vis.flatten(0, 1),
-                                     batch["tile_valid"].reshape(-1), lc.ntxent_temperature)
-            terms = {"kl": kl, "contrastive": con}
-            if mode == "feature_based":
-                terms["ce"] = fused_ce_loss(flat, head, ce_labels(labels), w_layout="vd")
-                loss = lc.soft_target_weight * kl + lc.ce_weight * terms["ce"] + lc.contrastive_weight * con
-            else:
-                loss = lc.soft_target_weight * kl + lc.contrastive_weight * con
+            terms = chunked_kd_terms(flat, head, loca_labels, shifted, tmat, temperature=lc.temperature,
+                                     alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size, need_ce=need_ce,
+                                     need_kl=need_kl, need_loca=need_loca and not faithful)
+        if faithful:
+            terms["loca"] = chunked_faithful_loca(flat, head, loca_labels, tmat, temperature=lc.temperature,
+                                                  alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size)
+        if need_kl:
+            terms["contrastive"] = masked_ntxent_loss(s_vis.flatten(0, 1), t_vis.flatten(0, 1),
+                                                      batch["tile_valid"].reshape(-1), lc.ntxent_temperature)
         del tmat  # the autograd graph holds it until the backward
+        if mode == "baseline":
+            loss = terms["ce"]
+        elif need_loca and phase == 3 and mode == "double_trouble":
+            loss = lc.gamma * (terms["loca"] + terms["ce"]) + (1.0 - lc.gamma) * terms["ce"]
+        elif need_loca:
+            loss = terms["loca"] + terms["ce"]
+        elif mode == "feature_based":
+            loss = (lc.soft_target_weight * terms["kl"] + lc.ce_weight * terms["ce"]
+                    + lc.contrastive_weight * terms["contrastive"])
+        else:
+            loss = lc.soft_target_weight * terms["kl"] + lc.contrastive_weight * terms["contrastive"]
         metrics = {k: v.detach().float() for k, v in terms.items()}
         metrics["loss"] = loss.detach().float()
         return loss, metrics

@@ -1,10 +1,13 @@
 """Where the time of the PyTorch port's KD train step goes, on one CUDA GPU.
 
     python scripts/profile_torch_kd_step.py [--steps 5] [--layers N] [--kd_mode M --phase P]
+        [--loca_faithful_indexing] [--determinism]
 
 Builds a KD step that ``chip_smoke.py`` drives (``--kd_mode`` and
 ``--phase``, by default double_trouble phase 3; double_trouble phase 1, the
-KD CLI's default, and feature_based also run there), the 0.5B student
+KD CLI's default, feature_based and, with ``--loca_faithful_indexing``, the
+faithful LoCa also run there; the vocabulary losses on the fused kernels),
+the 0.5B student
 against the frozen bf16 LLaVA-OneVision-7B teacher, both at full width and
 depth unless ``--layers`` cuts them, seeded random weights, A=2 x B=1 at
 the SUNRGBD 530x730 frame, with the mode's freeze mask; runs ``--steps``
@@ -17,6 +20,16 @@ unprofiled steps, then:
   AdamW, the rest), against the mean wall time of the unprofiled steps
   after the first two (host clock; the profiler slows the host down).
 
+``--determinism`` asks instead whether the step is bit-reproducible on one
+card: ``--steps`` steps from a fresh student of the same seed, twice in this
+process, with the bits of every step's loss and terms and of every float32
+master compared (the differing masters counted by module); then twice more
+under ``torch.use_deterministic_algorithms(True, warn_only=True)``, printing
+each operation that PyTorch reports as nondeterministic, whether those two
+runs agree, and whether they agree with the first.
+(``CUBLAS_WORKSPACE_CONFIG`` is set for all four runs, as deterministic
+mode asks of cuBLAS.)
+
 Prints the card's name and power limit first.  Imports nothing of JAX.
 """
 
@@ -25,10 +38,12 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -61,7 +76,7 @@ GROUPS = (
     ("flash forward D=64/72 (K1, K3)", ("flash_fwd_kernel",)),
     ("flash backward (K2, K4)", ("flash_bwd",)),
     # the shared backward kernels are named by their loss's Rows policy
-    ("LoCa + CE (K11)", ("loca_", "LocaCERows")),
+    ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows")),
     ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
     ("fused CE (K5, K6)", ("ce_fwd", "CERows")),
     ("dh split reductions (K6, K8, K11)", ("reduce_dh",)),
@@ -97,6 +112,53 @@ def event_ms(fn, iters=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def run_steps(fresh, tb, steps):
+    """``steps`` steps from a fresh student: (per-step metric bits, a digest
+    of each float32 master after the last step)."""
+    state, step = fresh()
+    trace = []
+    for _ in range(steps):
+        state, metrics = step(state, None, tb)
+        trace.append({k: v.float().cpu().numpy().tobytes().hex() for k, v in sorted(metrics.items())})
+    torch.cuda.synchronize()
+    digests = {name: hashlib.sha256(m.detach().cpu().numpy().tobytes()).hexdigest()
+               for name, m in state.optimizer.masters.items()}
+    return trace, digests
+
+
+def compare(tag, a, b) -> None:
+    """Print whether two runs' metrics and masters are bit-identical, and
+    the masters that differ, counted by top-level module."""
+    for i, (x, y) in enumerate(zip(a[0], b[0])):
+        print(f"[determinism] {tag}, step {i + 1}: metrics bit-identical: {x == y}"
+              + ("" if x == y else f" ({ {k: (x[k], y[k]) for k in x if x[k] != y[k]} })"), flush=True)
+    differ = [n for n in a[1] if a[1][n] != b[1][n]]
+    roots = collections.Counter(n.split(".", 1)[0] for n in differ)
+    print(f"[determinism] {tag}: float32 masters bit-identical after {len(a[0])} steps: "
+          f"{len(a[1]) - len(differ)} of {len(a[1])}; differing by module: {dict(roots)}; "
+          f"first differing: {differ[:6]}", flush=True)
+
+
+def determinism(fresh, tb, steps) -> int:
+    """Two runs from the same seed, then two under deterministic mode."""
+    first = run_steps(fresh, tb, steps)
+    second = run_steps(fresh, tb, steps)
+    compare("two runs", first, second)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        third = run_steps(fresh, tb, steps)
+        fourth = run_steps(fresh, tb, steps)
+    torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    print(f"[determinism] under use_deterministic_algorithms(True, warn_only=True): "
+          f"{len(ops)} nondeterministic op(s) reported: {ops}", flush=True)
+    compare("two runs in deterministic mode", third, fourth)
+    compare("deterministic mode against the first run", first, third)
+    return 0
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--steps", type=int, default=5,
@@ -105,9 +167,14 @@ def main() -> int:
     p.add_argument("--kd_mode", type=str, default="double_trouble",
                    choices=["logit_based", "feature_based", "double_trouble"])
     p.add_argument("--phase", type=int, default=3, choices=[1, 2, 3])
+    p.add_argument("--loca_faithful_indexing", action="store_true")
+    p.add_argument("--determinism", action="store_true",
+                   help="compare the bits of two runs, then run under deterministic mode")
     args = p.parse_args()
     if args.steps < 3:
         p.error("--steps must be at least 3")
+    if args.determinism:  # before the first cuBLAS call
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -116,17 +183,28 @@ def main() -> int:
     dev = common.setup_device(argparse.Namespace(cpu=False))
 
     scfg, tcfg = cut(llava_onevision_0_5b(), args.layers), cut(llava_onevision_7b(), args.layers)
-    student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
-                                         dtype=torch.bfloat16, trainable=True)
     teacher = common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    cfg = TrainConfig(kd_mode=args.kd_mode, phase=args.phase, loss=kd_loss_config_for(args.kd_mode),
+    loss_cfg = dataclasses.replace(kd_loss_config_for(args.kd_mode),
+                                   loca_faithful_indexing=args.loca_faithful_indexing)
+    cfg = TrainConfig(kd_mode=args.kd_mode, phase=args.phase, loss=loss_cfg, ce_impl="fused",
                       accumulate_grad_batches=ACCUM, learning_rate=1e-5, cosine_t_max=0)
     lc = cfg.loss
-    state = TrainState(student, make_optimizer(student, 1e-5, kd_mode=args.kd_mode, phase=args.phase))
-    step = make_train_step(KDModels(student, teacher), cfg)
+
+    def fresh():
+        """A student from seed 0, its optimizer state and its train step."""
+        torch.cuda.empty_cache()
+        student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
+                                             dtype=torch.bfloat16, trainable=True)
+        state = TrainState(student, make_optimizer(student, 1e-5, kd_mode=args.kd_mode, phase=args.phase))
+        return state, make_train_step(KDModels(student, teacher), cfg)
+
+    if args.determinism:
+        return determinism(fresh, tb, args.steps)
+    state, step = fresh()
+    student = state.model
     times = []
     for _ in range(args.steps):
         torch.cuda.synchronize()

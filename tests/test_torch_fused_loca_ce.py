@@ -144,12 +144,6 @@ def test_loca_loss_matches_jax(temp):
         rtol=1e-5, atol=1e-7)
 
 
-def test_faithful_indexing_is_not_ported():
-    p = torch.softmax(torch.zeros(1, 2, 5), -1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        loca_calibrated_probs(p, torch.zeros(1, 2, dtype=torch.long), 0.8, faithful_indexing=True)
-
-
 def test_kernel_args_reject_what_the_kernels_do_not_take():
     n, v, d = 4, 10, 896
     h = torch.zeros(n, d, dtype=torch.bfloat16)

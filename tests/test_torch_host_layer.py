@@ -2,8 +2,9 @@
 port's freedom from the JAX package.
 
 * The copied modules give what the originals give: every config preset and
-  the loss/train configs field by field; the synthetic SUNRGBD tree file by
-  file; the collator's batch array by array; ``synthetic_kd_batch``;
+  the loss/train configs field by field; the synthetic SUNRGBD and DAQUAR
+  trees file by file; the DAQUAR reader's rows bit for bit; the collator's
+  batch array by array; ``synthetic_kd_batch``;
   ``digits_to_words``; the HF key mapping on a tiny HF state dict.
 * No ``.py`` of the port, nor ``chip_smoke.py``, imports the JAX package,
   ``kdss``, jax, flax, optax or orbax (an ``ast`` guard), and a fresh
@@ -27,6 +28,9 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.cl
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.collate import (
     OneVisionCollator as JaxCollator,
 )
+from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.data.dataset import (
+    DAQUARVQADataset as JaxDAQUAR,
+)
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.models.convert import (
     convert_hf_state_dict as jax_convert_hf,
 )
@@ -45,6 +49,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
     OneVisionCollator,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.dataset import (
+    DAQUARVQADataset,
     SUNRGBDVQADataset,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.convert import (
@@ -90,6 +95,34 @@ def test_synthetic_tree_equals_the_original(tmp_path):
     assert len(files) == 3 + 2 * 12
     for rel in files:
         assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
+
+
+def test_synthetic_daquar_tree_equals_the_original(tmp_path):
+    pcommon.ensure_synthetic_daquar(str(tmp_path / "port"))
+    jcommon.ensure_synthetic_daquar(str(tmp_path / "jax"))
+    files = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "jax")
+                   for d, _, fs in os.walk(tmp_path / "jax") for f in fs)
+    assert len(files) == 3 + 2 * 8
+    for rel in files:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
+
+
+@pytest.mark.parametrize("subset", [None, 0.5, 0.1])
+def test_daquar_reader_equals_the_original(tmp_path, subset):
+    """Every row: question, answer, RGB array, Prewitt depth array and index
+    bit for bit; ``subset_percentage`` head-slices without a floor (0.1 of 8
+    rows is none)."""
+    root = jcommon.ensure_synthetic_daquar(str(tmp_path))
+    got, want = DAQUARVQADataset(root, "val_dataset.csv", subset), JaxDAQUAR(root, "val_dataset.csv", subset)
+    assert len(got) == len(want) == (8 if subset is None else int(8 * subset))
+    for i in range(len(want)):
+        assert got.image_paths(i) == want.image_paths(i)
+        for a, b in zip(got[i], want[i]):
+            if isinstance(b, np.ndarray):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b
 
 
 @pytest.mark.parametrize("mask_prompt_labels", [False, True])
@@ -232,7 +265,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_every_port_module_loads_no_jax():
     """A fresh process (this one has jax loaded by tests/conftest.py)."""
     modules = sorted(m.name for m in pkgutil.walk_packages([PORT_DIR], PKG + "."))
-    assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.ops.int8", f"{PKG}.cli.train_online_kd"} <= set(modules)
+    assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.ops.int8", f"{PKG}.cli.train_online_kd",
+            f"{PKG}.losses.chunked", f"{PKG}.data.dataset", f"{PKG}.cli.train"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -55,11 +55,35 @@ def test_inference_cli_refuses_unported_options(flags, match):
 
 
 def test_resolve_attn_impl():
+    """The flash kernels on CUDA for the head dims they take (the backward's
+    too for a model that trains), the plain path otherwise; ``--attn_impl``
+    wins."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch import configs
+
+    cpu, cuda = common.torch.device("cpu"), common.torch.device("cuda", 0)
+    student, teacher, tiny = (configs.llava_onevision_0_5b(), configs.llava_onevision_7b(),
+                              configs.llava_onevision_tiny())
     args = inference.build_parser().parse_args([])
-    assert common.resolve_attn_impl(args, common.torch.device("cpu")) == "xla"
-    assert common.resolve_attn_impl(args, common.torch.device("cuda", 0)) == "flash"
+    assert common.resolve_attn_impl(args, cpu, student) == "xla"
+    assert common.resolve_attn_impl(args, cuda, student) == "flash"
+    assert common.resolve_attn_impl(args, cuda, student, trainable=True) == "flash"
+    assert common.resolve_attn_impl(args, cuda, teacher) == "flash"  # d = 128: a forward kernel only
+    assert common.resolve_attn_impl(args, cuda, teacher, trainable=True) == "xla"
+    assert common.resolve_attn_impl(args, cuda, tiny) == "xla"
     args = inference.build_parser().parse_args(["--attn_impl", "flash"])
-    assert common.resolve_attn_impl(args, common.torch.device("cpu")) == "flash"
+    assert common.resolve_attn_impl(args, cpu, tiny) == "flash"
+
+
+def test_resolve_ce_impl():
+    """``TrainConfig.ce_impl`` as the CLIs choose it: the fused kernels on
+    CUDA for the 896-wide student, the plain chunked route on the CPU and
+    for the tiny config."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch import configs
+
+    cpu, cuda = common.torch.device("cpu"), common.torch.device("cuda", 0)
+    assert common.resolve_ce_impl(cuda, configs.llava_onevision_0_5b()) == "fused"
+    assert common.resolve_ce_impl(cpu, configs.llava_onevision_0_5b()) == "chunked"
+    assert common.resolve_ce_impl(cuda, configs.llava_onevision_tiny()) == "chunked"
 
 
 def test_port_imports_no_jax():

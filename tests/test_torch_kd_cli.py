@@ -4,8 +4,9 @@ writes its best checkpoint; phase 3 starts from it (the phase hand-off) and
 writes its own; the three-phase chain 1 -> 2 -> 3 hands off twice, phase 1
 moving only what it trains; logit_based, feature_based and the CLI's
 default (double_trouble phase 1) run; phase 2 trains against the int8
-teacher (``--teacher_quant int8`` and ``int8_full``); and what the port
-cannot run yet is refused with the ROADMAP.md item that ports it."""
+teacher (``--teacher_quant int8`` and ``int8_full``); the faithful LoCa
+(``--loca_faithful_indexing``) trains phase 2 and hands off to phase 3; and
+``--dataset daquar`` trains on the synthetic DAQUAR tree."""
 
 import math
 import os
@@ -168,10 +169,44 @@ def test_int8_teacher_trains(tmp_path, capsys, monkeypatch, teacher_quant):
     assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_double_trouble_phase2"))
 
 
-@pytest.mark.parametrize("extra,match", [
-    pytest.param(("--phase", "2", "--loca_faithful_indexing"), "queue 1 item 6", id="extra2-queue 1 item 6"),
-    pytest.param(("--phase", "2", "--dataset", "daquar"), "daquar", id="extra3-daquar"),
-])
-def test_refuses_what_is_not_ported(tmp_path, extra, match):
-    with pytest.raises(SystemExit, match=match):
-        _run(tmp_path, *extra)
+def test_faithful_loca_phase2_then_phase3(tmp_path, capsys, monkeypatch):
+    """``--loca_faithful_indexing``: the LoCa term of both phases comes from
+    ``chunked_faithful_loca`` (the reference's full-tensor column writes),
+    and phase 3 starts from phase 2's best checkpoint."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import step
+
+    calls = []
+    faithful = step.chunked_faithful_loca
+
+    def spy(*a, **kw):
+        calls.append(kw["chunk_size"])
+        return faithful(*a, **kw)
+
+    monkeypatch.setattr(step, "chunked_faithful_loca", spy)
+    _run(tmp_path, "--phase", "2", "--loca_faithful_indexing")
+    out = capsys.readouterr().out
+    _val_loss(out)
+    n2 = len(calls)
+    assert n2 > 0 and set(calls) == {32}  # the tiny configs' loss chunk
+    best2 = checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_double_trouble_phase2"))
+    assert best2 is not None
+
+    _run(tmp_path, "--phase", "3", "--loca_faithful_indexing")
+    out = capsys.readouterr().out
+    assert f"phase hand-off: initialized from {best2}" in out
+    _val_loss(out)
+    assert len(calls) > n2
+    assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_double_trouble_phase3"))
+
+
+def test_daquar_trains(tmp_path, capsys):
+    """``--dataset daquar --synthetic_data``: the synthetic DAQUAR tree
+    (CSVs at the root, images/ and depth/), read by the port's DAQUAR
+    reader."""
+    _run(tmp_path, "--phase", "2", "--dataset", "daquar")
+    out = capsys.readouterr().out
+    _val_loss(out)
+    assert "training complete" in out
+    assert (tmp_path / "data" / "train_dataset.csv").exists()
+    assert (tmp_path / "data" / "depth" / "image0_depth.png").exists()
+    assert checkpoint.find_best_checkpoint(str(tmp_path / "ck" / "kd_double_trouble_phase2"))

@@ -1,5 +1,6 @@
 """The port's KD train step (logit_based, double_trouble phases 1, 2 and 3,
-feature_based) on the CPU against the JAX package's, on the same weights (``params_from_flax``
+feature_based; logit_based and phases 2 and 3 also with
+``loca_faithful_indexing``) on the CPU against the JAX package's, on the same weights (``params_from_flax``
 for the tiny student and ``llava_onevision_tiny_teacher``, whose vocab is
 the student's + 64, so the teacher logits are truncated) and the same batch
 (two different micro-batches from ``synthetic_kd_batch`` on the
@@ -12,7 +13,12 @@ accumulation axis), float32:
 * the loss trace of 3 ``make_train_step`` steps at lr 1e-3 (with the
   phase's freeze mask) equals JAX's, rtol 1e-4, the teacher does not move,
   and what the phase freezes does not move;
-* ``make_eval_step`` gives the same loss and terms without gradients."""
+* ``make_eval_step`` gives the same loss and terms without gradients;
+* ``ce_impl="chunked"`` (the plain autograd route, which never calls the
+  fused wrappers) and ``"fused"`` (the wrappers, whose plain versions run on
+  the CPU) agree in loss, terms and every gradient leaf, for every mode."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -63,19 +69,23 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 
 SCFG, TCFG = llava_onevision_tiny(), llava_onevision_tiny_teacher()
 LR = 1e-3
-MODES = [("logit_based", 0), ("double_trouble", 2), ("double_trouble", 3), ("double_trouble", 1),
-         ("feature_based", 0)]
-IDS = ["logit_based", "phase2", "phase3", "phase1", "feature_based"]
+# (kd_mode, phase, loca_faithful_indexing)
+MODES = [("logit_based", 0, False), ("double_trouble", 2, False), ("double_trouble", 3, False),
+         ("double_trouble", 1, False), ("feature_based", 0, False),
+         ("logit_based", 0, True), ("double_trouble", 2, True), ("double_trouble", 3, True)]
+IDS = ["logit_based", "phase2", "phase3", "phase1", "feature_based",
+       "logit_based_faithful", "phase2_faithful", "phase3_faithful"]
 KEYS = ("pack_idx", "pack_weight", "pack_valid", "tile_valid")
 
 
-def _jax_cfg(mode, phase):
-    return TrainConfig(kd_mode=mode, phase=phase, loss=kd_loss_config_for(mode),
-                       ce_impl="chunked", loss_chunk_size=32)
+def _jax_cfg(mode, phase, faithful=False):
+    loss = dataclasses.replace(kd_loss_config_for(mode), loca_faithful_indexing=faithful)
+    return TrainConfig(kd_mode=mode, phase=phase, loss=loss, ce_impl="chunked", loss_chunk_size=32)
 
 
-def _port_cfg(mode, phase):
-    return pcfg.TrainConfig(kd_mode=mode, phase=phase, loss=pcfg.kd_loss_config_for(mode))
+def _port_cfg(mode, phase, faithful=False, ce_impl="fused"):
+    loss = dataclasses.replace(pcfg.kd_loss_config_for(mode), loca_faithful_indexing=faithful)
+    return pcfg.TrainConfig(kd_mode=mode, phase=phase, loss=loss, ce_impl=ce_impl, loss_chunk_size=32)
 
 
 def _init(model, key, micro, prefix):
@@ -123,19 +133,19 @@ def jax_loss_and_grads(setup):
     sparams, tparams, batch = setup
     micro = {k: jnp.asarray(v[0]) for k, v in batch.items()}
     out = {}
-    for mode, phase in MODES:
-        loss_fn = jax_make_loss_fn(_jax_models(), _jax_cfg(mode, phase))
+    for mode, phase, faithful in MODES:
+        loss_fn = jax_make_loss_fn(_jax_models(), _jax_cfg(mode, phase, faithful))
         (loss, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             sparams, tparams, micro)
-        out[mode, phase] = ({k: float(v) for k, v in metrics.items()}, grads)
+        out[mode, phase, faithful] = ({k: float(v) for k, v in metrics.items()}, grads)
     return out
 
 
-@pytest.mark.parametrize("mode,phase", MODES, ids=IDS)
-def test_kd_loss_matches_jax(setup, jax_loss_and_grads, mode, phase):
+@pytest.mark.parametrize("mode,phase,faithful", MODES, ids=IDS)
+def test_kd_loss_matches_jax(setup, jax_loss_and_grads, mode, phase, faithful):
     models = _port_models(*setup[:2])
-    loss, metrics = make_loss_fn(models, _port_cfg(mode, phase))(_micro(_torch_batch(setup[2]), 0))
-    want = jax_loss_and_grads[mode, phase][0]
+    loss, metrics = make_loss_fn(models, _port_cfg(mode, phase, faithful))(_micro(_torch_batch(setup[2]), 0))
+    want = jax_loss_and_grads[mode, phase, faithful][0]
     assert set(metrics) == set(want)
     assert all(v.dtype == torch.float32 for v in metrics.values())
     np.testing.assert_allclose(loss.item(), want["loss"], rtol=1e-5)
@@ -144,17 +154,17 @@ def test_kd_loss_matches_jax(setup, jax_loss_and_grads, mode, phase):
     assert want.get("loca", want.get("kl")) > 0
 
 
-@pytest.mark.parametrize("mode,phase", MODES, ids=IDS)
-def test_every_student_gradient_leaf_matches_jax(setup, jax_loss_and_grads, mode, phase):
+@pytest.mark.parametrize("mode,phase,faithful", MODES, ids=IDS)
+def test_every_student_gradient_leaf_matches_jax(setup, jax_loss_and_grads, mode, phase, faithful):
     models = _port_models(*setup[:2])
-    loss, _ = make_loss_fn(models, _port_cfg(mode, phase))(_micro(_torch_batch(setup[2]), 0))
+    loss, _ = make_loss_fn(models, _port_cfg(mode, phase, faithful))(_micro(_torch_batch(setup[2]), 0))
     names, leaves = zip(*models.student.named_parameters())
     # the tower's post_layernorm feeds only feature KD: zero, as jax.grad gives
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
     assert all(p.grad is None for p in models.teacher.parameters())
     grads = flax_from_state_dict(dict(zip(names, grads)))
-    want = jax.tree_util.tree_flatten_with_path(jax_loss_and_grads[mode, phase][1])[0]
+    want = jax.tree_util.tree_flatten_with_path(jax_loss_and_grads[mode, phase, faithful][1])[0]
     got = dict((jax.tree_util.keystr(k), v)
                for k, v in jax.tree_util.tree_flatten_with_path(grads)[0])
     assert len(got) == len(want)
@@ -163,10 +173,10 @@ def test_every_student_gradient_leaf_matches_jax(setup, jax_loss_and_grads, mode
         np.testing.assert_allclose(got[key], np.asarray(w), atol=1e-5, rtol=1e-3, err_msg=key)
 
 
-@pytest.mark.parametrize("mode,phase", MODES, ids=IDS)
-def test_three_step_loss_trace_matches_jax(setup, mode, phase):
+@pytest.mark.parametrize("mode,phase,faithful", MODES, ids=IDS)
+def test_three_step_loss_trace_matches_jax(setup, mode, phase, faithful):
     sparams, tparams, batch = setup
-    jax_step = jax.jit(jax_make_train_step(_jax_models(), _jax_cfg(mode, phase)))
+    jax_step = jax.jit(jax_make_train_step(_jax_models(), _jax_cfg(mode, phase, faithful)))
     tx = jax_make_optimizer(sparams, LR, kd_mode=mode, phase=phase)
     jstate = FlaxTrainState.create(apply_fn=None, params=sparams, tx=tx)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -180,7 +190,7 @@ def test_three_step_loss_trace_matches_jax(setup, mode, phase):
     tower_before = {k: v.clone() for k, v in models.student.vision_tower.state_dict().items()}
     lm_before = {k: v.clone() for k, v in models.student.language_model.state_dict().items()}
     state = TrainState(models.student, make_optimizer(models.student, LR, kd_mode=mode, phase=phase))
-    step = make_train_step(models, _port_cfg(mode, phase))
+    step = make_train_step(models, _port_cfg(mode, phase, faithful))
     tb = _torch_batch(batch)
     got = []
     for _ in range(3):
@@ -204,18 +214,54 @@ def test_eval_step_has_the_kd_terms_without_gradients(setup, jax_loss_and_grads)
     models = _port_models(*setup[:2])
     m = make_eval_step(models, _port_cfg("double_trouble", 3))(None, None,
                                                               _micro(_torch_batch(setup[2]), 0))
-    want = jax_loss_and_grads["double_trouble", 3][0]
+    want = jax_loss_and_grads["double_trouble", 3, False][0]
     for k in ("loss", "loca", "ce"):
         assert not m[k].requires_grad
         np.testing.assert_allclose(m[k].item(), want[k], rtol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("mode,phase", MODES[3:], ids=IDS[3:])
-def test_eval_step_has_the_kl_terms_without_gradients(setup, jax_loss_and_grads, mode, phase):
+@pytest.mark.parametrize("mode,phase,faithful", MODES[3:5], ids=IDS[3:5])
+def test_eval_step_has_the_kl_terms_without_gradients(setup, jax_loss_and_grads, mode, phase, faithful):
     models = _port_models(*setup[:2])
     m = make_eval_step(models, _port_cfg(mode, phase))(None, None, _micro(_torch_batch(setup[2]), 0))
-    want = jax_loss_and_grads[mode, phase][0]
+    want = jax_loss_and_grads[mode, phase, faithful][0]
     assert set(m) == set(want)
     for k in want:
         assert not m[k].requires_grad
         np.testing.assert_allclose(m[k].item(), want[k], rtol=1e-5, err_msg=k)
+
+
+def _loss_and_grads(models, cfg, micro):
+    loss, metrics = make_loss_fn(models, cfg)(micro)
+    names, leaves = zip(*models.student.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return metrics, {n: g for n, g in zip(names, grads) if g is not None}
+
+
+@pytest.mark.parametrize("mode,phase,faithful", [("baseline", 0, False)] + MODES,
+                         ids=["baseline"] + IDS)
+def test_ce_impl_routes_agree(setup, monkeypatch, mode, phase, faithful):
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import step
+
+    models = _port_models(*setup[:2])
+    if mode == "baseline":
+        models = KDModels(models.student)
+    micro = _micro(_torch_batch(setup[2]), 0)
+    m_fused, g_fused = _loss_and_grads(models, _port_cfg(mode, phase, faithful, "fused"), micro)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the chunked route called a fused wrapper")
+
+    for name in ("fused_ce_loss", "fused_kl_loss", "fused_loca_ce_loss"):
+        monkeypatch.setattr(step, name, refuse)
+    m_chunk, g_chunk = _loss_and_grads(models, _port_cfg(mode, phase, faithful, "chunked"), micro)
+    assert set(m_chunk) == set(m_fused) and set(g_chunk) == set(g_fused)
+    for k in m_fused:
+        np.testing.assert_allclose(m_chunk[k].item(), m_fused[k].item(), rtol=1e-5, err_msg=k)
+    for k in g_fused:
+        np.testing.assert_allclose(g_chunk[k].numpy(), g_fused[k].numpy(), atol=1e-5, rtol=1e-3, err_msg=k)
+
+
+def test_unknown_ce_impl_is_refused(setup):
+    with pytest.raises(ValueError, match="ce_impl"):
+        make_loss_fn(_port_models(*setup[:2]), _port_cfg("logit_based", 0, ce_impl="xla"))

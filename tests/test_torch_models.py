@@ -235,3 +235,28 @@ def test_hf_snapshot_route_matches_hf_forward(tmp_path):
         want = hf(input_ids=ids, attention_mask=mask).logits
         got, _, _ = model(input_ids=ids, attention_mask=mask)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+
+
+def test_pack_taps_backward_equals_the_gather_gradient():
+    """The anyres pack's deterministic backward (one product with the tap
+    matrix) gives the bank the gradient that autograd through
+    ``torch.gather`` gives it, with taps that repeat bank rows within and
+    across packed positions, and zero-weight taps."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.llava_onevision import (
+        _PackTaps,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    b, n, m, d = 2, 9, 13, 5
+    bank = torch.randn(b, n, d, generator=g, requires_grad=True)
+    idx = torch.randint(0, n, (b, m, 4), generator=g)
+    idx[:, :, 1] = idx[:, :, 0]  # two taps of one position on the same row
+    w = torch.rand(b, m, 4, generator=g)
+    w[:, ::3, 3] = 0.0
+    cot = torch.randn(b, m, d, generator=g)
+    got = _PackTaps.apply(bank, idx, w)
+    (g_got,) = torch.autograd.grad(got, bank, cot)
+    want = sum(torch.gather(bank, 1, idx[:, :, k, None].expand(-1, -1, d)) * w[:, :, k, None] for k in range(4))
+    (g_want,) = torch.autograd.grad(want, bank, cot)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(g_got.numpy(), g_want.numpy(), rtol=1e-6, atol=1e-6)
