@@ -59,10 +59,24 @@ Phases (any failure raises, and the exit code is non-zero):
      without --real_model (the tiny configs: the CLIs choose the plain
      routes from their widths and head dims, and no kernel launches), one
      of them on the synthetic DAQUAR tree with the faithful LoCa;
-  9. print one JSON line of kernel results (time, plain time, the least time
+  9. [eval]: the evaluator CLI (cli/evaluate_onevision.py) with the 0.5B
+     student at full width and depth on a 21-row synthetic SUNRGBD split
+     whose frames cycle through the four sensor sizes, at B=8 (a padded
+     5-row tail) and B=1 with exact launch counts: the same rows, each
+     row's prefill next-token logits and generated tokens held B=8 against
+     B=1; a checkpoint restore with its negative control; int8_full at
+     B=8; the 7B at B=2; get_all_results over the predictions; rows/s,
+     the host / generate split and peak memory;
+ 10. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
+
+Phase 3 is followed by [k13]: every phase-ablation arm of K3 (K13) at the
+student's and the 7B's prefill attention shapes against its plain version,
+the exact arms against `full`, `full` bit-equal to K3, a negative control
+(nostorem held to full's plain version), per-arm registers, SASS
+instruction counts and times, and the JAX script's phase accounting.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
 K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
@@ -178,6 +192,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention as fa,
+    flash_phase_ablation as k13,
     fused_ce as fc,
     fused_kl as fkl,
     fused_loca as fl,
@@ -226,6 +241,12 @@ KERNELS = {
     "int8_mm": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_matmul.launches),
     "tmat_int8": ("csrc/tmat_int8.cu", "ops/fused_loca.py:1042",
                   lambda: fl.materialize_teacher_logits_int8.launches),
+    # K13, the phase-ablation arms of K3 (the JAX script's two pallas_calls:
+    # :336 for streaming_smem, :375 for every other arm); no path calls them
+    "flash_phase_ablation": ("csrc/flash_phase_ablation_d64.cu", "scripts/flash_phase_ablation.py:375",
+                             lambda: k13.phase_ablation_forward.head_dim_launches.get(64, 0)),
+    "flash_phase_ablation_d128": ("csrc/flash_phase_ablation_d128.cu", "scripts/flash_phase_ablation.py:375",
+                                  lambda: k13.phase_ablation_forward.head_dim_launches.get(128, 0)),
 }
 # Every launch count a path is held to: the kernels', and K8's dW kernel.
 COUNTERS = {**{name: k[2] for name, k in KERNELS.items()},
@@ -238,6 +259,7 @@ def reset_counts() -> None:
     fl.reset_launch_counts()
     fkl.reset_launch_counts()
     i8.reset_launch_counts()
+    k13.reset_launch_counts()
 
 
 def read_counts() -> dict:
@@ -289,7 +311,8 @@ def _result(name, err, ms, plain_ms, bound_ms, library_ms=None) -> dict:
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"[kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms[0]:.4f} ms "
         f"({bound_ms[1]}), library {lib}, max_abs_err={err:.3e}")
-    return dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=f"{REF}/{line}",
+    replaces = line if line.startswith("scripts/") else f"{REF}/{line}"
+    return dict(name=name, route="cuda", source=f"{PKG}/{src}", replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms[0],
                 bound_by=bound_ms[1], library_ms=library_ms)
 
@@ -481,6 +504,121 @@ def kernel_phase(dev) -> list:
     results += loca_kernel_phase(dev, g)
     results += kl_kernel_phase(dev, g)
     results += int8_kernel_phase(dev, g)
+    return results
+
+
+# [k13]: (entry name, q heads, kv heads, head dim) at S = 3072: K3's shapes
+# in the student's and the 7B's Qwen2.
+K13_CASES = (("flash_phase_ablation", 14, 2, 64), ("flash_phase_ablation_d128", 28, 4, 128))
+K13_SEQ = 3072
+
+
+def k13_build_stats() -> dict:
+    """(registers, SASS instructions) of each K13 arm's kernel in the built
+    library, by (head dim, arm): registers from the build log's ptxas lines,
+    instructions from ``cuobjdump -sass``.  An arm whose count falls by more
+    than its dropped phase lets the compiler delete more than that."""
+    import os
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    def arm_of(line):
+        m = re.search(r"phase_ablation.*flash_fwd_kernelILi(\d+)ELb1ELb0ELi(\d+)E", line)
+        return (int(m[1]), k13.ARMS[int(m[2])]) if m else None
+
+    regs, cur = {}, None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = arm_of(line)
+        elif cur and "Used" in line:
+            regs[cur] = int(re.search(r"Used (\d+) registers", line)[1])
+    text = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    sass, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = arm_of(line)
+            if cur:
+                sass[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            sass[cur] += 1
+    return {key: (regs.get(key), sass[key]) for key in sass}
+
+
+def k13_phase(dev) -> list:
+    """[k13]: every phase-ablation arm at each of K13_CASES on standard-normal
+    bf16 inputs, causal, no mask: each arm against its plain version at the
+    kernel's tiling (max abs error <= 2e-2 x max(1, max |plain|) and relative
+    Frobenius error <= REL_FRO_TOL where both are finite; noexp and mxu
+    also non-finite at the same positions, every other arm finite), the
+    exact arms against ``full``, ``full`` bit-equal to K3's own output
+    (``flash_attention_gqa``, no mask), a negative control (nostorem's
+    output, which keeps no running max and so attends to the last visited
+    tile alone, against full's plain version must fail the bounds), then each
+    arm's time
+    and the script's phase accounting."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    results = []
+    stats = k13_build_stats()
+    for name, hq, hkv, d in K13_CASES:
+        log(f"[k13] d={d} registers / SASS instructions per arm (ptxas, cuobjdump): "
+            + ", ".join(f"{a} {'/'.join(map(str, stats.get((d, a), ('missing',))))}" for a in k13.ARMS))
+        if any((d, a) not in stats for a in k13.ARMS):
+            raise AssertionError(f"K13 arms missing from the library's SASS at d={d}: {stats}")
+        q, k, v = (torch.randn(1, K13_SEQ, h, d, generator=g, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        with torch.no_grad():
+            k3 = fa.flash_attention_gqa(q, k, v, causal=True)
+        full = k13.phase_ablation_forward(q, k, v, "full")
+        torch.cuda.synchronize()
+        same = torch.equal(full, k3)
+        log(f"[k13] d={d}, {hq}q/{hkv}kv, S={K13_SEQ}: full bit-equal to K3 (flash_attention_gqa): {same}")
+        if not same:
+            raise AssertionError(f"K13's full arm is not K3 at d={d}")
+        worst = 0.0
+        for arm in k13.ARMS:
+            got = k13.phase_ablation_forward(q, k, v, arm)
+            torch.cuda.synchronize()
+            want = k13.phase_ablation_ref(q, k, v, arm)
+            check = k13.check_arm(got, want, arm)
+            nonfinite = int((~torch.isfinite(got)).sum())
+            if check is None:
+                raise AssertionError(f"K13 {arm} d={d}: non-finite at other positions than its plain version")
+            err, tol, fro = check
+            line = (f"[k13] d={d} {arm}: max_abs_err={err:.3e} (tol {tol:.3e}), rel_fro_err={fro:.3e} "
+                    f"(tol {REL_FRO_TOL}), non-finite {nonfinite} of {got.numel()}")
+            if arm in k13.EXACT_ARMS:
+                vs_full = (got.float() - full.float()).abs().max().item()
+                line += f"; vs full max abs {vs_full:.3e} (tol {KERNEL_TOL})"
+                if not vs_full <= KERNEL_TOL:
+                    raise AssertionError(f"K13 {arm} d={d} diverged from full: {vs_full}")
+            log(line)
+            if not (err <= tol and fro <= REL_FRO_TOL):
+                raise AssertionError(f"K13 {arm} d={d} disagrees with its plain version: {check}")
+            worst = max(worst, err)
+            if arm == "nostorem":  # attention over the last tile alone: held to full, it must fail
+                _must_fail(f"k13 d={d} nostorem", "full's plain version as its reference",
+                           [(got, fa.flash_attention_ref(q, k, v, None, causal=True))])
+            del got, want
+        ms = {arm: k13.time_arm(q, k, v, arm, iters=20) for arm in k13.ARMS}
+        log(f"[k13] d={d} ms/pass: " + ", ".join(f"{a} {t:.4f}" for a, t in ms.items()))
+        # streaming_smem's pass includes the wrapper's shift (PyTorch ops over
+        # q and k, as the script's jitted call computes it); its kernel alone:
+        shift, out = k13.streaming_shift(q, k, d**-0.5), torch.empty_like(q)
+        alone = time_ms(lambda: _build.flash_phase_ablation(q, k, v, out, shift, k13.ARMS.index("streaming_smem"),
+                                                            d**-0.5), iters=20)
+        log(f"[k13] d={d} streaming_smem kernel alone (shift precomputed) {alone:.4f} ms; the wrapper's shift "
+            f"{ms['streaming_smem'] - alone:.4f} ms")
+        for line in k13.accounting(ms, K13_SEQ, hq, d):
+            log(f"[k13] d={d} {line}")
+        plain_ms = time_ms(lambda: k13.phase_ablation_ref(q, k, v, "full"), iters=3, warmup=1)
+        least = bound(4 * attended_pairs(1, K13_SEQ, K13_SEQ, True, None) * hq * d, nbytes(q, k, v, full))
+        qt, kt, vt, kw = _sdpa_inputs(q, k, v, None, True)
+        library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=10)
+        del qt, kt, vt, q, k, v, full, k3
+        results.append(_result(name, worst, ms["full"], plain_ms, least, library))
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1354,6 +1492,205 @@ def tiny_cli_phase() -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# [eval]: the evaluator CLI on a synthetic SUNRGBD split of 21 rows whose
+# frames cycle through the dataset's four sensor sizes (h, w): kv2 730x530,
+# kv1 561x427, realsense 681x531, xtion 640x480.  Their anyres grids differ,
+# so prompts in one batch differ by hundreds of tokens and K3's kv mask
+# masks.  B=8 gives batches of 8, 8 and a 5-row tail padded to 8.
+EVAL_ROWS = 21
+EVAL_BS = 8
+EVAL_SIZES = ((530, 730), (427, 561), (531, 681), (480, 640))
+EVAL_7B_ROWS, EVAL_7B_BS = 0.2, 2  # --subset_percentage 0.2: 4 rows, 2 batches of 2
+
+
+def _eval_tree(root) -> str:
+    """common.ensure_synthetic_dataset's layout and CSVs, its images redrawn
+    at the sensor frame sizes (seeded)."""
+    import numpy as np
+    from PIL import Image
+
+    common.ensure_synthetic_dataset(str(root), n=EVAL_ROWS)
+    rng = np.random.default_rng(21)
+    img = root / "SUNRGBD" / "img"
+    for i in range(EVAL_ROWS):
+        h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
+        Image.fromarray(rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)).save(img / f"rgb_{i}.png")
+        Image.fromarray(rng.integers(0, 65535, size=(h, w)).astype(np.uint16)).save(img / f"d_{i}.png")
+    return str(root)
+
+
+def _run_eval(tag, root, preds, *flags) -> dict:
+    """One evaluator CLI run (its output captured), its launch counts from 0,
+    wall time and peak memory."""
+    import io
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        evaluate_onevision,
+    )
+
+    out = io.StringIO()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        r = evaluate_onevision.main(["--root_data_dir", root, "--predictions_dir", str(preds),
+                                     "--max_new_tokens", str(N_NEW), "--metric_backend", "hashed", *flags])
+    torch.cuda.synchronize()
+    r.update(wall=time.perf_counter() - t0, launches=read_counts(), peak=torch.cuda.max_memory_allocated(),
+             log=out.getvalue())
+    rows = len(r["rows"])
+    log(f"[{tag}] {' '.join(flags)}: {rows} rows in {r['wall']:.1f} s ({rows / r['wall']:.3f} rows/s); host "
+        f"(rows read, depth, anyres, collation) {r['host_s']:.2f} s, generate {r['generate_s']:.2f} s; "
+        f"peak memory {r['peak'] / 2**30:.2f} GiB")
+    return r
+
+
+def _hold_launches(tag, got, per_batch, batches) -> None:
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({k: n * batches for k, n in per_batch.items()})
+    log(f"[{tag}] launches over {batches} batches: { {k: v for k, v in got.items() if v} } (expected, "
+        f"every other counter 0: { {k: v for k, v in want.items() if v} })")
+    if got != want:
+        raise AssertionError(f"{tag} launch counts {got} != {want}")
+
+
+def _eval_next_logits(model, cfg, root, bs) -> list:
+    """Each row's prefill next-token logits (f32, on the host), from batches
+    of ``bs`` rows collated as the evaluator collates them."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.collate import (
+        OneVisionCollator,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.dataset import (
+        SUNRGBDVQADataset,
+    )
+
+    ds = SUNRGBDVQADataset(root, "val_dataset.csv", depth_encoding="prewitt_imagenet")
+    tok = common.make_tokenizer(types.SimpleNamespace(tokenizer_path=None), cfg)
+    collator = OneVisionCollator(cfg, tok, eval_mode=True)
+    gen = Generator(cfg, GenerateConfig(max_new_tokens=N_NEW, eos_token_id=cfg.eos_token_id))
+    rows = []
+    for start in range(0, len(ds), bs):
+        n = min(bs, len(ds) - start)
+        samples = [ds[i] for i in range(start, start + n)]
+        batch = collator(samples + [samples[-1]] * (bs - n))
+        tb = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()
+              if not k.startswith("teacher_") and k != "question_id"}
+        with torch.no_grad():
+            logits, _, lengths = gen.prefill(model, tb)
+            rows += [logits[j, int(lengths[j]) - 1].float().cpu() for j in range(n)]
+        del logits
+    return rows
+
+
+def eval_phase(dev) -> dict:
+    """[eval]: ``cli/evaluate_onevision.py``'s main on the card with the 0.5B
+    student at full width and depth (seeded random weights) on the
+    21-row split of ``_eval_tree``: at B=8 and B=1 with exact K1/K3 launch
+    counts (the prefill only); the rows of B=8 those of B=1 (same
+    Question_Ids, no pad row), each row's prefill next-token logits at B=8
+    held to B=1's (max abs error <= KERNEL_TOL x max(1, max |logit|),
+    relative Frobenius error <= REL_FRO_TOL), and its generated tokens equal
+    or, from the first step where they differ, B=1's top-2 margin there
+    within twice that logit bound (two logits each off by up to the bound can
+    swap); a checkpoint restore (the CSV of a model built from seed 1 with
+    the seed-0 model's checkpoint equals the seed-0 run's, and without it
+    differs); ``--quant int8_full`` at B=8 with exact K12 counts; the 7B
+    (``--model_id ...7b``, bf16, 28 layers) on 4 rows at B=2 with exact
+    K3-d128 counts; ``get_all_results`` over the predictions."""
+    import io
+    import shutil
+
+    import pandas as pd
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        get_all_results,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    cfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
+    base = _build.BUILD_DIR.parent / "chip_smoke_eval"
+    shutil.rmtree(base, ignore_errors=True)
+    root = _eval_tree(base / "data")
+    vis, txt = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    per_batch = {"flash_fwd_mha": vis, "flash_fwd_gqa": txt}
+    n_batches = -(-EVAL_ROWS // EVAL_BS)
+
+    r8 = _run_eval("eval", root, base / "p8", "--eval_batch_size", str(EVAL_BS))
+    _hold_launches("eval", r8["launches"], per_batch, n_batches)
+    r1 = _run_eval("eval", root, base / "p1", "--eval_batch_size", "1")
+    _hold_launches("eval", r1["launches"], per_batch, EVAL_ROWS)
+    log(f"[eval] B={EVAL_BS}: {r8['wall'] * 1e3 / n_batches:.1f} ms per batch; B=1: "
+        f"{r1['wall'] * 1e3 / EVAL_ROWS:.1f} ms per row")
+    csv8, csv1 = pd.read_csv(r8["path"]), pd.read_csv(r1["path"])
+    if len(csv8) != EVAL_ROWS or list(csv8["Question_Id"]) != list(csv1["Question_Id"]):
+        raise AssertionError(f"B={EVAL_BS} rows {list(csv8['Question_Id'])} are not B=1's")
+
+    model = common.init_or_load_params(cfg, None, seed=0, attn_impl="flash", device=dev, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    next8, next1 = (_eval_next_logits(model, cfg, root, bs) for bs in (EVAL_BS, 1))
+    log(f"[eval] prefill logits at B={EVAL_BS} (all positions, [B, S, V]): peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    tol = 0.0
+    for i, (a, b) in enumerate(zip(next8, next1)):
+        tol = max(tol, KERNEL_TOL * max(1.0, b.abs().max().item()))
+        _hold(f"eval row {i} next-token logits B={EVAL_BS} vs B=1",
+              [("logits", a, b, KERNEL_TOL * max(1.0, b.abs().max().item()))])
+    same = 0
+    for i, (a, b) in enumerate(zip(r8["rows"], r1["rows"])):
+        if a["tokens"] == b["tokens"]:
+            same += 1
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y)
+        margin = b["margins"][t]
+        log(f"[eval] row {i}: tokens differ first at step {t} ({a['tokens'][t]} at B={EVAL_BS}, "
+            f"{b['tokens'][t]} at B=1); B=1 top-2 margin there {margin:.4e} (threshold {2 * tol:.4e})")
+        if not margin <= 2 * tol:
+            raise AssertionError(f"row {i}: B={EVAL_BS} and B=1 tokens differ at a margin of {margin}")
+    log(f"[eval] generated tokens: {same} of {EVAL_ROWS} rows equal at B={EVAL_BS} and B=1")
+
+    ckpt = CheckpointManager(str(base / "ck")).save(0, 1.0, {"params": model.state_dict(), "opt_state": {},
+                                                             "step": 0})
+    del model, next8, next1
+    torch.cuda.empty_cache()
+    restored = _run_eval("eval-ckpt", root, base / "pck", "--eval_batch_size", str(EVAL_BS), "--seed", "1",
+                         "--student_ckpt_path", ckpt)
+    other = _run_eval("eval-ckpt", root, base / "pseed1", "--eval_batch_size", str(EVAL_BS), "--seed", "1")
+    csv_ck, csv_other = pd.read_csv(restored["path"]), pd.read_csv(other["path"])
+    log(f"[eval-ckpt] restored CSV equals the seed-0 run's: {csv_ck.equals(csv8)}; seed 1 without the "
+        f"checkpoint differs: {not csv_other.equals(csv8)}")
+    if not csv_ck.equals(csv8) or csv_other.equals(csv8):
+        raise AssertionError("the checkpoint restore did not give the seed-0 model's predictions, or its "
+                             "negative control did")
+
+    r8q = _run_eval("eval8", root, base / "pq", "--eval_batch_size", str(EVAL_BS), "--quant", "int8_full")
+    lm_proj, v_proj = 7 * txt, 6 * vis
+    _hold_launches("eval8", r8q["launches"],
+                   {**per_batch, "int8_mm": lm_proj + v_proj + (N_NEW - 1) * lm_proj}, n_batches)
+
+    r7 = _run_eval("eval7b", root, base / "p7b", "--eval_batch_size", str(EVAL_7B_BS), "--subset_percentage",
+                   str(EVAL_7B_ROWS), "--model_id", "llava-hf/llava-onevision-qwen2-7b-ov-hf")
+    n7 = len(r7["rows"])
+    _hold_launches("eval7b", r7["launches"], {"flash_fwd_mha": tcfg.vision.num_hidden_layers,
+                                              "flash_fwd_gqa_d128": tcfg.text.num_hidden_layers},
+                   -(-n7 // EVAL_7B_BS))
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        get_all_results.main(["--predictions_dir", str(base / "p8"), "--metric_backend", "hashed"])
+    summary = pd.read_csv(base / "p8" / "summary" / "results_summary.csv")
+    log(f"[eval] get_all_results: {summary[['Simple_Accuracy', 'Neural_Similarity', 'File']].to_dict('records')}")
+    if not {"Simple_Accuracy", "Neural_Similarity"} <= set(summary.columns) or len(summary) != 1:
+        raise AssertionError(f"get_all_results summary {summary}")
+    shutil.rmtree(base, ignore_errors=True)
+    paths = dict(b8=r8, b1=r1, ckpt=restored, seed1=other, int8=r8q, b7=r7)
+    return dict(launches={k: sum(r["launches"][k] for r in paths.values()) for k in COUNTERS},
+                rows_s8=EVAL_ROWS / r8["wall"], rows_s1=EVAL_ROWS / r1["wall"], peak=r8["peak"],
+                host8=r8["host_s"], gen8=r8["generate_s"])
+
+
 def main_path_phase(dev) -> dict:
     """Serving: greedy generation with the 0.5B student, full width and depth."""
     cfg = llava_onevision_0_5b()
@@ -1579,7 +1916,7 @@ def main() -> int:
             elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 log(f"[build] {entry}: {line.strip()}")
 
-    kernels = kernel_phase(dev)
+    kernels = kernel_phase(dev) + k13_phase(dev)
     train = training_phase(dev)
     agreement_phase(dev)
     serve = main_path_phase(dev)
@@ -1597,9 +1934,10 @@ def main() -> int:
     kd_agreement_phase(dev, int8=True)
     kd_phase1_agreement_phase(dev)
     tiny_cli_phase()
+    evals = eval_phase(dev)
     # launches: the driven paths, each counted from 0 around its own run
-    # (K9's: the op path on a [kdF] micro-batch)
-    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8)
+    # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
@@ -1609,6 +1947,9 @@ def main() -> int:
                     ("feature_based", kdfb), ("KD phase 3, int8 teacher", kd8)):
         log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: evaluator {evals['rows_s8']:.3f} rows/s at B={EVAL_BS} (host "
+        f"{evals['host8']:.2f} s, generate {evals['gen8']:.2f} s), {evals['rows_s1']:.3f} rows/s at B=1, "
+        f"peak {evals['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "
         f"{kd8['teacher_ms']:.1f} ms int8")
     log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "

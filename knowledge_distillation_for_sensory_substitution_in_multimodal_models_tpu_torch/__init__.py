@@ -16,7 +16,9 @@ CE over the fused route, the train and eval steps with gradient
 accumulation, AdamW over float32 masters, checkpoints, the epoch loop and
 the train CLI; online KD against the frozen 7B teacher -- every KD mode
 and phase (LoCa + CE; KL + NT-Xent), the phase hand-off and the KD CLI;
-and int8 (w8a8) serving and the int8 teacher.  The kernels on those paths
+int8 (w8a8) serving and the int8 teacher; and the evaluator (batched
+generation over a split, checkpoint restore, the reference's predictions
+CSV and metrics summary).  The kernels on those paths
 are hand-written CUDA for Hopper: the flash-attention forward (D = 64, 72
 and 128) and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, bound
 in ``ops/flash_attention.py``), the vocab-streaming cross-entropy
@@ -24,7 +26,9 @@ in ``ops/flash_attention.py``), the vocab-streaming cross-entropy
 (``csrc/fused_loca_ce.cu``, ``ops/fused_loca.py``), the temperature KL
 (``csrc/fused_kl.cu``, ``ops/fused_kl.py``), and, for int8 serving and the
 int8 teacher, the w8a8 GEMM (``csrc/int8_mm.cu``, ``ops/int8.py``) and the
-teacher's logits from its int8 head (``csrc/tmat_int8.cu``).
+teacher's logits from its int8 head (``csrc/tmat_int8.cu``); and the
+flash forward's phase-ablation arms, a profiling instrument
+(``csrc/flash_phase_ablation_d*.cu``, ``ops/flash_phase_ablation.py``).
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 ``.env`` loading, the flags this port implements, tiny/real config choice,
 the tokenizer, the synthetic SUNRGBD and DAQUAR trees, device set-up, the
 attention and loss routes (``resolve_attn_impl``, ``resolve_ce_impl``),
-``make_datasets`` and ``init_or_load_params``.
+``make_datasets``, ``init_or_load_params``, and the served model of the
+inference and evaluator CLIs (``add_serving_flags``, ``load_student``).
 """
 
 from __future__ import annotations
@@ -232,6 +233,45 @@ def add_device_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--attn_impl", type=str, default=None, choices=ATTN_IMPLS,
                    help="default: flash on CUDA, xla on the CPU")
     p.add_argument("--seed", type=int, default=0)
+
+
+def add_serving_flags(p: argparse.ArgumentParser) -> None:
+    """The flags the inference and evaluator CLIs share, beside
+    ``add_device_flags``."""
+    p.add_argument("--student_ckpt_path", type=str, default=None,
+                   help="a checkpoint of the port's train CLIs (epoch=NN-val_loss=X.ckpt); its "
+                        "weights replace the initial ones (params-only restore)")
+    p.add_argument("--pixel_data_type", type=str, default="depth", choices=["depth", "rgb"])
+    p.add_argument("--max_new_tokens", type=int, default=32)
+    p.add_argument("--root_data_dir", type=str, default=None)
+    p.add_argument("--quant", type=str, default="none", choices=QUANT_MODES,
+                   help="int8: w8a8 LM decoder-block projections (decode at batch 1 is "
+                        "weight-bandwidth-bound, int8 halves the bytes); int8_full: the SigLIP "
+                        "projections too (ops/int8.py)")
+
+
+def load_student(args, cfg, device: torch.device) -> LlavaOnevision:
+    """The served model of the inference and evaluator CLIs: built from
+    ``--student_weights`` or the seed, then ``--student_ckpt_path``'s
+    weights (a params-only restore; a path that names no file is refused),
+    then ``--quant`` (after the restore, as the JAX CLIs quantize: the
+    checkpoints stay float)."""
+    model = init_or_load_params(cfg, args.student_weights, args.seed,
+                                attn_impl=resolve_attn_impl(args, device, cfg),
+                                device=device, dtype=model_dtype(device))
+    path = args.student_ckpt_path
+    if path:
+        if not os.path.isfile(path):
+            raise SystemExit(f"--student_ckpt_path {path}: no such checkpoint file")
+        from ..train.checkpoint import CheckpointManager
+
+        CheckpointManager(os.path.dirname(path) or ".").restore_model(path, model, map_location=device)
+        print(f"loaded student params from {path}", flush=True)
+    if args.quant != "none":
+        from ..ops.int8 import quantize_model_int8
+
+        quantize_model_int8(model, include_vision=args.quant == "int8_full")
+    return model
 
 
 def setup_device(args) -> torch.device:

@@ -1,4 +1,5 @@
 """Single-sample inference demo (port of the JAX package's ``cli/inference.py``):
+load a checkpoint (``--student_ckpt_path``, one of the port's train CLIs'),
 encode one depth image, generate one answer, print a one-row DataFrame.
 ``--quant int8`` serves the student with w8a8 decoder-block projections,
 ``int8_full`` with the SigLIP encoder's too (the tied embedding and head
@@ -22,24 +23,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--row", type=int, default=0, help="dataset row to run")
     p.add_argument("--gts_type", type=str, default="val")
-    p.add_argument("--student_ckpt_path", type=str, default=None,
-                   help="not ported yet (waits for the checkpoint port)")
-    p.add_argument("--pixel_data_type", type=str, default="depth", choices=["depth", "rgb"])
-    p.add_argument("--max_new_tokens", type=int, default=32)
-    p.add_argument("--root_data_dir", type=str, default=None)
-    p.add_argument("--quant", type=str, default="none", choices=common.QUANT_MODES,
-                   help="int8: w8a8 LM projections; int8_full: the SigLIP projections too")
+    common.add_serving_flags(p)
     common.add_device_flags(p)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.student_ckpt_path:
-        raise SystemExit(
-            "--student_ckpt_path is not ported yet: it waits for the checkpoint port "
-            "(ROADMAP.md queue 1 item 1); use --student_weights for an HF snapshot"
-        )
     common.load_env()
     device = common.setup_device(args)
 
@@ -58,11 +48,7 @@ def main(argv=None):
         raise SystemExit("set ROOT_DATA_DIR or pass --root_data_dir / --synthetic_data")
 
     scfg, _ = common.model_configs(args)
-    model = common.init_or_load_params(
-        scfg, args.student_weights, args.seed,
-        attn_impl=common.resolve_attn_impl(args, device, scfg),
-        device=device, dtype=common.model_dtype(device), quant=args.quant,
-    )
+    model = common.load_student(args, scfg, device)
     tok = common.make_tokenizer(args, scfg)
 
     ds = SUNRGBDVQADataset(root, f"{args.gts_type}_dataset.csv", depth_encoding="prewitt_imagenet")

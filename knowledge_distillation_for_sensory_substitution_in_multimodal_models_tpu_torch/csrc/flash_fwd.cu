@@ -53,182 +53,11 @@
 // the same way.  wgmma, TMA, a multi-stage K/V ring and warp specialisation
 // are the later steps.
 
-#include "kdss_mma.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
 using namespace kdss;
-
-constexpr int BM = 64;  // q rows per block (16 per warp)
-constexpr int BN = 64;  // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-
-template <int D>
-constexpr int smem_bytes() {
-  return (BM + 2 * BN) * FlashDims<D>::LD * 2 + BN;  // Q, K, V tiles and the kv mask
-}
-
-template <int D, bool CAUSAL, bool MASK>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv,
-                     int Hq, int Hkv, int group, float scale_log2) {
-  using Dm = FlashDims<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BM * Dm::LD;
-  __nv_bfloat16* Vs = Ks + BN * Dm::LD;
-  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + BN * Dm::LD);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane >> 2, ti = lane & 3;  // mma group id / thread in group
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-
-  const long qstride = (long)Hq * D, kstride = (long)Hkv * D;
-  const __nv_bfloat16* qb = q + ((long)b * Sq * Hq + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Skv * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Skv * Hkv + hk) * D;
-
-  load_tile<D, BM, NTHREADS>(Qs, qb, q0, Sq, qstride);
-  __syncthreads();
-
-  const int r0 = warp * 16 + gi;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[Dm::KC][4];
-#pragma unroll
-  for (int kc = 0; kc < Dm::KC; ++kc) load_a(qf[kc], Qs, Dm::LD, warp * 16, kc * 16, gi, ti);
-
-  float o[Dm::NT][4];
-#pragma unroll
-  for (int nt = 0; nt < Dm::NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums; quad-reduced at the end
-  const int row_a = q0 + r0, row_b = row_a + 8;
-
-  int n_tiles = (Skv + BN - 1) / BN;
-  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, BN, NTHREADS>(Ks, kb, k0, Skv, kstride);
-    load_tile<D, BN, NTHREADS>(Vs, vb, k0, Skv, kstride);
-    if (MASK) {
-      for (int i = threadIdx.x; i < BN; i += NTHREADS)
-        Ms[i] = (k0 + i < Skv) ? kv_mask[(long)b * Skv + k0 + i] : 0;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < Dm::KC; ++kc) {
-        uint32_t bk[2];
-        load_b_rows(bk, Ks, Dm::LD, nt * 8, kc * 16, gi, ti);
-        mma16816(s[nt], qf[kc], bk);
-      }
-    }
-
-    // Scale into the log2 domain and mask.
-    const bool edge = (k0 + BN > Skv) || MASK || (CAUSAL && k0 + BN - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (edge) {
-          const int c = nt * 8 + ti * 2 + (e & 1);
-          const int col = k0 + c;
-          bool ok = col < Skv;
-          if (MASK) ok = ok && Ms[c] != 0;
-          if (CAUSAL) ok = ok && col <= ((e < 2) ? row_a : row_b);
-          if (!ok) x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-    }
-
-    // Online softmax: new running max per row (reduced over the quad).
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float alpha[2], base[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      // A row with no valid key yet keeps m = -inf; shift by 0 so that
-      // exp2(-inf - 0) = 0 and nothing turns into NaN.
-      base[i] = (mx[i] == -INFINITY) ? 0.f : mx[i];
-      alpha[i] = exp2f(m[i] - base[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - base[0]);
-      s[nt][1] = exp2f(s[nt][1] - base[0]);
-      s[nt][2] = exp2f(s[nt][2] - base[1]);
-      s[nt][3] = exp2f(s[nt][3] - base[1]);
-      l[0] += s[nt][0] + s[nt][1];
-      l[1] += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int nt = 0; nt < Dm::NT; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-
-    // O += P V.  The S accumulators of n-tiles 2c and 2c + 1 are exactly the
-    // A fragment of k-chunk c; V's B fragment pairs two keys per register.
-#pragma unroll
-    for (int c = 0; c < BN / 16; ++c) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * c][0], s[2 * c][1]), pack_bf16(s[2 * c][2], s[2 * c][3]),
-          pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]), pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < Dm::NT; ++nt) {
-        uint32_t bv[2];
-        load_b_cols(bv, Vs, Dm::LD, c * 16, nt * 8, gi, ti);
-        mma16816(o[nt], pa, bv);
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i];
-    lt += __shfl_xor_sync(FULL, lt, 1);
-    lt += __shfl_xor_sync(FULL, lt, 2);
-    inv[i] = lt > 0.f ? 1.f / lt : 0.f;  // no valid key -> zeros
-    const int row = i == 0 ? row_a : row_b;
-    if (lse != nullptr && ti == 0 && row < Sq)
-      lse[((long)b * Hq + h) * Sq + row] = lt > 0.f ? (m[i] + log2f(lt)) * LN2 : -INFINITY;
-  }
-#pragma unroll
-  for (int nt = 0; nt < Dm::NT; ++nt) {
-    const int col = nt * 8 + ti * 2;
-    if (col >= D) continue;
-    if (row_a < Sq)
-      *reinterpret_cast<uint32_t*>(out + ((long)b * Sq + row_a) * qstride + (long)h * D + col) =
-          pack_bf16(o[nt][0] * inv[0], o[nt][1] * inv[0]);
-    if (row_b < Sq)
-      *reinterpret_cast<uint32_t*>(out + ((long)b * Sq + row_b) * qstride + (long)h * D + col) =
-          pack_bf16(o[nt][2] * inv[1], o[nt][3] * inv[1]);
-  }
-}
 
 template <int D, bool CAUSAL, bool MASK>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,

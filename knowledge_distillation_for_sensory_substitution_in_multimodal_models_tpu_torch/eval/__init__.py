@@ -1,4 +1,5 @@
-"""Evaluation layer: greedy autoregressive decoding."""
+"""Evaluation layer: greedy autoregressive decoding (``decode``), the
+reference's metrics (``metrics``) and the predictions summary (``results``)."""
 
 from .decode import GenerateConfig, Generator
 

@@ -81,7 +81,8 @@ class Generator:
     where batch carries the ``student_*`` keys of the collator (eval mode) as
     tensors on the model's device.  Returns a dict with "sequences"
     [B, S+N], "valid" [B, S+N], "lengths" (prompt + generated real tokens),
-    "prompt_lengths", "finished" [B] and "tokens" [B, N].
+    "prompt_lengths", "finished" [B], "tokens" [B, N] and "margins" [B, N]
+    (the top-2 gap of the processed logits at each step).
     """
 
     def __init__(self, model_cfg: LlavaOnevisionConfig, gen_cfg: GenerateConfig = GenerateConfig()):
@@ -167,15 +168,17 @@ class Generator:
                 lg = lg.masked_fill(ban, float("-inf"))
             if allowed is not None:
                 lg = lg.masked_fill(~allowed[None, :], float("-inf"))
+            top2 = lg.topk(2, dim=-1).values
             tok = lg.argmax(dim=-1)
-            return torch.where(finished, torch.full_like(tok, gc.eos_token_id), tok)
+            return torch.where(finished, torch.full_like(tok, gc.eos_token_id), tok), top2[:, 0] - top2[:, 1]
 
         cur_len = lengths.clone()
         k_pos = torch.arange(total, device=dev)[None, None, :]
-        toks = []
+        toks, margins = [], []
         for step in range(n):
-            tok = pick_token(next_logits)
+            tok, margin = pick_token(next_logits)
             toks.append(tok)
+            margins.append(margin)
             buf[rows, cur_len] = tok
             valid[rows, cur_len] |= ~finished
             presence[rows, tok] |= ~finished
@@ -204,4 +207,7 @@ class Generator:
             "prompt_lengths": lengths,
             "finished": finished,
             "tokens": torch.stack(toks, dim=1),  # [B, N] in generation order
+            # [B, N]: the best minus the second-best processed logit at each
+            # step, how close greedy decoding came to another token
+            "margins": torch.stack(margins, dim=1),
         }

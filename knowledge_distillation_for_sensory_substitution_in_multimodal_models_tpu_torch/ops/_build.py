@@ -11,8 +11,8 @@ nothing falls back.
 
 Nothing here runs at import: ``load_library`` is called by the first kernel
 launch.  The launchers below take tensors already checked by the op
-modules (``flash_attention``, ``fused_ce``, ``fused_loca``, ``fused_kl``,
-``int8``);
+modules (``flash_attention``, ``flash_phase_ablation``, ``fused_ce``,
+``fused_loca``, ``fused_kl``, ``int8``);
 pointers stay alive until the kernels end because the callers hold the
 tensors and the launches are ordered on the current stream with their
 later use.
@@ -104,6 +104,8 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         # q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
         "kdss_flash_fwd": [vp] * 6 + [ci] * 7 + [cf, vp],
+        # q, k, v, out, shift, B, S, Hq, Hkv, D, arm, scale, stream
+        "kdss_flash_phase_ablation": [vp] * 5 + [ci] * 6 + [cf, vp],
         # q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
         "kdss_flash_bwd": [vp] * 10 + [ci] * 7 + [cf, vp],
         # h, w, labels, lse_part, gold_part, lse, gold, N, V, DM, nsplit, stream
@@ -172,6 +174,16 @@ def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None
     _launch("kdss_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_mask_u8), out.data_ptr(), _ptr(lse),
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
+
+
+def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
+    """K13: phase-ablation arm ``arm`` (an index into
+    ``flash_phase_ablation.ARMS``) of the causal flash forward, Sq == Skv, no
+    mask; ``shift`` f32 [1] on the card (the streaming_smem arm's c) or None."""
+    b, s, hq, d = q.shape
+    _aligned(q, k, v, out)
+    _launch("kdss_flash_phase_ablation", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), _ptr(shift), b, s, hq, k.shape[2], d, int(arm), float(scale))
 
 
 def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,

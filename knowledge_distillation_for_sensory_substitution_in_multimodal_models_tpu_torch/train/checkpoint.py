@@ -7,7 +7,9 @@ the JAX package's ``train/checkpoint.py``, which saves with Orbax).
 * ``save_top_k=1``: the older checkpoint is removed on improvement;
 * ``preempt-step=N.ckpt`` is an unconditional snapshot outside that policy;
 * a params-only restore starts a later double-trouble phase from the
-  previous phase's best checkpoint.
+  previous phase's best checkpoint (``restore_params``), or loads the
+  weights into a bare model for serving and evaluation
+  (``restore_model``).
 
 Each checkpoint is one ``torch.save`` file of {params (the student's
 state_dict), opt_state, step}.  The three name helpers are copies of the
@@ -83,6 +85,15 @@ class CheckpointManager:
 
     def restore(self, path: str, map_location=None) -> Any:
         return torch.load(os.path.abspath(path), map_location=map_location, weights_only=True)
+
+    def restore_model(self, path: str, model: torch.nn.Module, map_location=None) -> torch.nn.Module:
+        """Params-only restore into a bare model (the evaluator's and the
+        inference CLI's ``--student_ckpt_path``; the JAX CLIs'
+        ``restore(..., partial=True)``): the checkpoint's weights into
+        ``model``, cast to its dtype; the optimizer state is not read.
+        Returns ``model``."""
+        model.load_state_dict(self.restore(path, map_location)["params"])
+        return model
 
     def restore_params(self, path: str, state, map_location=None):
         """Params-only restore (the JAX ``restore(..., partial=True)``), for

@@ -1,7 +1,8 @@
 """The port's greedy ``Generator`` against the JAX package's ``Generator`` on
 the same converted params and synthetic batch (tiny config, float32, CPU).
 
-Tokens, lengths and finished flags must be identical; prefill logits agree
+Tokens, lengths and finished flags must be identical (the port adds each
+step's top-2 margin); prefill logits agree
 to atol 1e-4.  S = 128, so the port's "flash" arm takes the flash prefill
 branch (through the plain flash version on the CPU) — the branch the card
 takes.  Repetition penalty and the n=2 ban are on."""
@@ -101,9 +102,11 @@ def test_generator_matches_jax(setup, jax_runs, attn_impl, which):
     gcfg = decode.GenerateConfig(max_new_tokens=N_NEW, repetition_penalty=1.2,
                                  no_repeat_ngram_size=2, eos_token_id=eos)
     got = decode.Generator(PCFG, gcfg).generate(_port(sd, attn_impl), tb)
-    assert set(got) == set(OUT_KEYS)
+    # the JAX outputs, and the port's top-2 margin of each step's processed logits
+    assert set(got) == set(OUT_KEYS) | {"margins"}
     for k in OUT_KEYS:
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    assert got["margins"].shape == got["tokens"].shape and bool((got["margins"] >= 0).all())
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "flash"])

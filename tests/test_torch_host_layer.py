@@ -6,12 +6,16 @@ port's freedom from the JAX package.
   trees file by file; the DAQUAR reader's rows bit for bit; the collator's
   batch array by array; ``synthetic_kd_batch``;
   ``digits_to_words``; the HF key mapping on a tiny HF state dict.
-* No ``.py`` of the port, nor ``chip_smoke.py``, imports the JAX package,
-  ``kdss``, jax, flax, optax or orbax (an ``ast`` guard), and a fresh
-  process that imports every port module has none of them loaded."""
+* The copied evaluation modules (``eval/metrics.py``, ``eval/results.py``)
+  are the originals but for their docstrings (``ast``), and score the same.
+* No ``.py`` of the port, nor ``chip_smoke.py`` or the port's scripts
+  (``scripts/*torch*.py``), imports the JAX package, ``kdss``, jax, flax,
+  optax or orbax (an ``ast`` guard), and a fresh process that imports every
+  port module and those scripts has none of them loaded."""
 
 import ast
 import dataclasses
+import glob
 import os
 import pkgutil
 import subprocess
@@ -231,12 +235,61 @@ def test_hf_key_mapping_equals_the_original():
         convert_hf_state_dict({**sd, "extra.weight": np.zeros(1)}, cfg)
 
 
+PORT_SCRIPTS = sorted(glob.glob(os.path.join(REPO, "scripts", "*torch*.py")))
+
+
+def _strip_docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant) and \
+                isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["metrics", "results"])
+def test_eval_copies_are_the_originals_but_for_docstrings(module):
+    paths = [os.path.join(REPO, pkg, "eval", f"{module}.py") for pkg in (jcfg.__name__.rsplit(".", 1)[0], PKG)]
+    got, want = (_strip_docstrings(ast.parse(open(p).read())) for p in paths)
+    assert got == want
+
+
+def test_eval_metrics_score_as_the_originals(tmp_path):
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu.eval import (
+        metrics as jm,
+        results as jr,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval import (
+        metrics as pm,
+        results as pr,
+    )
+
+    import pandas as pd
+
+    preds = ["chairs", "a table", "two", "yes", "red lamp", "", "boxes", "beds"]
+    refs = ["chair", "table", "2", "no", "red", "sofa", "box", "bed"]
+    df = pd.DataFrame({"Question_Id": range(8), "Questions": ["q"] * 8,
+                       "Question_Type": ["Object", "Object", "Count", "Yes/No", "Color", "Object", "Object",
+                                         "Object"], "Answers": refs, "Model_Answer": preds})
+    for mod in (jm, pm):
+        mod.force_backend("hashed")
+    for fn in ("simple_accuracy_metric", "neural_similarity_metric", "compute_bert_stats"):
+        assert getattr(pm, fn)(preds, refs) == getattr(jm, fn)(preds, refs), fn
+    assert pm.per_category_metrics(df) == jm.per_category_metrics(df)
+    assert pm.summarize_predictions(df) == jm.summarize_predictions(df)
+    df.to_csv(tmp_path / "p.csv", index=False)
+    assert pr.summarize_file(str(tmp_path / "p.csv")) == jr.summarize_file(str(tmp_path / "p.csv"))
+    for mod in (jm, pm):
+        mod.force_backend("auto")
+
+
 def _port_sources():
     for d, _, files in os.walk(PORT_DIR):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield from PORT_SCRIPTS
 
 
 def _forbidden(name) -> bool:
@@ -266,11 +319,17 @@ def test_importing_every_port_module_loads_no_jax():
     """A fresh process (this one has jax loaded by tests/conftest.py)."""
     modules = sorted(m.name for m in pkgutil.walk_packages([PORT_DIR], PKG + "."))
     assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.ops.int8", f"{PKG}.cli.train_online_kd",
-            f"{PKG}.losses.chunked", f"{PKG}.data.dataset", f"{PKG}.cli.train"} <= set(modules)
+            f"{PKG}.losses.chunked", f"{PKG}.data.dataset", f"{PKG}.cli.train", f"{PKG}.ops.flash_phase_ablation",
+            f"{PKG}.eval.metrics", f"{PKG}.eval.results", f"{PKG}.cli.evaluate_onevision",
+            f"{PKG}.cli.get_all_results"} <= set(modules)
+    assert os.path.join(REPO, "scripts", "torch_flash_phase_ablation.py") in PORT_SCRIPTS
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({PORT_SCRIPTS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'port_script_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -1,5 +1,6 @@
-"""The port's inference CLI on the CPU (bf16 and int8 serving), its refusals,
-and its freedom from jax."""
+"""The port's inference CLI on the CPU (bf16 and int8 serving, a checkpoint
+of the port's train CLI), its refusal of a missing checkpoint, and its
+freedom from jax."""
 
 import os
 import subprocess
@@ -46,12 +47,34 @@ def test_inference_cli_int8_prints_one_row(tmp_path, capsys, monkeypatch, quant)
     assert isinstance(lm.embed_tokens, torch.nn.Embedding)  # the tied head stays float
 
 
-@pytest.mark.parametrize("flags,match", [
-    pytest.param(["--student_ckpt_path", "x/ckpt"], "checkpoint", id="flags1-checkpoint"),
-])
-def test_inference_cli_refuses_unported_options(flags, match):
-    with pytest.raises(SystemExit, match=match):
-        inference.main(["--synthetic_data", "--cpu", *flags])
+def test_inference_cli_restores_a_port_checkpoint(tmp_path, capsys, monkeypatch):
+    """``--student_ckpt_path`` with a checkpoint that the port's train CLI
+    wrote: the served model's weights are the checkpoint's."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import train
+
+    train.main(["--synthetic_data", "--cpu", "--accumulate_grad_batches", "1", "--num_workers", "1",
+                "--root_data_dir", str(tmp_path / "d"), "--checkpoint_dir", str(tmp_path / "ck"),
+                "--tensorboard_dir", str(tmp_path / "tb")])
+    (ckpt,) = [os.path.join(r, f) for r, _, fs in os.walk(tmp_path / "ck") for f in fs if f.endswith(".ckpt")]
+    capsys.readouterr()
+    built = []
+    init = common.init_or_load_params
+    monkeypatch.setattr(common, "init_or_load_params", lambda *a, **kw: built.append(init(*a, **kw)) or built[-1])
+    inference.main(["--synthetic_data", "--cpu", "--max_new_tokens", "4", "--root_data_dir", str(tmp_path / "d"),
+                    "--seed", "3", "--student_ckpt_path", ckpt])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == f"loaded student params from {ckpt}" and len(lines) == 3
+    assert "what is the object number 0?" in lines[2]
+    saved = torch.load(ckpt, weights_only=True)["params"]
+    (model,) = built
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, saved[name].to(value.dtype)), name
+
+
+def test_inference_cli_refuses_a_missing_checkpoint(tmp_path):
+    with pytest.raises(SystemExit, match="no such checkpoint file"):
+        inference.main(["--synthetic_data", "--cpu", "--root_data_dir", str(tmp_path),
+                        "--student_ckpt_path", str(tmp_path / "x" / "none.ckpt")])
 
 
 def test_resolve_attn_impl():
