@@ -78,6 +78,17 @@ the exact arms against `full`, `full` bit-equal to K3, a negative control
 (nostorem held to full's plain version), per-arm registers, SASS
 instruction counts and times, and the JAX script's phase accounting.
 
+Phase 3 also checks that two launches of the flash backwards and of K10
+give bit-identical outputs, shows that K10's bounds fail a K10 fed scales
+of 1, and logs the flash backwards' time by kernel (K4's dq, dk/dv and
+reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
+port, e.g. the parent commit unpacked by `git archive` under build/), the
+script also builds DIR's kernels and, with DIR's K2/K4/K10 launchers in
+place of this checkout's, holds K2 bit-equal to DIR's output, logs K4's
+split and the three kernels' times in turns (parent, change, change,
+parent), and runs the [train], [kd] and [kd8] steps once more beside this
+checkout's.
+
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
 K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
 the temperature-KL K7 and K8 (with and without dW), the flash forward at
@@ -370,8 +381,68 @@ def _must_fail(name, fault, outs) -> None:
         raise AssertionError(f"the check of {name} cannot see {fault}: {fro}")
 
 
-def kernel_phase(dev) -> list:
-    """Each kernel against its plain version at the main paths' shapes."""
+def load_parent(root):
+    """The kernel launchers (``ops/_build.py``) of another checkout of the
+    port at ``root``, e.g. the parent commit unpacked by ``git archive``:
+    built from that checkout's ``csrc/`` into its own ``build/kernels/``, to
+    be timed against this checkout's kernels in the same process."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(root).resolve() / PKG / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    t0 = time.perf_counter()
+    parent.load_library()
+    log(f"[parent] built {parent.library_path().name} from {path.parent.parent} in {time.perf_counter() - t0:.1f} s")
+    return parent
+
+
+@contextlib.contextmanager
+def parent_kernels(parent):
+    """Route the flash backward (K2/K4) and K10 through the parent's
+    launchers: its K4 takes no workspace, its K10 the hidden states as they
+    are.  The wrappers, their checks and their counters stay this
+    checkout's."""
+    saved = _build.flash_bwd, _build.tmat_int8, fl.k10_hidden_layout
+    _build.flash_bwd = lambda *args, part=None: parent.flash_bwd(*args[:12])
+    _build.tmat_int8, fl.k10_hidden_layout = parent.tmat_int8, (lambda ht: ht.contiguous())
+    try:
+        yield
+    finally:
+        _build.flash_bwd, _build.tmat_int8, fl.k10_hidden_layout = saved
+
+
+def kernel_split(fn, iters: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches
+    (torch.profiler; kernels only, not annotation ranges)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        name = e.name.removeprefix("void ")
+        name = (name[:name.rfind("(")] if name.endswith(")") else name)[:60]  # without the argument list
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+def log_in_turns(label: str, parent_fn, change_fn, iters: int) -> None:
+    """Log the mean device ms of the parent's and this checkout's version
+    of one call, timed in turns: parent, change, change, parent."""
+    ms = [time_ms(fn, iters=iters) for fn in (parent_fn, change_fn, change_fn, parent_fn)]
+    log(f"[kernel] {label} parent / change / change / parent ms: " + " / ".join(f"{t:.4f}" for t in ms))
+
+
+def kernel_phase(dev, parent=None) -> list:
+    """Each kernel against its plain version at the main paths' shapes; with
+    ``parent``, K2, K4 and K10 also against the parent's kernels."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, std=1.0):
@@ -445,13 +516,41 @@ def kernel_phase(dev) -> list:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = _hold(c["name"], [(lbl, a, b, KERNEL_TOL) for lbl, a, b in zip(("dq", "dk", "dv"), got, want)])
+        again = kernel()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[kernel] {c['name']}: two launches bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{c['name']} is not deterministic")
         # a backward that drops delta from dS = P * (dP - delta)
         no_delta = c["entry"](q, k, v, dout, lse, torch.zeros_like(delta), mask=mask, causal=c["causal"])
         _must_fail(c["name"], "delta = 0", list(zip(no_delta[:2], want[:2])))
+        del again, no_delta
+        split = kernel_split(kernel)
+        log(f"[kernel] {c['name']} split (torch.profiler, ms a call): "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in split.items()))
+        if parent is not None:
+            with parent_kernels(parent):
+                theirs = kernel()
+                parent_split = kernel_split(kernel)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, theirs))
+            log(f"[kernel] {c['name']}: bit-equal to the parent's output: {same}; parent's max abs err "
+                + ", ".join(f"{lbl} {_errors(a, b)[0]:.3e}" for lbl, a, b in zip(("dq", "dk", "dv"), theirs, want)))
+            if c["name"] == "flash_bwd_mha" and not same:
+                raise AssertionError("K2 is no longer bit-equal to the parent's kernel")
+            log(f"[kernel] {c['name']} parent split (ms a call): "
+                + ", ".join(f"{n} {ms:.4f}" for n, ms in parent_split.items()))
+
+            def theirs_fn():
+                with parent_kernels(parent):
+                    return kernel()
+
+            log_in_turns(c["name"], theirs_fn, kernel, iters=10)
+            del theirs
         b, sq, hq, d = c["q"]
         pairs = attended_pairs(b, sq, c["kv"][1], c["causal"], mask)
         least = bound(10 * pairs * hq * d, nbytes(q, k, v, dout, lse, delta, *got, mask))
-        del got, want, no_delta
+        del got, want
         # the library yardstick: SDPA's autograd backward at the same shapes
         qt, kt, vt, kw = _sdpa_inputs(q, k, v, mask, c["causal"], requires_grad=True)
         out_t = F.scaled_dot_product_attention(qt, kt, vt, **kw)
@@ -503,7 +602,7 @@ def kernel_phase(dev) -> list:
     torch.cuda.empty_cache()
     results += loca_kernel_phase(dev, g)
     results += kl_kernel_phase(dev, g)
-    results += int8_kernel_phase(dev, g)
+    results += int8_kernel_phase(dev, g, parent)
     return results
 
 
@@ -866,7 +965,7 @@ INT8_CASES = [
 ]
 
 
-def int8_kernel_phase(dev, g) -> list:
+def int8_kernel_phase(dev, g, parent=None) -> list:
     """K12 in both activation forms and K10 against their plain versions at
     the int8 paths' shapes, with bounds, plain times and yardsticks (never
     called by the port): for K12 ``torch._int_mm`` on pre-quantized
@@ -923,14 +1022,16 @@ def int8_kernel_phase(dev, g) -> list:
         del x, wq, ws, w_bf16
     torch.cuda.empty_cache()
     results.append(_result("int8_mm", worst, first[0], first[1], first[2], first[3]))
-    results.append(tmat_kernel_phase(dev, g))
+    results.append(tmat_kernel_phase(dev, g, parent))
     return results
 
 
-def tmat_kernel_phase(dev, g) -> dict:
+def tmat_kernel_phase(dev, g, parent=None) -> dict:
     """K10 at the KD path's shape: the teacher's final-norm hidden states
     [3072, 3584] against the first 151936 rows of its int8 head [152128,
-    3584], f32 out at 1/T."""
+    3584], f32 out at 1/T; two launches bit-identical; a negative control
+    (scales of 1, a kernel that drops ws) must fail the bounds; with
+    ``parent``, the parent's K10 timed in turns."""
     tcfg, scfg = llava_onevision_7b(), llava_onevision_0_5b()
     n, d, vt, vocab = 3072, tcfg.text.hidden_size, tcfg.text.vocab_size, scfg.text.vocab_size
     inv_t = 1.0 / kd_loss_config_for("double_trouble").temperature
@@ -947,13 +1048,27 @@ def tmat_kernel_phase(dev, g) -> dict:
     torch.cuda.synchronize()
     want = plain()
     err = _hold("tmat_int8", [("tmat", got, want, KERNEL_TOL * max(1.0, want.abs().max().item()))])
-    del got, want
+    same = torch.equal(got, kernel())
+    log(f"[kernel] tmat_int8: two launches bit-identical: {same}")
+    if not same:
+        raise AssertionError("K10 is not deterministic")
+    del got
+    _must_fail("tmat_int8", "scales of 1 (ws dropped)",
+               [(fl.materialize_teacher_logits_int8(ht, wq, torch.ones_like(ws), inv_t, vocab), want)])
+    del want
+    if parent is not None:
+        def theirs():
+            with parent_kernels(parent):
+                return kernel()
+
+        log_in_turns("tmat_int8", theirs, kernel, iters=5)
     ms, plain_ms = time_ms(kernel, iters=5), time_ms(plain, iters=2, warmup=1)
     w_bf16 = (wq[:vocab].float() * ws[:vocab, None]).to(torch.bfloat16)
     library = time_ms(lambda: torch.mm(ht, w_bf16.T, out_dtype=torch.float32), iters=5)
     del w_bf16
     least = bound(2 * n * d * vocab, nbytes(ht, wq[:vocab], ws[:vocab]) + n * vocab * 4)
-    log(f"[kernel] tmat_int8 [{n} x {d}] x [{vocab} of {vt} x {d}]^T: {2 * n * d * vocab / ms / 1e9:.1f} TFLOP/s")
+    log(f"[kernel] tmat_int8 [{n} x {d}] x [{vocab} of {vt} x {d}]^T: {2 * n * d * vocab / ms / 1e9:.1f} TFLOP/s, "
+        f"{ms / library:.3f}x bf16 torch.mm on the dequantized head, {least[0] / ms:.1%} of its bound")
     del ht, wq, ws
     torch.cuda.empty_cache()
     return _result("tmat_int8", err, ms, plain_ms, least, library)
@@ -984,7 +1099,7 @@ def _cut(cfg, layers: int = 2):
         text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
 
 
-def training_phase(dev) -> dict:
+def training_phase(dev, tag: str = "train") -> dict:
     """8 baseline train steps of the 0.5B student, full width and depth."""
     cfg = llava_onevision_0_5b()
     t0 = time.perf_counter()
@@ -998,7 +1113,7 @@ def training_phase(dev) -> dict:
     step = make_train_step(KDModels(model), tcfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[train] model ({n_params / 1e6:.1f} M params, bf16; float32 masters) + batch set-up "
+    log(f"[{tag}] model ({n_params / 1e6:.1f} M params, bf16; float32 masters) + batch set-up "
         f"{time.perf_counter() - t0:.1f} s; A={ACCUM} x B=1, "
         f"{int(tb['student_attention_mask'][0].sum())} tokens in a {tb['student_input_ids'].shape[-1]} bucket")
 
@@ -1022,18 +1137,18 @@ def training_phase(dev) -> dict:
                 "flash_bwd_mha": cfg.vision.num_hidden_layers, "flash_bwd_gqa": cfg.text.num_hidden_layers,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
     want = {k: per_step.get(k, 0) * ACCUM * TRAIN_STEPS for k in COUNTERS}
-    log(f"[train] launches over {TRAIN_STEPS} steps: {launches} (expected {want})")
+    log(f"[{tag}] launches over {TRAIN_STEPS} steps: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
     timed = times[WARMUP_STEPS:]
     step_ms = sum(timed) / len(timed)
-    log(f"[train] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
-    log(f"[train] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of the {len(timed)} steps after "
+    log(f"[{tag}] loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"[{tag}] step ms: {', '.join(f'{x:.1f}' for x in times)}; mean of the {len(timed)} steps after "
         f"{WARMUP_STEPS} warm-up steps {step_ms:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), "
         f"{ACCUM / (step_ms / 1e3):.3f} samples/s; peak memory "
         f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
     frac, mean_step = probe_moved
-    log(f"[train] float32 master of {MASTER_PROBE}, entries with 0.015 <= |w| <= 0.025: "
+    log(f"[{tag}] float32 master of {MASTER_PROBE}, entries with 0.015 <= |w| <= 0.025: "
         f"{frac:.4f} moved on step 1, mean |update| {mean_step:.3e} (lr {LR})")
     if not (frac >= 0.9 and 0.5 * LR <= mean_step <= 1.5 * LR):
         raise AssertionError(f"an update of ~lr did not reach the float32 master: {probe_moved}")
@@ -1212,9 +1327,9 @@ def _kd_per_micro(**loss_kernels) -> dict:
             "flash_bwd_mha": v, "flash_bwd_gqa": t, **loss_kernels}
 
 
-def kd_training_phase(dev, teacher) -> dict:
+def kd_training_phase(dev, teacher, tag: str = "kd") -> dict:
     """6 double-trouble phase-3 steps: K11 for LoCa + CE."""
-    return kd_path(dev, teacher, "kd", "double_trouble", 3, KD_STEPS,
+    return kd_path(dev, teacher, tag, "double_trouble", 3, KD_STEPS,
                    _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1))
 
 
@@ -1880,14 +1995,28 @@ def kd8_phase(dev, teacher) -> dict:
     log(f"[kd8] teacher quantized in place in {quant_s:.1f} s: weights {bf16_bytes / 1e9:.2f} GB bf16 -> "
         f"{int8_bytes / 1e9:.2f} GB; teacher forward + logits per micro-batch {bf16_ms:.1f} ms bf16 -> "
         f"{int8_ms:.1f} ms int8 (CUDA events)")
-    n_proj = 7 * tcfg.text.num_hidden_layers + 6 * tcfg.vision.num_hidden_layers
-    r = kd_path(dev, teacher, "kd8", "double_trouble", 3, KD_STEPS,
-                _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1, int8_mm=n_proj, tmat_int8=1))
+    r = kd8_steps(dev, teacher)
     r.update(teacher_ms=int8_ms, teacher_ms_bf16=bf16_ms)
     return r
 
 
+def kd8_steps(dev, teacher, tag: str = "kd8") -> dict:
+    """6 phase-3 steps against the teacher quantized by :func:`kd8_phase`."""
+    tcfg = llava_onevision_7b()
+    n_proj = 7 * tcfg.text.num_hidden_layers + 6 * tcfg.vision.num_hidden_layers
+    return kd_path(dev, teacher, tag, "double_trouble", 3, KD_STEPS,
+                   _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1, int8_mm=n_proj, tmat_int8=1))
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
+                         "time K2, K4 and K10 and the [train], [kd] and [kd8] steps with its kernels beside "
+                         "this checkout's, and hold K2 bit-equal to its output")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
     card = subprocess.run(
@@ -1916,17 +2045,28 @@ def main() -> int:
             elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 log(f"[build] {entry}: {line.strip()}")
 
-    kernels = kernel_phase(dev) + k13_phase(dev)
+    parent = None if args.parent is None else load_parent(args.parent)
+    kernels = kernel_phase(dev, parent) + k13_phase(dev)
     train = training_phase(dev)
+    steps_parent = {}
+    if parent is not None:
+        with parent_kernels(parent):
+            steps_parent["train"] = training_phase(dev, tag="train-parent")
     agreement_phase(dev)
     serve = main_path_phase(dev)
     serve8 = main8_phase(dev)
     teacher = _build_teacher(dev)
     kd = kd_training_phase(dev, teacher)
+    if parent is not None:
+        with parent_kernels(parent):
+            steps_parent["kd"] = kd_training_phase(dev, teacher, tag="kd-parent")
     kdf = kd_faithful_phase(dev, teacher)
     kd1 = kd_phase1_phase(dev, teacher)
     kdfb = feature_based_phase(dev, teacher)
     kd8 = kd8_phase(dev, teacher)
+    if parent is not None:
+        with parent_kernels(parent):
+            steps_parent["kd8"] = kd8_steps(dev, teacher, tag="kd8-parent")
     del teacher
     torch.cuda.empty_cache()
     kd_agreement_phase(dev)
@@ -1947,6 +2087,11 @@ def main() -> int:
                     ("feature_based", kdfb), ("KD phase 3, int8 teacher", kd8)):
         log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
+    for name, r in (("train", train), ("kd", kd), ("kd8", kd8)):
+        if name in steps_parent:
+            log(f"[summary] {card}: [{name}] step {r['step_ms']:.1f} ms, with the parent's K2/K4/K10 "
+                f"{steps_parent[name]['step_ms']:.1f} ms (same call); last loss {r['losses'][-1]:.6f} vs "
+                f"{steps_parent[name]['losses'][-1]:.6f}")
     log(f"[summary] {card}: evaluator {evals['rows_s8']:.3f} rows/s at B={EVAL_BS} (host "
         f"{evals['host8']:.2f} s, generate {evals['gen8']:.2f} s), {evals['rows_s1']:.3f} rows/s at B=1, "
         f"peak {evals['peak'] / 2**30:.2f} GiB")

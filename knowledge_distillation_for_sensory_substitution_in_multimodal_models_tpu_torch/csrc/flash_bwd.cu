@@ -9,8 +9,9 @@
 //   * K4, `_flash_gqa_vjp_bwd` (kernels `_gqa_dq_kernel`, `_gqa_dkv_kernel`):
 //     the GQA backward of every Qwen2 layer (d = 64, 14 q / 2 kv heads,
 //     causal, kv-padding mask).
-// Both compute one function at group size G = Hq / Hkv, so they share this
-// templated pair of kernels, as flash_fwd.cu does for the forwards.
+// Both compute one function at group size G = Hq / Hkv.  The C entry below
+// routes D = 72 (K2) to this file's templated pair of mma.sync kernels and
+// D = 64 (K4) to the wgmma/TMA kernels of flash_bwd_sm90.cu.
 //
 // Inputs: q/dout [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] bf16 contiguous,
 // kv_mask uint8 [B, Skv] or null, lse and delta f32 [B, Hq, Sq].  lse is
@@ -45,10 +46,8 @@
 //
 // What bounds it on the H100: the backward does 2.5x the forward's matrix
 // work (five products against two), so like the forward it is bound by
-// tensor-core issue from synchronous loads.  The GQA dk/dv grid is small at
-// the prefill shape (49 kv tiles x 2 kv heads = 98 blocks for 132 SMs), each
-// walking 7 heads x up to 48 q tiles; splitting the q loop across blocks
-// (with a reduction) or wgmma with a K/V ring are the later steps.
+// tensor-core issue from synchronous loads; wgmma with a TMA ring, as
+// flash_bwd_sm90.cu does at D = 64, is the next step for D = 72.
 
 #include "kdss_mma.cuh"
 
@@ -359,15 +358,21 @@ cudaError_t dispatch(const BwdArgs& a, int causal, cudaStream_t st) {
 
 }  // namespace
 
+cudaError_t kdss_flash_bwd_d64(const void* q, const void* k, const void* v, const void* kv_mask,
+                               const void* dout, const void* lse, const void* delta, void* dq, void* dk,
+                               void* dv, void* part, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                               float scale, cudaStream_t st);
+
 extern "C" {
 
 // dq [B, Sq, Hq, D], dk/dv [B, Skv, Hkv, D] bf16 are written in full (rows
-// of masked keys get zeros).  Returns a cudaError_t: 0 on success,
+// of masked keys get zeros).  `part` is D = 64's f32 workspace [2, Hq / Hkv,
+// B, Skv, Hkv, 64] (unused at D = 72).  Returns a cudaError_t: 0 on success,
 // cudaErrorInvalidValue for shapes the kernels do not take, else the first
 // failing launch's cudaGetLastError().
 int kdss_flash_bwd(const void* q, const void* k, const void* v, const void* kv_mask,
                    const void* dout, const void* lse, const void* delta, void* dq, void* dk,
-                   void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                   void* dv, void* part, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                    float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -375,7 +380,8 @@ int kdss_flash_bwd(const void* q, const void* k, const void* v, const void* kv_m
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return static_cast<int>(dispatch<64>(a, causal, st));
+      return static_cast<int>(kdss_flash_bwd_d64(q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, part, B, Sq,
+                                                 Skv, Hq, Hkv, causal, scale, st));
     case 72:
       return static_cast<int>(dispatch<72>(a, causal, st));
     default:

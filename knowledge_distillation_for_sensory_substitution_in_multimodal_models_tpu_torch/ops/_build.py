@@ -106,8 +106,9 @@ def load_library() -> ctypes.CDLL:
         "kdss_flash_fwd": [vp] * 6 + [ci] * 7 + [cf, vp],
         # q, k, v, out, shift, B, S, Hq, Hkv, D, arm, scale, stream
         "kdss_flash_phase_ablation": [vp] * 5 + [ci] * 6 + [cf, vp],
-        # q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
-        "kdss_flash_bwd": [vp] * 10 + [ci] * 7 + [cf, vp],
+        # q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, part, B, Sq, Skv, Hq, Hkv, D, causal,
+        # scale, stream
+        "kdss_flash_bwd": [vp] * 11 + [ci] * 7 + [cf, vp],
         # h, w, labels, lse_part, gold_part, lse, gold, N, V, DM, nsplit, stream
         "kdss_ce_fwd": [vp] * 7 + [ci] * 4 + [vp],
         # h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw, N, V, DM, nsplit, stream
@@ -133,8 +134,8 @@ def load_library() -> ctypes.CDLL:
         "kdss_int8_quantize": [vp] * 3 + [ci] * 4 + [vp],
         # xq, xs, wq, ws, out, N, K, M, k_block, out_f32, stream
         "kdss_int8_gemm": [vp] * 5 + [ci] * 5 + [vp],
-        # h, wq, ws, out, N, V, D, inv_t, stream
-        "kdss_tmat_int8": [vp] * 4 + [ci] * 3 + [cf, vp],
+        # hp, wq, ws, out, N, V, D, Dp, inv_t, stream
+        "kdss_tmat_int8": [vp] * 4 + [ci] * 4 + [cf, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -187,14 +188,16 @@ def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
 
 
 def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
-              scale: float) -> None:
-    """Flash backward (K2/K4): dq, dk, dv from the saved lse and delta."""
+              scale: float, part=None) -> None:
+    """Flash backward (K2/K4): dq, dk, dv from the saved lse and delta;
+    ``part`` the f32 workspace at D = 64
+    (``flash_attention.bwd_workspace_shape``), None at D = 72."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _aligned(q, k, v, dout, dq, dk, dv)
+    _aligned(q, k, v, dout, dq, dk, dv, part)
     _launch("kdss_flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_mask_u8), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(part),
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
@@ -294,10 +297,11 @@ def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
             out.data_ptr(), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
 
 
-def tmat_int8(h, wq, ws, out, inv_t: float) -> None:
-    """K10: the f32 teacher logits out [N, V] at 1/T from bf16 h [N, D] and the
-    first V rows of the vocab-major int8 head wq with their scales ws."""
-    n, d = h.shape
-    _aligned(h, wq, out)
-    _launch("kdss_tmat_int8", h.device, h.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            n, out.shape[1], d, float(inv_t))
+def tmat_int8(hp, wq, ws, out, inv_t: float) -> None:
+    """K10: the f32 teacher logits out [N, V] at 1/T from the hidden states in
+    K10's layout hp [N, Dp] (``fused_loca.k10_hidden_layout``) and the first V
+    rows of the vocab-major int8 head wq [V, D] with their scales ws."""
+    n, dp = hp.shape
+    _aligned(hp, wq, out)
+    _launch("kdss_tmat_int8", hp.device, hp.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            n, out.shape[1], wq.shape[1], dp, float(inv_t))

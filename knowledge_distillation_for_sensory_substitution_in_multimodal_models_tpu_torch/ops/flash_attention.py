@@ -18,9 +18,12 @@ CUDA tensor the wrapper launches the kernel or raises; nothing falls back.
 
 Gradients: when autograd needs them, the CUDA forward also writes the row
 logsumexp (lse) and a ``torch.autograd.Function`` runs the backward kernel
-(``csrc/flash_bwd.cu``) through :func:`flash_attention_bwd` (MHA, the JAX
-``_flash_vjp_bwd``) or :func:`flash_attention_gqa_bwd` (grouped-query, the
-JAX ``_flash_gqa_vjp_bwd``).  Their plain version is
+(``csrc/flash_bwd.cu``: its mma.sync pair at D = 72, the wgmma kernels of
+``csrc/flash_bwd_sm90.cu`` at D = 64, which take an f32 workspace of
+per-head dk/dv partials, :func:`bwd_workspace_shape`) through
+:func:`flash_attention_bwd` (MHA, the JAX ``_flash_vjp_bwd``) or
+:func:`flash_attention_gqa_bwd` (grouped-query, the JAX
+``_flash_gqa_vjp_bwd``).  Their plain version is
 :func:`flash_attention_bwd_ref`, which recomputes P from the same lse.  On
 the CPU, gradients flow through :func:`flash_attention_ref` under autograd.
 
@@ -53,6 +56,19 @@ import torch
 # only (the teacher is frozen).
 KERNEL_HEAD_DIMS = (64, 72, 128)
 BWD_HEAD_DIMS = (64, 72)
+# The head dim whose backward runs the wgmma kernels (csrc/flash_bwd_sm90.cu).
+WGMMA_BWD_HEAD_DIM = 64
+
+
+def bwd_workspace_shape(q_shape, k_shape):
+    """The f32 workspace of the backward kernels: per-head dk and dv partials
+    [2, G, B, Skv, Hkv, D] at D = 64, which the kernel sums over the G query
+    heads of each kv head in a fixed order; None at other head dims."""
+    b, _, hq, d = q_shape
+    skv, hkv = k_shape[1], k_shape[2]
+    if d != WGMMA_BWD_HEAD_DIM:
+        return None
+    return (2, hq // hkv, b, skv, hkv, d)
 
 
 def _kv_mask(mask: Optional[torch.Tensor], b: int, skv: int) -> Optional[torch.Tensor]:
@@ -261,8 +277,10 @@ def _bwd_dispatch(q, k, v, dout, lse, delta, mask, causal, scale, counter_owner)
     from ._build import flash_bwd
 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws_shape = bwd_workspace_shape(q.shape, k.shape)
+    part = None if ws_shape is None else torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     flash_bwd(q, k, v, mask_u8, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv,
-              causal, scale)
+              causal, scale, part)
     _count(counter_owner, q.shape[3])
     return dq, dk, dv
 

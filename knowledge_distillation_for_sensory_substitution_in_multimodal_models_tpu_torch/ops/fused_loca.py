@@ -280,33 +280,56 @@ def materialize_teacher_logits_int8_ref(ht, wq, ws, inv_t: float, vocab: int):
     return t.mul_(ws[:vocab]).mul_(inv_t)
 
 
+# K10's k order inside each 64-column block: logical k 16 c + l reads
+# physical column 16 ti + 4 c + m, where ti = (l % 8) // 2 and
+# m = l % 2 + 2 (l // 8) (csrc/tmat_int8.cu: a thread's 16 contiguous head
+# bytes of a k step are its register A fragments of the step's four k16
+# products).
+K10_BLOCK = 64
+K10_PERM = tuple(16 * ((l % 8) // 2) + 4 * c + l % 2 + 2 * (l // 8) for c in range(4) for l in range(16))
+
+
+def k10_hidden_layout(ht):
+    """The hidden states as K10 reads them: bf16 [N, Dp], the columns
+    zero-padded to Dp (a multiple of 64) and permuted inside each 64-column
+    block by ``K10_PERM``, so that the kernel's k order meets the head's
+    bytes in their stored order.  A fresh contiguous tensor, whatever the
+    strides or offset of ``ht``."""
+    n, d = ht.shape
+    dp = -(-d // K10_BLOCK) * K10_BLOCK
+    if dp != d:
+        ht = torch.nn.functional.pad(ht, (0, dp - d))
+    perm = torch.tensor(K10_PERM, device=ht.device)
+    return ht.reshape(n, dp // K10_BLOCK, K10_BLOCK).index_select(2, perm).reshape(n, dp)
+
+
 def materialize_teacher_logits_int8(ht, wq, ws, inv_t: float, vocab: int):
     """The teacher's logits at 1/T, truncated to the student's ``vocab``,
     from its final-norm hidden states ``ht`` [N, Dt] and its vocab-major int8
     head ``wq`` [Vt, Dt] with per-row scales ``ws`` [Vt]: f32 [N, vocab],
     the ``tmat`` of :func:`fused_loca_ce_loss` and ``fused_kl_loss``.  K10 on
-    CUDA (reading the head's first ``vocab`` rows in place), the plain
-    version on the CPU."""
+    CUDA (reading the head's first ``vocab`` rows in place, ``ht`` through
+    :func:`k10_hidden_layout`), the plain version on the CPU."""
     if not 0 < vocab <= wq.shape[0]:
         raise ValueError(f"vocab {vocab} must be in (0, {wq.shape[0]}]")
     if ht.device.type == "cpu":
         return materialize_teacher_logits_int8_ref(ht, wq, ws, inv_t, vocab)
     n, d = ht.shape
-    if ht.dtype != torch.bfloat16 or not ht.is_contiguous():
-        raise ValueError(f"ht must be contiguous bfloat16 [N, D], got {ht.dtype}")
+    if ht.dtype != torch.bfloat16:
+        raise ValueError(f"ht must be bfloat16 [N, D], got {ht.dtype}")
     if wq.dtype != torch.int8 or wq.shape[1:] != (d,) or not wq.is_contiguous():
         raise ValueError(f"wq must be contiguous int8 [Vt, {d}], got {wq.dtype} {tuple(wq.shape)}")
     if ws.dtype != torch.float32 or ws.shape != wq.shape[:1] or not ws.is_contiguous():
         raise ValueError(f"ws must be contiguous float32 [{wq.shape[0]}]")
-    if d % 16 or vocab % 2:
-        raise ValueError(f"K10 takes D a multiple of 16 and an even vocab, got D={d}, vocab={vocab}")
+    if d % 16:
+        raise ValueError(f"K10 takes D a multiple of 16, got D={d}")
     for t in (wq, ws):
         if t.device != ht.device:
             raise ValueError(f"operands on {t.device} and {ht.device}")
     from ._build import tmat_int8 as launch
 
     out = torch.empty(n, vocab, dtype=torch.float32, device=ht.device)
-    launch(ht, wq[:vocab], ws[:vocab], out, inv_t)
+    launch(k10_hidden_layout(ht), wq[:vocab], ws[:vocab], out, inv_t)
     materialize_teacher_logits_int8.launches += 1
     return out
 

@@ -74,7 +74,8 @@ ACCUM = 2
 GROUPS = (
     ("flash forward D=128 (teacher K3)", ("flash_fwd_kernel<128",)),
     ("flash forward D=64/72 (K1, K3)", ("flash_fwd_kernel",)),
-    ("flash backward (K2, K4)", ("flash_bwd",)),
+    # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
+    ("flash backward (K2, K4)", ("flash_bwd", "kdss_bwd90")),
     # the shared backward kernels are named by their loss's Rows policy
     ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows")),
     ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),

@@ -149,3 +149,41 @@ def test_neutralize_dead_rows():
     assert lse2[0, 0, 1] > 1e38 and delta2[0, 0, 1] == 0
     assert torch.equal(lse2[..., [0, 2]], lse[..., [0, 2]])
     assert torch.equal(delta2[..., [0, 2]], delta[..., [0, 2]])
+
+
+@pytest.mark.parametrize("q_shape,k_shape,want", [
+    ((1, 3072, 14, 64), (1, 3072, 2, 64), (2, 7, 1, 3072, 2, 64)),  # the Qwen2 training shape
+    ((2, 65, 2, 64), (2, 65, 2, 64), (2, 1, 2, 65, 2, 64)),          # MHA at D = 64: one head a group
+    ((10, 729, 16, 72), (10, 729, 16, 72), None),                    # SigLIP's D = 72: the mma.sync pair
+], ids=["gqa_d64", "mha_d64", "d72"])
+def test_bwd_workspace_shape_routes_by_head_dim(q_shape, k_shape, want):
+    assert fa.bwd_workspace_shape(q_shape, k_shape) == want
+
+
+def test_per_head_partials_summed_in_order_match_jax(jax_results):
+    """The D = 64 kernels' decomposition: each query head h writes its own
+    dk/dv partial at part[:, h % G, b, :, h // G], and the kernel sums the G
+    partials of a kv head in the order g = 0, 1, ...  Built here from the
+    plain backward one query head at a time, in the workspace's layout, the
+    sums are the JAX kernels' GQA dk and dv."""
+    b, s, hq, hkv, d, causal, n_valid = CASES["gqa_d64_causal_mask"]
+    q, k, v, dout = map(torch.from_numpy, _inputs(b, s, hq, hkv, d))
+    mask = torch.from_numpy(_mask(b, s, n_valid))
+    out, lse = fa.flash_attention_ref(q, k, v, mask, causal, return_lse=True)
+    lse, delta = fa.neutralize_dead_rows(lse, fa.attention_delta(out, dout))
+    group = hq // hkv
+    part = torch.zeros(fa.bwd_workspace_shape(q.shape, k.shape))
+    for h in range(hq):
+        hk = h // group
+        _, dk_h, dv_h = fa.flash_attention_bwd_ref(
+            q[:, :, h:h + 1], k[:, :, hk:hk + 1], v[:, :, hk:hk + 1], mask, causal, d**-0.5,
+            lse[:, h:h + 1], delta[:, h:h + 1], dout[:, :, h:h + 1])
+        part[0, h % group, :, :, hk] = dk_h[:, :, 0]
+        part[1, h % group, :, :, hk] = dv_h[:, :, 0]
+    dk, dv = part[0, 0].clone(), part[1, 0].clone()
+    for g in range(1, group):
+        dk += part[0, g]
+        dv += part[1, g]
+    _, want = jax_results["gqa_d64_causal_mask"]
+    np.testing.assert_allclose(dk.numpy(), want[1], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dv.numpy(), want[2], atol=ATOL, rtol=0)

@@ -80,6 +80,8 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import int8
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops.fused_loca import (
+    K10_PERM,
+    k10_hidden_layout,
     materialize_teacher_logits_int8,
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import (
@@ -294,6 +296,60 @@ def test_plain_k10_keeps_a_ragged_row_count():
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :vocab], rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="vocab"):
         materialize_teacher_logits_int8(torch.from_numpy(ht), _t(wq_vd), _t(ws), inv_t, 1025)
+
+
+def _k10_register_a(wq_vd):
+    """The int8 head [V, D] as K10's wgmma products see it, zero-padded to
+    whole 64-column k steps: the kernel's thread (gi, ti) reads the 16 bytes
+    at 16 ti of its row in each k step and gives bytes 4c, 4c+1 to k16
+    product c as its A columns 2ti, 2ti+1 and bytes 4c+2, 4c+3 as columns
+    2ti+8, 2ti+9 (wgmma's register-A layout, csrc/kdss_sm90.cuh)."""
+    v, d = wq_vd.shape
+    dp = -(-d // 64) * 64
+    stored = np.zeros((v, dp), np.float64)
+    stored[:, :d] = wq_vd
+    seen = np.zeros_like(stored)
+    for b in range(dp // 64):
+        for c in range(4):
+            for ti in range(4):
+                for m, col in enumerate((2 * ti, 2 * ti + 1, 2 * ti + 8, 2 * ti + 9)):
+                    seen[:, 64 * b + 16 * c + col] = stored[:, 64 * b + 16 * ti + 4 * c + m]
+    return seen
+
+
+def test_k10_perm_is_a_permutation_of_a_k_step():
+    assert sorted(K10_PERM) == list(range(64))
+
+
+@pytest.mark.parametrize("d", [128, 96], ids=["whole_steps", "padded"])
+def test_k10_layout_meets_the_kernels_fragments(d):
+    """K10's dot, the permuted hidden states against the head as the
+    kernel's register fragments hold it, then the scale and 1/T, is the JAX
+    ``_materialize_t`` with the int8 head: at a D of whole 64-column steps
+    and at one that the layout zero-pads."""
+    rng = np.random.default_rng(d)
+    ht = rng.standard_normal((37, d)).astype(np.float32)
+    _, wq, ws = _weights(rng, d, 200)
+    wq_vd, ws = np.ascontiguousarray(np.asarray(wq).T), np.asarray(ws, np.float32).reshape(-1)
+    hp = k10_hidden_layout(torch.from_numpy(ht))
+    assert hp.shape == (37, -(-d // 64) * 64) and hp.is_contiguous()
+    dot = (hp.double() @ torch.from_numpy(_k10_register_a(wq_vd)).T).float()
+    got = dot * torch.from_numpy(ws) * 1.25
+    want = _materialize_t(jnp.asarray(ht), (jnp.asarray(wq_vd), jnp.asarray(ws).reshape(1, -1)), 1.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # the identity order would not do: K10_PERM is what makes the dot right
+    wrong = (torch.nn.functional.pad(torch.from_numpy(ht), (0, hp.shape[1] - d)).double()
+             @ torch.from_numpy(_k10_register_a(wq_vd)).T).float() * torch.from_numpy(ws) * 1.25
+    assert not np.allclose(wrong.numpy(), np.asarray(want), rtol=1e-3, atol=1e-3)
+
+
+def test_k10_layout_copies_a_strided_or_offset_view():
+    base = torch.arange(7 * 300, dtype=torch.float32).reshape(7, 300).to(torch.bfloat16)
+    view = base[1:, 3:131]  # an offset, non-contiguous view
+    got = k10_hidden_layout(view)
+    assert got.is_contiguous() and got.data_ptr() != base.data_ptr()
+    assert torch.equal(got, k10_hidden_layout(view.contiguous()))
+    assert torch.equal(got.float().sort(dim=1).values, view.float().sort(dim=1).values)  # a permutation
 
 
 MODEL_CASES = [

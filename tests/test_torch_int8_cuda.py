@@ -2,9 +2,12 @@
 the w8a8 GEMM (K12, ``csrc/int8_mm.cu``) in the XLA form and in its K-block
 form, at ragged K, M and N, at N = 1 (a decode step) and at a K that the
 K block does not divide; the int8-head teacher logits (K10,
-``csrc/tmat_int8.cu``) over one and several vocab tiles and a ragged row
-count; ``QLinear`` on the card; and that the wrappers refuse what the
-kernels do not take.  Needs a CUDA device; skips without one.
+``csrc/tmat_int8.cu``) over one and several vocab tiles, an odd vocab that
+ends in a partial tile, one row, a row count one past whole tiles, a D the
+64-column k step does not divide, and hidden states given as an offset
+strided view, with two launches bit-identical; ``QLinear`` on the card; and
+that the wrappers refuse what the kernels do not take.  Needs a CUDA
+device; skips without one.
 
 Run on the card (the tests' conftest imports jax, which the card's machine
 may lack):
@@ -15,7 +18,8 @@ Tolerances, as in ``chip_smoke.py``: max abs error <= 2e-2 x max(1, max
 the same integer sums and the same f32 epilogue, so they differ at most by
 an output rounding; K10 and its plain version differ by f32 summation order.
 The tests show that these bounds fail K12 fed weight scales of 1 in half
-the columns, and K12 that scales every row by the first row's amax."""
+the columns, K12 that scales every row by the first row's amax, and K10 fed
+scales of 1 (a kernel that drops ws)."""
 
 import pytest
 import torch
@@ -132,8 +136,11 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("n,vt,vocab,d", [
     (200, 136, 128, 256),      # one vocab tile, ragged rows
     (257, 1040, 1000, 3584),   # several vocab tiles, a ragged last one, the teacher's width
-    (3, 640, 640, 96),         # a few rows, D not a multiple of the 32-column step
-], ids=["one_tile", "several_tiles", "few_rows"])
+    (3, 640, 640, 96),         # a few rows, D not a multiple of the 64-column k step (zero-padded)
+    (64, 300, 133, 256),       # an odd vocab ending in a partial 128-row wgmma tile
+    (1, 640, 640, 256),        # one row
+    (513, 260, 256, 512),      # two 256-row tiles plus one row
+], ids=["one_tile", "several_tiles", "few_rows", "partial_vocab_tile", "one_row", "row_tiles_plus_one"])
 def test_k10_matches_plain(dev, n, vt, vocab, d):
     g = torch.Generator(device=dev).manual_seed(n)
     ht = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
@@ -145,3 +152,36 @@ def test_k10_matches_plain(dev, n, vt, vocab, d):
     assert got.shape == (n, vocab) and got.dtype == torch.float32
     ok, errs = _close(got, fl.materialize_teacher_logits_int8_ref(ht, wq, ws, 1.25, vocab))
     assert ok, errs
+
+
+def _k10_case(dev, n=300, vt=700, d=512, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ht = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    wq, ws = int8.absmax_quantize_weight(torch.randn(vt, d, generator=g, device=dev) * 0.05)
+    return ht, wq, ws
+
+
+def test_k10_takes_an_offset_view_of_the_hidden_states(dev):
+    """ht as a strided view at an offset (not 16-byte aligned): the wrapper
+    copies it into K10's layout (ops/fused_loca.py::k10_hidden_layout)."""
+    ht, wq, ws = _k10_case(dev)
+    buf = torch.zeros(ht.shape[0] + 1, ht.shape[1] + 3, dtype=torch.bfloat16, device=dev)
+    buf[1:, 3:] = ht
+    view = buf[1:, 3:]
+    assert view.data_ptr() % 16 and not view.is_contiguous()
+    got = fl.materialize_teacher_logits_int8(view, wq, ws, 1.25, 600)
+    ok, errs = _close(got, fl.materialize_teacher_logits_int8_ref(ht, wq, ws, 1.25, 600))
+    assert ok, errs
+
+
+def test_k10_is_deterministic_and_sees_a_dropped_scale(dev):
+    """Two launches are bit-identical, and the bounds fail K10 fed scales of 1
+    (a kernel that drops ws)."""
+    ht, wq, ws = _k10_case(dev)
+    first = fl.materialize_teacher_logits_int8(ht, wq, ws, 1.25, 600)
+    second = fl.materialize_teacher_logits_int8(ht, wq, ws, 1.25, 600)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = fl.materialize_teacher_logits_int8_ref(ht, wq, ws, 1.25, 600)
+    assert _close(first, want)[0]
+    assert not _close(fl.materialize_teacher_logits_int8(ht, wq, torch.ones_like(ws), 1.25, 600), want)[0]

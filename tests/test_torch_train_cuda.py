@@ -17,7 +17,10 @@ sums 1/N-scaled terms), 2e-2 of its max norm.  Every output is also held by
 its relative Frobenius error ||got - plain|| / ||plain|| <= 1e-2, which
 sees faults in outputs whose entries are all small (bf16 rounding alone
 gives ~2e-3); the tests show that it fails a flash backward that drops
-delta and a fused CE backward that drops its softmax term."""
+delta and a fused CE backward that drops its softmax term.  The GQA cases
+hold K4 (``csrc/flash_bwd_sm90.cu``) at G = 7 with a ragged S, kv tiles
+whose every key is masked, non-causal and B = 2; two launches of K2 and K4
+must be bit-identical."""
 
 import pytest
 import torch
@@ -67,6 +70,10 @@ FLASH_CASES = [
     (2, 65, 2, 1, 64, True, 40),
     (10, 729, 16, 16, 72, False, None),    # SigLIP, the path's shape
     (1, 3072, 14, 2, 64, True, 2936),      # Qwen2 training, the path's shape
+    (1, 200, 14, 2, 64, True, 170),        # G = 7 at a ragged S
+    (1, 300, 14, 2, 64, True, 100),        # kv tiles 2-4 with every key masked
+    (2, 150, 14, 2, 64, False, 120),       # non-causal GQA, B = 2
+    (2, 257, 14, 2, 64, True, 250),        # causal GQA, B = 2, a one-row last tile
 ]
 
 
@@ -93,6 +100,23 @@ def test_flash_backward_matches_plain(dev, b, s, hq, hkv, d, causal, n_valid):
     # the check sees a backward that computes dS = P * dP (delta = 0)
     no_delta = fa.flash_attention_bwd(q, k, v, dout, lse, torch.zeros_like(delta), mask=mask, causal=causal)
     assert not _close(no_delta[0], want[0]) and not _close(no_delta[1], want[1])
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,n_valid", [FLASH_CASES[i] for i in (3, 4)], ids=["k2", "k4"])
+def test_flash_backward_is_deterministic(dev, b, s, hq, hkv, d, causal, n_valid):
+    """Two launches give bit-identical dq, dk and dv (no atomics; K4 sums
+    its per-head partials in a fixed order)."""
+    q, k, v = _randn(dev, b, s, hq, d, seed=1), _randn(dev, b, s, hkv, d, seed=2), _randn(dev, b, s, hkv, d, seed=3)
+    dout = _randn(dev, b, s, hq, d, seed=4, std=0.125)
+    mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
+    mask[:, :n_valid or s] = True
+    out, lse = fa.flash_attention_ref(q, k, v, mask, causal, return_lse=True)
+    delta = fa.attention_delta(out, dout)
+    first = fa.flash_attention_bwd(q, k, v, dout, lse, delta, mask=mask, causal=causal)
+    second = fa.flash_attention_bwd(q, k, v, dout, lse, delta, mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,d,causal,n_valid", FLASH_CASES[:3])
