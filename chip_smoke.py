@@ -78,16 +78,18 @@ the exact arms against `full`, `full` bit-equal to K3, a negative control
 (nostorem held to full's plain version), per-arm registers, SASS
 instruction counts and times, and the JAX script's phase accounting.
 
-Phase 3 also checks that two launches of the flash backwards and of K10
+Phase 3 also checks that two launches of the flash kernels and of K10
 give bit-identical outputs, shows that K10's bounds fail a K10 fed scales
-of 1, and logs the flash backwards' time by kernel (K4's dq, dk/dv and
-reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
-port, e.g. the parent commit unpacked by `git archive` under build/), the
-script also builds DIR's kernels and, with DIR's K2/K4/K10 launchers in
-place of this checkout's, holds K2 bit-equal to DIR's output, logs K4's
-split and the three kernels' times in turns (parent, change, change,
-parent), and runs the [train], [kd] and [kd8] steps once more beside this
-checkout's.
+of 1, times K1 with and without the lse, and logs the flash backwards'
+time by kernel (dq, dk/dv and K4's reduce) from torch.profiler.  With
+`--parent DIR` (another checkout of the port, e.g. the parent commit
+unpacked by `git archive` under build/), the script also builds DIR's
+kernels and, with DIR's flash forward, flash backward and K10 launchers in
+place of this checkout's, holds K3 (d=64, d=128), K4 and K10 bit-equal to
+DIR's output, logs K2/K4's split and each kernel's time in turns (parent,
+change, change, parent), runs the [train], [kd] and [kd8] steps twice more
+with DIR's kernels and once more with this checkout's (in turns), and
+[main] and the B=8 evaluator once more beside this checkout's.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
 K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
@@ -173,6 +175,10 @@ KD_TOL = 1e-2
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# time_ms's sleep before the timed calls: the H100's top SM clock (so the
+# sleep errs long), and a cap for calls whose host side waits on the device.
+SLEEP_CYCLES_PER_S = 1.98e9
+MAX_SLEEP_S = 0.5
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (  # noqa: E402
     common,
@@ -227,13 +233,13 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 # flash forward runs at D = 64 (the student) and D = 128 (the teacher): one
 # wrapper, counted by head dim.
 KERNELS = {
-    "flash_fwd_mha": ("csrc/flash_fwd.cu", "ops/flash_attention.py:600",
+    "flash_fwd_mha": ("csrc/flash_fwd_sm90.cu", "ops/flash_attention.py:600",
                       lambda: fa.flash_attention.launches),
     "flash_fwd_gqa": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740",
                       lambda: fa.flash_attention_gqa.head_dim_launches.get(64, 0)),
-    "flash_bwd_mha": ("csrc/flash_bwd.cu", "ops/flash_attention.py:743",
+    "flash_bwd_mha": ("csrc/flash_bwd_d72_sm90.cu", "ops/flash_attention.py:743",
                       lambda: fa.flash_attention_bwd.launches),
-    "flash_bwd_gqa": ("csrc/flash_bwd.cu", "ops/flash_attention.py:1870",
+    "flash_bwd_gqa": ("csrc/flash_bwd_sm90.cu", "ops/flash_attention.py:1870",
                       lambda: fa.flash_attention_gqa_bwd.launches),
     "fused_ce_fwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:238", lambda: fc.lse_gold_fwd.launches),
     "fused_ce_bwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:284", lambda: fc.lse_gold_bwd.launches),
@@ -282,11 +288,19 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events).  A sleep
+    kernel queued first holds the device while the host enqueues the calls,
+    so a call whose host side (the wrapper's checks, the launch) takes longer
+    than its kernels is timed by its kernels, not by the enqueue."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * host_s * iters, MAX_SLEEP_S) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -399,19 +413,34 @@ def load_parent(root):
     return parent
 
 
+PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8")
+
+
 @contextlib.contextmanager
 def parent_kernels(parent):
-    """Route the flash backward (K2/K4) and K10 through the parent's
-    launchers: its K4 takes no workspace, its K10 the hidden states as they
-    are.  The wrappers, their checks and their counters stay this
-    checkout's."""
-    saved = _build.flash_bwd, _build.tmat_int8, fl.k10_hidden_layout
-    _build.flash_bwd = lambda *args, part=None: parent.flash_bwd(*args[:12])
-    _build.tmat_int8, fl.k10_hidden_layout = parent.tmat_int8, (lambda ht: ht.contiguous())
+    """Route the flash forward (K1/K3), the flash backward (K2/K4) and K10
+    through the parent's launchers (the same signatures).  The wrappers,
+    their checks and their counters stay this checkout's."""
+    saved = {name: getattr(_build, name) for name in PARENT_LAUNCHERS}
+    for name in PARENT_LAUNCHERS:
+        setattr(_build, name, getattr(parent, name))
     try:
         yield
     finally:
-        _build.flash_bwd, _build.tmat_int8, fl.k10_hidden_layout = saved
+        for name, fn in saved.items():
+            setattr(_build, name, fn)
+
+
+def steps_in_turns(parent, run, tag: str, first: dict) -> dict:
+    """A path's step times in turns: this checkout's run ``first``, then
+    ``run`` with the parent's kernels twice and with this checkout's again.
+    Returns the parent's runs (their mean step ms, the first one's losses)."""
+    with parent_kernels(parent):
+        theirs = [run(f"{tag}-parent"), run(f"{tag}-parent")]
+    again = run(f"{tag}-again")
+    ms = [first["step_ms"], theirs[0]["step_ms"], theirs[1]["step_ms"], again["step_ms"]]
+    log(f"[{tag}] step ms, change / parent / parent / change: " + " / ".join(f"{t:.1f}" for t in ms))
+    return dict(step_ms=(ms[1] + ms[2]) / 2, change_ms=(ms[0] + ms[3]) / 2, losses=theirs[0]["losses"])
 
 
 def kernel_split(fn, iters: int = 5) -> dict:
@@ -440,10 +469,32 @@ def log_in_turns(label: str, parent_fn, change_fn, iters: int) -> None:
     log(f"[kernel] {label} parent / change / change / parent ms: " + " / ".join(f"{t:.4f}" for t in ms))
 
 
-def kernel_phase(dev, parent=None) -> list:
-    """Each kernel against its plain version at the main paths' shapes; with
-    ``parent``, K2, K4 and K10 also against the parent's kernels."""
-    g = torch.Generator(device=dev).manual_seed(0)
+def _same_as_parent(parent, name, kernel, got, must) -> None:
+    """Log whether the parent's kernel gives ``got``'s bits on the same
+    inputs; raise if it does not and ``must``."""
+    with parent_kernels(parent):
+        theirs = kernel()
+    torch.cuda.synchronize()
+    got, theirs = (got,) if torch.is_tensor(got) else got, (theirs,) if torch.is_tensor(theirs) else theirs
+    same = all(torch.equal(a, b) for a, b in zip(got, theirs))
+    log(f"[kernel] {name}: bit-equal to the parent's output: {same}; max abs difference "
+        + ", ".join(f"{_errors(a, b)[0]:.3e}" for a, b in zip(got, theirs)))
+    if must and not same:
+        raise AssertionError(f"{name} is no longer bit-equal to the parent's kernel")
+
+
+def _theirs(parent, fn):
+    def run():
+        with parent_kernels(parent):
+            return fn()
+    return run
+
+
+def flash_kernel_phase(dev, g, parent=None) -> list:
+    """K1-K4 against their plain versions at the main paths' shapes, with
+    K1's time with and without the lse and K2/K4's split by kernel; with
+    ``parent``, each against the parent's kernel in turns (K3 and K4 held
+    bit-equal to it)."""
 
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(torch.bfloat16)
@@ -483,11 +534,27 @@ def kernel_phase(dev, parent=None) -> list:
         got = kernel()
         torch.cuda.synchronize()
         err = _hold(c["name"], [("out", got, plain(), KERNEL_TOL)])
+        again = kernel()
+        torch.cuda.synchronize()
+        log(f"[kernel] {c['name']}: two launches bit-identical: {torch.equal(got, again)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{c['name']} is not deterministic")
         pairs = attended_pairs(b, sq, c["kv"][1], c["causal"], mask)
         least = bound(4 * pairs * hq * d, nbytes(q, k, v, got, mask))
+        mask_u8 = None if mask is None else mask.view(torch.uint8)
+        out_l, lse_l = torch.empty_like(q), torch.empty(b, hq, sq, device=dev)
+
+        def with_lse():  # the launcher, as the autograd forward calls it (not counted)
+            _build.flash_fwd(q, k, v, mask_u8, out_l, lse_l, c["causal"], d**-0.5)
+
+        log(f"[kernel] {c['name']} with the lse: {time_ms(with_lse, iters=20):.4f} ms")
+        if parent is not None:
+            _same_as_parent(parent, c["name"], kernel, got, must=c["name"] != "flash_fwd_mha")
+            log_in_turns(c["name"], _theirs(parent, kernel), kernel, iters=20)
+            log_in_turns(c["name"] + " with the lse", _theirs(parent, with_lse), with_lse, iters=20)
         qt, kt, vt, kw = _sdpa_inputs(q, k, v, mask, c["causal"])
-        library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=10)
-        del got, qt, kt, vt
+        library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=20)
+        del got, again, qt, kt, vt, out_l, lse_l
         results.append(_result(c["name"], err, time_ms(kernel, iters=20), time_ms(plain, iters=5, warmup=1),
                                least, library))
 
@@ -529,24 +596,12 @@ def kernel_phase(dev, parent=None) -> list:
         log(f"[kernel] {c['name']} split (torch.profiler, ms a call): "
             + ", ".join(f"{n} {ms:.4f}" for n, ms in split.items()))
         if parent is not None:
+            _same_as_parent(parent, c["name"], kernel, got, must=c["name"] == "flash_bwd_gqa")
             with parent_kernels(parent):
-                theirs = kernel()
                 parent_split = kernel_split(kernel)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, theirs))
-            log(f"[kernel] {c['name']}: bit-equal to the parent's output: {same}; parent's max abs err "
-                + ", ".join(f"{lbl} {_errors(a, b)[0]:.3e}" for lbl, a, b in zip(("dq", "dk", "dv"), theirs, want)))
-            if c["name"] == "flash_bwd_mha" and not same:
-                raise AssertionError("K2 is no longer bit-equal to the parent's kernel")
             log(f"[kernel] {c['name']} parent split (ms a call): "
                 + ", ".join(f"{n} {ms:.4f}" for n, ms in parent_split.items()))
-
-            def theirs_fn():
-                with parent_kernels(parent):
-                    return kernel()
-
-            log_in_turns(c["name"], theirs_fn, kernel, iters=10)
-            del theirs
+            log_in_turns(c["name"], _theirs(parent, kernel), kernel, iters=10)
         b, sq, hq, d = c["q"]
         pairs = attended_pairs(b, sq, c["kv"][1], c["causal"], mask)
         least = bound(10 * pairs * hq * d, nbytes(q, k, v, dout, lse, delta, *got, mask))
@@ -556,11 +611,22 @@ def kernel_phase(dev, parent=None) -> list:
         out_t = F.scaled_dot_product_attention(qt, kt, vt, **kw)
         dout_t = dout.transpose(1, 2).contiguous()
         library = time_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True),
-                          iters=5)
+                          iters=10)
         del qt, kt, vt, out_t, dout_t
         results.append(_result(c["name"], err, time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1),
                                least, library))
+    return results
 
+
+def kernel_phase(dev, parent=None) -> list:
+    """Each kernel against its plain version at the main paths' shapes; with
+    ``parent``, K1-K4 and K10 also against the parent's kernels."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(torch.bfloat16)
+
+    results = flash_kernel_phase(dev, g, parent)
     # Fused CE over the tied head: B*S = 3072 rows, the 151936 x 896 embedding.
     cfg = llava_onevision_0_5b()
     n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
@@ -1057,11 +1123,8 @@ def tmat_kernel_phase(dev, g, parent=None) -> dict:
                [(fl.materialize_teacher_logits_int8(ht, wq, torch.ones_like(ws), inv_t, vocab), want)])
     del want
     if parent is not None:
-        def theirs():
-            with parent_kernels(parent):
-                return kernel()
-
-        log_in_turns("tmat_int8", theirs, kernel, iters=5)
+        _same_as_parent(parent, "tmat_int8", kernel, kernel(), must=True)
+        log_in_turns("tmat_int8", _theirs(parent, kernel), kernel, iters=5)
     ms, plain_ms = time_ms(kernel, iters=5), time_ms(plain, iters=2, warmup=1)
     w_bf16 = (wq[:vocab].float() * ws[:vocab, None]).to(torch.bfloat16)
     library = time_ms(lambda: torch.mm(ht, w_bf16.T, out_dtype=torch.float32), iters=5)
@@ -1698,7 +1761,7 @@ def _eval_next_logits(model, cfg, root, bs) -> list:
     return rows
 
 
-def eval_phase(dev) -> dict:
+def eval_phase(dev, parent=None) -> dict:
     """[eval]: ``cli/evaluate_onevision.py``'s main on the card with the 0.5B
     student at full width and depth (seeded random weights) on the
     21-row split of ``_eval_tree``: at B=8 and B=1 with exact K1/K3 launch
@@ -1712,7 +1775,9 @@ def eval_phase(dev) -> dict:
     the seed-0 model's checkpoint equals the seed-0 run's, and without it
     differs); ``--quant int8_full`` at B=8 with exact K12 counts; the 7B
     (``--model_id ...7b``, bf16, 28 layers) on 4 rows at B=2 with exact
-    K3-d128 counts; ``get_all_results`` over the predictions."""
+    K3-d128 counts; ``get_all_results`` over the predictions.  With
+    ``parent``, B=8 again with the parent's kernels and then with this
+    checkout's (rows/s in turns)."""
     import io
     import shutil
 
@@ -1739,6 +1804,15 @@ def eval_phase(dev) -> dict:
     _hold_launches("eval", r1["launches"], per_batch, EVAL_ROWS)
     log(f"[eval] B={EVAL_BS}: {r8['wall'] * 1e3 / n_batches:.1f} ms per batch; B=1: "
         f"{r1['wall'] * 1e3 / EVAL_ROWS:.1f} ms per row")
+    turns = {}
+    if parent is not None:
+        with parent_kernels(parent):
+            turns["parent"] = _run_eval("eval-parent", root, base / "p8parent", "--eval_batch_size", str(EVAL_BS))
+        turns["change"] = _run_eval("eval", root, base / "p8again", "--eval_batch_size", str(EVAL_BS))
+        for r in turns.values():
+            _hold_launches("eval", r["launches"], per_batch, n_batches)
+        log(f"[eval] B={EVAL_BS} rows/s, change / parent / change: {EVAL_ROWS / r8['wall']:.3f} / "
+            f"{EVAL_ROWS / turns['parent']['wall']:.3f} / {EVAL_ROWS / turns['change']['wall']:.3f}")
     csv8, csv1 = pd.read_csv(r8["path"]), pd.read_csv(r1["path"])
     if len(csv8) != EVAL_ROWS or list(csv8["Question_Id"]) != list(csv1["Question_Id"]):
         raise AssertionError(f"B={EVAL_BS} rows {list(csv8['Question_Id'])} are not B=1's")
@@ -1803,10 +1877,11 @@ def eval_phase(dev) -> dict:
     paths = dict(b8=r8, b1=r1, ckpt=restored, seed1=other, int8=r8q, b7=r7)
     return dict(launches={k: sum(r["launches"][k] for r in paths.values()) for k in COUNTERS},
                 rows_s8=EVAL_ROWS / r8["wall"], rows_s1=EVAL_ROWS / r1["wall"], peak=r8["peak"],
-                host8=r8["host_s"], gen8=r8["generate_s"])
+                host8=r8["host_s"], gen8=r8["generate_s"],
+                rows_s8_parent=EVAL_ROWS / turns["parent"]["wall"] if turns else None)
 
 
-def main_path_phase(dev) -> dict:
+def main_path_phase(dev, tag: str = "main") -> dict:
     """Serving: greedy generation with the 0.5B student, full width and depth."""
     cfg = llava_onevision_0_5b()
     t0 = time.perf_counter()
@@ -1818,7 +1893,7 @@ def main_path_phase(dev) -> dict:
     tb = {k: torch.as_tensor(batch[k], device=dev) for k in keys}
     gen = Generator(cfg, GenerateConfig(max_new_tokens=N_NEW, eos_token_id=-1))
     torch.cuda.synchronize()
-    log(f"[main] model + batch set-up {time.perf_counter() - t0:.1f} s; "
+    log(f"[{tag}] model + batch set-up {time.perf_counter() - t0:.1f} s; "
         f"prompt {int(tb['student_attention_mask'].sum())} tokens in a {tb['student_input_ids'].shape[1]} bucket")
 
     gen.generate(model, tb)  # warm-up (allocator, cuBLAS handles)
@@ -1833,13 +1908,13 @@ def main_path_phase(dev) -> dict:
     want = dict.fromkeys(COUNTERS, 0)
     want.update(flash_fwd_mha=cfg.vision.num_hidden_layers * GEN_CALLS,
                 flash_fwd_gqa=cfg.text.num_hidden_layers * GEN_CALLS)
-    log(f"[main] launches over {GEN_CALLS} generate calls: {launches} (expected {want})")
+    log(f"[{tag}] launches over {GEN_CALLS} generate calls: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
     ms_call = wall * 1e3 / GEN_CALLS
     tok_s = N_NEW * tb["student_input_ids"].shape[0] / (wall / GEN_CALLS)
-    log(f"[main] generate: {ms_call:.1f} ms/call, {tok_s:.1f} tok/s "
+    log(f"[{tag}] generate: {ms_call:.1f} ms/call, {tok_s:.1f} tok/s "
         f"(B=1, {N_NEW} new tokens, bf16)")
 
     toks = outs[-1]["tokens"]
@@ -1874,9 +1949,9 @@ def main_path_phase(dev) -> dict:
     scale = plain_next.abs().max().item()
     cos = _cosine(flash_next, plain_next)
     same_argmax = int(flash_next.argmax()) == int(plain_next.argmax())
-    log(f"[main] prefill {prefill_ms:.1f} ms; decode {(ms_call - prefill_ms) / (N_NEW - 1):.2f} ms/step "
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms; decode {(ms_call - prefill_ms) / (N_NEW - 1):.2f} ms/step "
         f"(from the generate time)")
-    log(f"[main] next-token logits, flash vs plain path: max_abs_diff={diff:.4e} "
+    log(f"[{tag}] next-token logits, flash vs plain path: max_abs_diff={diff:.4e} "
         f"(max |logit| {scale:.3f}), cosine={cos:.6f}, same argmax={same_argmax}")
     if not (cos >= PATH_COSINE):
         raise AssertionError(f"kernel path and plain path disagree (cosine {cos})")
@@ -2014,8 +2089,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                         "time K2, K4 and K10 and the [train], [kd] and [kd8] steps with its kernels beside "
-                         "this checkout's, and hold K2 bit-equal to its output")
+                         "time K1-K4 and K10 and the [train], [main], [kd], [kd8] and [eval] runs with its "
+                         "kernels beside this checkout's, and hold K3, K4 and K10 bit-equal to its output")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -2050,23 +2125,23 @@ def main() -> int:
     train = training_phase(dev)
     steps_parent = {}
     if parent is not None:
-        with parent_kernels(parent):
-            steps_parent["train"] = training_phase(dev, tag="train-parent")
+        steps_parent["train"] = steps_in_turns(parent, lambda tag: training_phase(dev, tag=tag), "train", train)
     agreement_phase(dev)
     serve = main_path_phase(dev)
+    if parent is not None:
+        with parent_kernels(parent):
+            steps_parent["main"] = main_path_phase(dev, tag="main-parent")
     serve8 = main8_phase(dev)
     teacher = _build_teacher(dev)
     kd = kd_training_phase(dev, teacher)
     if parent is not None:
-        with parent_kernels(parent):
-            steps_parent["kd"] = kd_training_phase(dev, teacher, tag="kd-parent")
+        steps_parent["kd"] = steps_in_turns(parent, lambda tag: kd_training_phase(dev, teacher, tag=tag), "kd", kd)
     kdf = kd_faithful_phase(dev, teacher)
     kd1 = kd_phase1_phase(dev, teacher)
     kdfb = feature_based_phase(dev, teacher)
     kd8 = kd8_phase(dev, teacher)
     if parent is not None:
-        with parent_kernels(parent):
-            steps_parent["kd8"] = kd8_steps(dev, teacher, tag="kd8-parent")
+        steps_parent["kd8"] = steps_in_turns(parent, lambda tag: kd8_steps(dev, teacher, tag=tag), "kd8", kd8)
     del teacher
     torch.cuda.empty_cache()
     kd_agreement_phase(dev)
@@ -2074,7 +2149,7 @@ def main() -> int:
     kd_agreement_phase(dev, int8=True)
     kd_phase1_agreement_phase(dev)
     tiny_cli_phase()
-    evals = eval_phase(dev)
+    evals = eval_phase(dev, parent)
     # launches: the driven paths, each counted from 0 around its own run
     # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs)
     paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals)
@@ -2089,9 +2164,15 @@ def main() -> int:
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
     for name, r in (("train", train), ("kd", kd), ("kd8", kd8)):
         if name in steps_parent:
-            log(f"[summary] {card}: [{name}] step {r['step_ms']:.1f} ms, with the parent's K2/K4/K10 "
-                f"{steps_parent[name]['step_ms']:.1f} ms (same call); last loss {r['losses'][-1]:.6f} vs "
-                f"{steps_parent[name]['losses'][-1]:.6f}")
+            log(f"[summary] {card}: [{name}] step {steps_parent[name]['change_ms']:.1f} ms, with the parent's "
+                f"K1-K4/K10 {steps_parent[name]['step_ms']:.1f} ms (means of two runs each, in turns, same "
+                f"call); last loss {r['losses'][-1]:.6f} vs {steps_parent[name]['losses'][-1]:.6f}")
+    if "main" in steps_parent:
+        log(f"[summary] {card}: [main] generate {serve['ms_call']:.1f} ms/call, with the parent's kernels "
+            f"{steps_parent['main']['ms_call']:.1f} ms/call (same call)")
+    if evals["rows_s8_parent"] is not None:
+        log(f"[summary] {card}: [eval] {evals['rows_s8']:.3f} rows/s at B={EVAL_BS}, with the parent's kernels "
+            f"{evals['rows_s8_parent']:.3f} (same call)")
     log(f"[summary] {card}: evaluator {evals['rows_s8']:.3f} rows/s at B={EVAL_BS} (host "
         f"{evals['host8']:.2f} s, generate {evals['gen8']:.2f} s), {evals['rows_s1']:.3f} rows/s at B=1, "
         f"peak {evals['peak'] / 2**30:.2f} GiB")

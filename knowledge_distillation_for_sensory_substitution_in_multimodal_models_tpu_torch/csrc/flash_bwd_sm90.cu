@@ -1,7 +1,7 @@
 // The flash-attention backward at head dim 64 for Hopper (sm_90a), redesigned
 // around wgmma and TMA: dq, dk, dv from the saved row logsumexp, bf16 in and
-// out, f32 accumulation.  flash_bwd.cu routes D = 64 here and keeps its
-// mma.sync pair for D = 72 (K2, SigLIP).
+// out, f32 accumulation.  flash_bwd.cu routes D = 64 here and D = 72 (K2,
+// SigLIP) to flash_bwd_d72_sm90.cu, which takes this design at G = 1.
 //
 // Replaces the Pallas TPU kernel K4 of the JAX package
 // (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/
@@ -70,10 +70,6 @@ struct Layout {
   static constexpr int SMEM = BYTES + 1024;                     // alignment slack
 };
 
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
-
 __device__ __forceinline__ void init_barriers(uint64_t* bars) {
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);  // the fixed tiles
@@ -84,14 +80,6 @@ __device__ __forceinline__ void init_barriers(uint64_t* bars) {
     fence_barrier_init();
   }
   __syncthreads();
-}
-
-// The accumulators of columns 16 kk .. 16 kk + 15 as a bf16 register A fragment.
-__device__ __forceinline__ void a_frag(uint32_t a[4], const float (&acc)[32], int kk) {
-  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
-  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
 // Two 64 x 64 (x 64) products from shared memory: x = A0 B0^T, y = A1 B1^T.

@@ -13,9 +13,12 @@
 //     student (14 q / 2 kv heads, D = 64) and the frozen 7B teacher of the
 //     KD step (28 q / 4 kv heads, D = 128, forward only, no lse).
 // Both compute one function -- attention with an optional kv mask and
-// optional causality, at group size G = Hq / Hkv -- so they share this one
-// templated kernel.  The TPU-only variants (scalar-shift "bound" mode and its
-// NaN poison, D padded to 128 lanes, packed head pairs) are not carried over.
+// optional causality, at group size G = Hq / Hkv.  The C entry below routes
+// each head dim to one kernel: D = 72 (K1) to the wgmma/TMA kernel of
+// flash_fwd_sm90.cu, D = 64 and 128 (K3) to this file's templated mma.sync
+// kernel (flash_fwd.cuh, shared with K13's arms).  The TPU-only variants
+// (scalar-shift "bound" mode and its NaN poison, D padded to 128 lanes,
+// packed head pairs) are not carried over.
 //
 // Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out like q, all contiguous
 // bf16; kv_mask uint8 [B, Skv] or null.  Causality is top-left aligned:
@@ -25,33 +28,27 @@
 // for a row with no valid key.  Serving passes null, as the JAX forward's
 // with_lse=False drops it.
 //
-// Design (first, simple version).  One block of 4 warps per
-// (64-row q tile, q head, batch).  The q tile is staged through shared
-// memory into registers once; the block then walks 64-row K/V tiles through
-// shared memory.  Each warp owns 16 q rows: S = Q K^T and O += P V run on
-// mma.sync m16n8k16 (bf16 x bf16 -> f32), and the softmax is an exact online
-// softmax in f32 (log2 domain, scale folded into exp2).  Under causality the
-// K/V tiles wholly above the diagonal are skipped.  D = 72 is not a multiple
-// of the mma depth 16: tiles are zero-filled to 80 columns in shared memory,
-// and shared rows are padded by 8 more elements so fragment loads hit 32
-// distinct banks.  K/V are read by kv head h / G and never repeated.  The
-// Q, K and V tiles live in dynamic shared memory: at D = 128 they take
-// 3 x 64 x 136 x 2 B = 52 KB, past the 48 KB a block may hold statically;
-// the o[16][4] accumulator and the q fragments qf[8][4] double from D = 64
-// (the build log's ptxas lines show the registers and any spill).
+// Design of the mma.sync kernel (first, simple version).  One block of 4
+// warps per (64-row q tile, q head, batch).  The q tile is staged through
+// shared memory into registers once; the block then walks 64-row K/V tiles
+// through shared memory.  Each warp owns 16 q rows: S = Q K^T and O += P V
+// run on mma.sync m16n8k16 (bf16 x bf16 -> f32), and the softmax is an exact
+// online softmax in f32 (log2 domain, scale folded into exp2).  Under
+// causality the K/V tiles wholly above the diagonal are skipped.  Shared
+// rows are padded by 8 elements so fragment loads hit 32 distinct banks.
+// K/V are read by kv head h / G and never repeated.  The Q, K and V tiles
+// live in dynamic shared memory: at D = 128 they take 3 x 64 x 136 x 2 B =
+// 52 KB, past the 48 KB a block may hold statically; the o[16][4]
+// accumulator and the q fragments qf[8][4] double from D = 64 (the build
+// log's ptxas lines show the registers and any spill).
 //
-// What bounds it on the H100.  The SigLIP case (S = 729, D = 72, 16 heads x
-// 10 tiles) is small per (tile, head): 12 q tiles x 12 kv tiles, 153 MFLOP,
-// 24.5 GFLOP per layer against 50 MB of q/k/v -- compute-bound on paper, but
-// each block runs only 12 short kv steps, so the q-tile prologue, the
-// epilogue and the zero-filled columns (80 computed for 72) weigh on it.  The
-// prefill (Sq = 3072, Skv = 3104, 14 q / 2 kv heads, D = 64) is ~17 GFLOP of
-// causal work per layer and is bound by tensor-core issue; this version
-// feeds the tensor cores with synchronous loads and mma.sync, so it reaches
-// a fraction of the wgmma peak.  The teacher's prefill (Sq = Skv = 3072,
+// What bounds it on the H100.  The prefill (Sq = 3072, Skv = 3104, 14 q /
+// 2 kv heads, D = 64) is ~17 GFLOP of causal work per layer and is bound by
+// tensor-core issue; this version feeds the tensor cores with synchronous
+// loads and mma.sync, so it reaches a fraction of the wgmma peak.  The teacher's prefill (Sq = Skv = 3072,
 // 28 q / 4 kv heads, D = 128) is ~68 GFLOP of causal work per layer, bound
-// the same way.  wgmma, TMA, a multi-stage K/V ring and warp specialisation
-// are the later steps.
+// the same way.  wgmma, TMA, a multi-stage K/V ring and warp specialisation,
+// as flash_fwd_sm90.cu has them at D = 72, are the later steps here.
 
 #include "flash_fwd.cuh"
 
@@ -89,6 +86,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kv
 
 }  // namespace
 
+cudaError_t kdss_flash_fwd_d72(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+                               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2,
+                               cudaStream_t st);
+
 extern "C" {
 
 // Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for shapes the
@@ -104,7 +105,7 @@ int kdss_flash_fwd(const void* q, const void* k, const void* v, const void* kv_m
     case 64:
       return static_cast<int>(dispatch<64>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     case 72:
-      return static_cast<int>(dispatch<72>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
+      return static_cast<int>(kdss_flash_fwd_d72(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     case 128:
       return static_cast<int>(dispatch<128>(q, k, v, kv_mask, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, causal, scale_log2, st));
     default:

@@ -4,8 +4,8 @@
 // (TMA, driven by tensor maps encoded on the host), the warpgroup
 // matrix-multiply (wgmma) instructions with their shared-memory
 // descriptors and ordering fences, and register reallocation between
-// warpgroups (setmaxnreg).  K10 (tmat_int8.cu) and K4 (flash_bwd_sm90.cu)
-// use them; the later redesigns are meant to.
+// warpgroups (setmaxnreg).  K10 (tmat_int8.cu), K4 (flash_bwd_sm90.cu) and
+// K1/K2 at head dim 72 (flash_fwd_sm90.cu, flash_bwd_d72_sm90.cu) use them.
 //
 // Encoding a tensor map needs the driver's cuTensorMapEncodeTiled.  The
 // library links with a bare `nvcc -shared` and no libcuda, so the entry
@@ -23,7 +23,12 @@
 //     step kk starts 32 * kk bytes into the tile;
 //   * as an N-major B operand (rows = K, columns = N = 64, TRANS_B = 1):
 //     the stride byte offset is 1024 (eight K rows), and the k16 step kk
-//     starts 2048 * kk bytes into the tile.
+//     starts 2048 * kk bytes into the tile;
+//   * a matrix wider than 64 columns is two such tiles ("boxes"): columns
+//     0-63 in box 0 and 64-127 in box 1.  As a K-major operand each k16
+//     step reads one box; as an N-major B operand of N > 64 the leading
+//     byte offset is the distance from box 0 to box 1 (the stride between
+//     swizzle atoms along N), the stride byte offset still 1024.
 // wgmma's fragments (per warp w of the warpgroup, lane = 4 * gi + ti):
 //   * accumulator d[4 j + e] of m64nNk16: row 16 w + gi + 8 (e / 2),
 //     column 8 j + 2 ti + (e % 2);
@@ -40,10 +45,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kdss_mma.cuh"
+
 namespace kdss_sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes, the 128-byte
+// swizzle's alignment (the kernels ask for 1 KB of slack).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// The accumulators of columns 16 kk .. 16 kk + 15 of an m64n64 product as the
+// bf16 register A fragment of k16 step kk of a next product.
+__device__ __forceinline__ void a_frag(uint32_t a[4], const float (&acc)[32], int kk) {
+  a[0] = kdss::pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = kdss::pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = kdss::pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = kdss::pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
 // ---- mbarrier (a 64-bit barrier in shared memory) -----------------------
@@ -67,6 +89,12 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // asynchronous copies (TMA) that must land before the phase completes.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+// mbarrier.expect_tx: announces `bytes` of asynchronous copies on the
+// barrier's current phase without arriving (the caller arrives later).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 // mbarrier.try_wait.parity (acquire), spun: returns once the phase of
@@ -139,6 +167,11 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_by
 }
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) { return desc_sw128(tile, 16, 1024); }
 __device__ __forceinline__ uint64_t desc_nmajor(const void* tile) { return desc_sw128(tile, 1024, 1024); }
+// N-major with N > 64 (two swizzle atoms wide): box 1 of the tile starts
+// `box_bytes` after box 0, the leading offset.
+__device__ __forceinline__ uint64_t desc_nmajor_wide(const void* tile, uint32_t box_bytes) {
+  return desc_sw128(tile, box_bytes, 1024);
+}
 // wgmma.fence: orders this warpgroup's earlier register writes (accumulators,
 // register A fragments) before the wgmmas that follow.
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -203,6 +236,25 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[36] (+)= A (64 x 16, registers) * B (16 x 72, shared; TRANS_B = 1: stored
+// N-major over two boxes, desc_nmajor_wide): the N = 72 side of the head-dim-72
+// flash kernels, columns 64-71 read from box 1.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n72_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 

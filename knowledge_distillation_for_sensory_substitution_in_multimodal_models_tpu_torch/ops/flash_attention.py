@@ -11,16 +11,20 @@ True = attend); ``causal``; ``scale`` (default D**-0.5).
 * :func:`flash_attention_gqa` is the grouped-query path (the Qwen2 prefill):
   K/V are read by kv head ``h // G``, never repeated.
 
-Both run one hand-written CUDA kernel (``csrc/flash_fwd.cu``) on a CUDA
-tensor, and the plain PyTorch version :func:`flash_attention_ref` on a CPU
-tensor (one function for both paths: G = 1 is the MHA case).  On a
-CUDA tensor the wrapper launches the kernel or raises; nothing falls back.
+Both run a hand-written CUDA kernel on a CUDA tensor, one kernel a head dim
+(the C entry of ``csrc/flash_fwd.cu`` routes them): D = 72, SigLIP's, the
+wgmma/TMA kernel of ``csrc/flash_fwd_sm90.cu``; D = 64 and 128 the mma.sync
+kernel of ``csrc/flash_fwd.cuh``.  A CPU tensor takes the plain PyTorch
+version :func:`flash_attention_ref` (one function for both paths: G = 1 is
+the MHA case).  On a CUDA tensor the wrapper launches the kernel or raises;
+nothing falls back.
 
 Gradients: when autograd needs them, the CUDA forward also writes the row
-logsumexp (lse) and a ``torch.autograd.Function`` runs the backward kernel
-(``csrc/flash_bwd.cu``: its mma.sync pair at D = 72, the wgmma kernels of
-``csrc/flash_bwd_sm90.cu`` at D = 64, which take an f32 workspace of
-per-head dk/dv partials, :func:`bwd_workspace_shape`) through
+logsumexp (lse) and a ``torch.autograd.Function`` runs the backward kernels
+(the C entry of ``csrc/flash_bwd.cu``: at D = 72 the wgmma kernels of
+``csrc/flash_bwd_d72_sm90.cu``, which sum a GQA group in-block and take no
+workspace; at D = 64 those of ``csrc/flash_bwd_sm90.cu``, which take an f32
+workspace of per-head dk/dv partials, :func:`bwd_workspace_shape`) through
 :func:`flash_attention_bwd` (MHA, the JAX ``_flash_vjp_bwd``) or
 :func:`flash_attention_gqa_bwd` (grouped-query, the JAX
 ``_flash_gqa_vjp_bwd``).  Their plain version is
@@ -63,7 +67,8 @@ WGMMA_BWD_HEAD_DIM = 64
 def bwd_workspace_shape(q_shape, k_shape):
     """The f32 workspace of the backward kernels: per-head dk and dv partials
     [2, G, B, Skv, Hkv, D] at D = 64, which the kernel sums over the G query
-    heads of each kv head in a fixed order; None at other head dims."""
+    heads of each kv head in a fixed order; None at other head dims (the
+    D = 72 kernels sum a group inside the block that owns the kv rows)."""
     b, _, hq, d = q_shape
     skv, hkv = k_shape[1], k_shape[2]
     if d != WGMMA_BWD_HEAD_DIM:

@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's KD train step goes, on one CUDA GPU.
 
     python scripts/profile_torch_kd_step.py [--steps 5] [--layers N] [--kd_mode M --phase P]
-        [--loca_faithful_indexing] [--determinism]
+        [--loca_faithful_indexing] [--determinism] [--parent DIR]
 
 Builds a KD step that ``chip_smoke.py`` drives (``--kd_mode`` and
 ``--phase``, by default double_trouble phase 3; double_trouble phase 1, the
@@ -20,6 +20,12 @@ unprofiled steps, then:
   AdamW, the rest), against the mean wall time of the unprofiled steps
   after the first two (host clock; the profiler slows the host down).
 
+``--parent DIR`` (another checkout of the port, e.g. the parent commit
+unpacked by ``git archive``) then profiles three more steps, with DIR's
+flash and K10 kernels, DIR's again and this checkout's, and prints each
+step's device kernel time and its flash groups: a comparison that the
+host's noise does not reach.
+
 ``--determinism`` asks instead whether the step is bit-reproducible on one
 card: ``--steps`` steps from a fresh student of the same seed, twice in this
 process, with the bits of every step's loss and terms and of every float32
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -73,9 +80,13 @@ ACCUM = 2
 # (group, substrings of the kernel's demangled name), first match wins.
 GROUPS = (
     ("flash forward D=128 (teacher K3)", ("flash_fwd_kernel<128",)),
-    ("flash forward D=64/72 (K1, K3)", ("flash_fwd_kernel",)),
+    # K1 at D = 72: csrc/flash_fwd_sm90.cu (the mma.sync kernel before)
+    ("flash forward D=72 (K1)", ("kdss_fwd90", "flash_fwd_kernel<72")),
+    ("flash forward D=64 (student K3)", ("flash_fwd_kernel",)),
+    # K2 at D = 72: csrc/flash_bwd_d72_sm90.cu's dq and dk/dv kernels
+    ("flash backward D=72 (K2)", ("kdss_bwd72", "flash_bwd_dq_kernel<72", "flash_bwd_dkv_kernel<72")),
     # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
-    ("flash backward (K2, K4)", ("flash_bwd", "kdss_bwd90")),
+    ("flash backward D=64 (K4)", ("kdss_bwd90",)),
     # the shared backward kernels are named by their loss's Rows policy
     ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows")),
     ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
@@ -171,6 +182,9 @@ def main() -> int:
     p.add_argument("--loca_faithful_indexing", action="store_true")
     p.add_argument("--determinism", action="store_true",
                    help="compare the bits of two runs, then run under deterministic mode")
+    p.add_argument("--parent", default=None,
+                   help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
+                        "profile the step again with its flash and K10 kernels, in turns with this one's")
     args = p.parse_args()
     if args.steps < 3:
         p.error("--steps must be at least 3")
@@ -229,26 +243,32 @@ def main() -> int:
     print(f"[teacher] per micro-batch: forward + logits {t_logits_ms:.3f} ms, of which the f32 "
           f"logit product [{3072}, {vocab}] {tmat_ms:.3f} ms (CUDA events)", flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        state, metrics = step(state, None, tb)
-        torch.cuda.synchronize()
-    groups, count, other = collections.Counter(), collections.Counter(), collections.Counter()
-    ranges = collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3
-        # kernels only: not the device-side ranges of annotations such as
-        # "Optimizer.step#AdamW.step", which overlap the kernels inside them
-        if getattr(e, "is_user_annotation", False):
-            ranges[e.name[:90]] += ms
-            continue
-        g = group_of(e.name)
-        groups[g] += ms
-        count[g] += 1
-        if g.startswith("other"):
-            other[e.name[:90]] += ms
+    def profiled_step(state):
+        """One step under torch.profiler: (state, metrics, device ms by group,
+        kernels by group, the "other" kernels by name, annotation ranges)."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            state, metrics = step(state, None, tb)
+            torch.cuda.synchronize()
+        groups, count, other = collections.Counter(), collections.Counter(), collections.Counter()
+        ranges = collections.Counter()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            # kernels only: not the device-side ranges of annotations such as
+            # "Optimizer.step#AdamW.step", which overlap the kernels inside them
+            if getattr(e, "is_user_annotation", False):
+                ranges[e.name[:90]] += ms
+                continue
+            g = group_of(e.name)
+            groups[g] += ms
+            count[g] += 1
+            if g.startswith("other"):
+                other[e.name[:90]] += ms
+        return state, metrics, groups, count, other, ranges
+
+    state, metrics, groups, count, other, ranges = profiled_step(state)
     busy = sum(groups.values())
     print(f"[profile] {args.kd_mode} phase {args.phase}: one step (A={ACCUM} x B=1), loss {metrics['loss'].item():.6f}: device kernel time "
           f"{busy:.1f} ms, {100 * busy / step_ms:.1f}% of the unprofiled step", flush=True)
@@ -262,6 +282,22 @@ def main() -> int:
         print(f"[profile]   other: {ms:.2f} ms  {name}", flush=True)
     for name, ms in ranges.most_common(5):
         print(f"[profile] annotation range, not counted: {ms:.2f} ms  {name}", flush=True)
+    if args.parent is not None:
+        # the same step's device kernel time with the parent's flash and K10
+        # launchers, in turns with this checkout's: change (above), parent,
+        # parent, change
+        import chip_smoke
+
+        parent = chip_smoke.load_parent(args.parent)
+        runs = [(busy, groups)]
+        for use_parent in (True, True, False):
+            with chip_smoke.parent_kernels(parent) if use_parent else contextlib.nullcontext():
+                state, _, g, _, _, _ = profiled_step(state)
+            runs.append((sum(g.values()), g))
+        print("[parent] device kernel time of a step, change / parent / parent / change: "
+              + " / ".join(f"{b:.1f}" for b, _ in runs) + " ms", flush=True)
+        for name in [g for g, _ in GROUPS if g.startswith("flash")]:
+            print(f"[parent] {name}: " + " / ".join(f"{g[name]:.2f}" for _, g in runs) + " ms", flush=True)
     return 0
 
 

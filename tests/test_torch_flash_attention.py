@@ -177,6 +177,41 @@ def test_kernel_args_accept_slice_shapes():
     assert fa.kernel_args(*_bf16(d=72), None) is None
 
 
+def test_head_dims_give_tma_strides():
+    """The kernels load q, k, v and dO by TMA (D = 64 backward, D = 72):
+    every row stride H x D x 2 bytes and every head's offset D x 2 bytes
+    must be a multiple of 16 for each head dim the kernels take."""
+    for d in fa.KERNEL_HEAD_DIMS:
+        assert d * 2 % 16 == 0, d
+
+
+def _unaligned(shape):
+    """A zero bf16 tensor of ``shape`` whose data starts 2 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 8, dtype=torch.bfloat16)
+    t = base[1:1 + n].view(shape)
+    assert t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
+def test_launchers_refuse_unaligned_operands(d):
+    """The launchers check 16-byte alignment before they load the library
+    (TMA and the kernels' vector loads need it), so the check runs here."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import _build
+
+    q, k, v = _bf16(d=d)
+    bad = _unaligned(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _build.flash_fwd(bad, k, v, None, torch.empty_like(q), None, False, d**-0.5)
+    if d in fa.BWD_HEAD_DIMS:
+        lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _build.flash_bwd(q, k, v, None, bad, lse, lse, torch.empty_like(q), torch.empty_like(k),
+                             torch.empty_like(v), False, d**-0.5)
+
+
 def test_non_cpu_non_cuda_tensor_raises():
     q, k, v = [t.to("meta") for t in _bf16()]
     with pytest.raises(ValueError, match="CUDA"):

@@ -154,7 +154,7 @@ def test_neutralize_dead_rows():
 @pytest.mark.parametrize("q_shape,k_shape,want", [
     ((1, 3072, 14, 64), (1, 3072, 2, 64), (2, 7, 1, 3072, 2, 64)),  # the Qwen2 training shape
     ((2, 65, 2, 64), (2, 65, 2, 64), (2, 1, 2, 65, 2, 64)),          # MHA at D = 64: one head a group
-    ((10, 729, 16, 72), (10, 729, 16, 72), None),                    # SigLIP's D = 72: the mma.sync pair
+    ((10, 729, 16, 72), (10, 729, 16, 72), None),                    # SigLIP's D = 72: no workspace
 ], ids=["gqa_d64", "mha_d64", "d72"])
 def test_bwd_workspace_shape_routes_by_head_dim(q_shape, k_shape, want):
     assert fa.bwd_workspace_shape(q_shape, k_shape) == want

@@ -1,6 +1,13 @@
-"""The port's CUDA flash-attention kernel against its plain PyTorch version on
-the card: ragged tiles, GQA groups, causality over a longer cache, kv masks
-and rows with no valid key.  Needs a CUDA device; skips without one.
+"""The port's CUDA flash-attention kernels against their plain PyTorch version
+on the card: ragged tiles, GQA groups, causality over a longer cache, kv
+masks and rows with no valid key.  Head dim 72 (K1, SigLIP) runs the
+wgmma/TMA kernel of ``csrc/flash_fwd_sm90.cu``: S = 1, 63, 64 and 65 (one
+q tile of a 128-row block, a full 64-row kv tile, one row past it), S = 729
+at B = 2, causality with Sq != Skv, kv masks with whole kv tiles masked, a
+GQA group, with and without the lse, and two launches bit-identical.  Head
+dims 64 and 128 (K3) keep the mma.sync kernel of ``csrc/flash_fwd.cuh``,
+which K13's ``full`` arm shares bit for bit.  Needs a CUDA device; skips
+without one.
 
 Run on the card (the tests' conftest imports jax, which the card's machine
 may lack):
@@ -14,7 +21,9 @@ import pytest
 import torch
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
+    _build,
     flash_attention as fa,
+    flash_phase_ablation as k13,
 )
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +47,15 @@ CASES = [
     # (b, sq, skv, hq, hkv, d, causal, n_valid)
     (2, 729, 729, 4, 4, 72, False, None),   # SigLIP-like, ragged last tile
     (1, 65, 65, 3, 3, 72, True, None),
+    (1, 1, 1, 4, 4, 72, False, None),       # d = 72: one row, one key
+    (2, 63, 63, 4, 4, 72, False, None),     # one row short of a kv tile
+    (2, 64, 64, 4, 4, 72, False, None),     # exactly one kv tile
+    (2, 65, 65, 4, 4, 72, False, None),     # one row past it
+    (2, 200, 200, 4, 4, 72, True, None),    # causal, both warpgroups' diagonals
+    (1, 100, 230, 2, 2, 72, True, None),    # causal over a longer cache
+    (2, 300, 300, 4, 4, 72, False, 100),    # kv tiles 2-4 with every key masked
+    (1, 200, 232, 4, 4, 72, True, 150),     # causal with a kv mask
+    (1, 130, 130, 4, 2, 72, False, 100),    # a GQA group at d = 72
     (2, 200, 232, 14, 2, 64, True, 150),    # prefill-like: GQA 7, cache > prompt
     (1, 128, 128, 2, 1, 64, False, 64),
     (3, 1, 97, 14, 2, 64, False, 40),       # single query row
@@ -81,3 +99,55 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 16, 16, 2, 2, 32)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, k, v)
+
+
+D72_LSE_CASES = [
+    # (b, sq, skv, causal, n_valid): the SigLIP shape, and a ragged causal
+    # case whose first batch row has no valid key (lse -inf, output 0)
+    (10, 729, 729, False, None),
+    (2, 130, 150, True, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,causal,n_valid", D72_LSE_CASES)
+def test_d72_forward_lse(dev, b, sq, skv, causal, n_valid):
+    """The lse the backward reads, against the plain logsumexp; the output
+    with the lse bit-identical to the output without it."""
+    hq = 16 if sq == 729 else 4
+    q, k, v = _qkv(dev, b, sq, skv, hq, hq, 72, seed=2)
+    mask = None
+    if n_valid is not None:
+        mask = torch.ones(b, skv, dtype=torch.bool, device=dev)
+        mask[0] = False
+    want, want_lse = fa.flash_attention_ref(q, k, v, mask, causal, return_lse=True)
+    mask_u8 = None if mask is None else mask.view(torch.uint8)
+    out, lse = torch.empty_like(q), torch.empty(b, hq, sq, device=dev)
+    _build.flash_fwd(q, k, v, mask_u8, out, lse, causal, 72**-0.5)
+    bare = torch.empty_like(q)
+    _build.flash_fwd(q, k, v, mask_u8, bare, None, causal, 72**-0.5)
+    torch.cuda.synchronize()
+    assert (out.float() - want.float()).abs().max().item() <= TOL
+    assert torch.equal(out, bare)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
+    if n_valid is not None:
+        assert torch.isneginf(lse[0]).all() and (out[0] == 0).all()
+
+
+def test_d72_forward_is_deterministic(dev):
+    q, k, v = _qkv(dev, 10, 729, 729, 16, 16, 72, seed=3)
+    first = fa.flash_attention(q, k, v)
+    second = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3_keeps_the_k13_full_arm_kernel(dev, d):
+    """K3 still runs the mma.sync kernel of flash_fwd.cuh: K13's ``full``
+    arm, instantiated from the same body, gives the same bits at a ragged S."""
+    q, k, v = _qkv(dev, 2, 200, 200, 4, 2, d, seed=4)
+    with torch.no_grad():
+        k3 = fa.flash_attention_gqa(q, k, v, causal=True)
+    assert torch.equal(k13.phase_ablation_forward(q, k, v, "full"), k3)

@@ -19,8 +19,12 @@ sees faults in outputs whose entries are all small (bf16 rounding alone
 gives ~2e-3); the tests show that it fails a flash backward that drops
 delta and a fused CE backward that drops its softmax term.  The GQA cases
 hold K4 (``csrc/flash_bwd_sm90.cu``) at G = 7 with a ragged S, kv tiles
-whose every key is masked, non-causal and B = 2; two launches of K2 and K4
-must be bit-identical."""
+whose every key is masked, non-causal and B = 2; the d = 72 cases hold K2
+(``csrc/flash_bwd_d72_sm90.cu``) at S = 63, 64 and 65, S = 729 at B = 2,
+causal, with kv tiles whose every key is masked and with a GQA group (at
+S = 1 the exact dq and dk are 0, so a relative error has no meaning: that
+case is held by max abs error alone); two launches of K2 and K4 must be
+bit-identical."""
 
 import pytest
 import torch
@@ -74,6 +78,14 @@ FLASH_CASES = [
     (1, 300, 14, 2, 64, True, 100),        # kv tiles 2-4 with every key masked
     (2, 150, 14, 2, 64, False, 120),       # non-causal GQA, B = 2
     (2, 257, 14, 2, 64, True, 250),        # causal GQA, B = 2, a one-row last tile
+    (2, 63, 4, 4, 72, False, None),        # d = 72: one row short of a tile
+    (2, 64, 4, 4, 72, False, None),        # exactly one tile
+    (2, 65, 4, 4, 72, False, None),        # one row past it
+    (2, 729, 16, 16, 72, False, None),     # SigLIP's heads at B = 2
+    (2, 200, 4, 4, 72, True, None),        # causal
+    (1, 300, 4, 4, 72, False, 100),        # kv tiles 2-4 with every key masked
+    (1, 200, 4, 4, 72, True, 150),         # causal with a kv mask
+    (1, 130, 4, 2, 72, False, 100),        # a GQA group: dk/dv summed over 2 heads in-block
 ]
 
 
@@ -141,6 +153,23 @@ def test_flash_autograd_uses_both_kernels(dev, b, s, hq, hkv, d, causal, n_valid
                                       d**-0.5, lse_n, delta_n, dout)
     for name, a, w in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), want):
         assert _close(a, w), (name, _err(a, w), _fro(a, w))
+
+
+def test_d72_backward_single_key(dev):
+    """S = 1: P = 1, so dS = s (dP - delta) = 0 up to rounding and dq, dk are
+    0; dv = dO.  Held by max abs error (a relative error of two near-zero
+    tensors is noise)."""
+    b, s, h, d = 2, 1, 4, 72
+    q, k, v = _randn(dev, b, s, h, d, seed=1), _randn(dev, b, s, h, d, seed=2), _randn(dev, b, s, h, d, seed=3)
+    dout = _randn(dev, b, s, h, d, seed=4)
+    out, lse = fa.flash_attention_ref(q, k, v, None, False, return_lse=True)
+    delta = fa.attention_delta(out, dout)
+    got = fa.flash_attention_bwd(q, k, v, dout, lse, delta)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_ref(q, k, v, None, False, d**-0.5, lse, delta, dout)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _err(a, w) <= TOL * max(1.0, w.float().abs().max().item()), name
+    assert _close(got[2], dout)
 
 
 def test_forward_lse_and_dead_rows(dev):
@@ -232,3 +261,23 @@ def test_fused_ce_refuses_what_it_does_not_take(dev):
     labels = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="model dim"):
         fc.lse_gold_fwd(h, w, labels)
+
+
+def test_d72_forward_lse_and_dead_rows(dev):
+    """K1's lse and K2 at d = 72 through autograd, with a batch row whose
+    every key is masked and rows with no valid key under causality: finite
+    outputs and gradients, zeros where no key attends."""
+    b, s, h, d = 2, 90, 4, 72
+    q, k, v = _randn(dev, b, s, h, d, seed=9), _randn(dev, b, s, h, d, seed=10), _randn(dev, b, s, h, d, seed=11)
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    mask[0] = False
+    mask[1, :5] = False
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = fa.flash_attention(q, k, v, mask=mask, causal=True)
+    out.float().square().sum().backward()
+    for t in (out, q.grad, k.grad, v.grad):
+        assert torch.isfinite(t.float()).all()
+    assert (out[0] == 0).all() and (out[1, :5] == 0).all()
+    assert (q.grad[0] == 0).all() and (q.grad[1, :5] == 0).all()
+    assert (k.grad[0] == 0).all() and (v.grad[1, :5] == 0).all()
