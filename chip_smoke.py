@@ -80,16 +80,23 @@ instruction counts and times, and the JAX script's phase accounting.
 
 Phase 3 also checks that two launches of the flash kernels and of K10
 give bit-identical outputs, shows that K10's bounds fail a K10 fed scales
-of 1, times K1 with and without the lse, and logs the flash backwards'
-time by kernel (dq, dk/dv and K4's reduce) from torch.profiler.  With
-`--parent DIR` (another checkout of the port, e.g. the parent commit
-unpacked by `git archive` under build/), the script also builds DIR's
-kernels and, with DIR's flash forward, flash backward and K10 launchers in
-place of this checkout's, holds K3 (d=64, d=128), K4 and K10 bit-equal to
-DIR's output, logs K2/K4's split and each kernel's time in turns (parent,
-change, change, parent), runs the [train], [kd] and [kd8] steps twice more
-with DIR's kernels and once more with this checkout's (in turns), and
-[main] and the B=8 evaluator once more beside this checkout's.
+of 1, holds K1 and K3 with the lse (the output bit-equal to the one
+without, the lse to the plain logsumexp) and K3 at both head dims at a
+ragged S, at Sq < Skv with a kv mask and at the evaluator's B = 8 over
+ragged prompts, times K1 and K3 with and without the lse, times K3 on the
+causal work without a kv mask beside SDPA's `is_causal` call (the
+library's speed for that work, not the same function), holds K12
+bit-equal to its plain version, and logs the flash backwards' time by kernel (dq, dk/dv and K4's
+reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
+port, e.g. the parent commit unpacked by `git archive` under build/), the
+script also builds DIR's kernels and, with DIR's flash forward, flash
+backward, K10, K12 and K13 launchers in place of this checkout's, holds
+K1, K2, K4, K10 and K12 (at every shape of INT8_CASES) bit-equal to DIR's
+output and logs whether K3 and each K13 arm are, logs K2/K4's split and
+each kernel's time in turns (parent, change, change, parent), runs the
+[train], [kd] and [kd8] steps twice more with DIR's kernels and once more
+with this checkout's (in turns), and [main] and the B=8 evaluator once
+more beside this checkout's.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
 K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
@@ -235,7 +242,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 KERNELS = {
     "flash_fwd_mha": ("csrc/flash_fwd_sm90.cu", "ops/flash_attention.py:600",
                       lambda: fa.flash_attention.launches),
-    "flash_fwd_gqa": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740",
+    "flash_fwd_gqa": ("csrc/flash_gqa_sm90.cuh", "ops/flash_attention.py:1740",
                       lambda: fa.flash_attention_gqa.head_dim_launches.get(64, 0)),
     "flash_bwd_mha": ("csrc/flash_bwd_d72_sm90.cu", "ops/flash_attention.py:743",
                       lambda: fa.flash_attention_bwd.launches),
@@ -243,7 +250,7 @@ KERNELS = {
                       lambda: fa.flash_attention_gqa_bwd.launches),
     "fused_ce_fwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:238", lambda: fc.lse_gold_fwd.launches),
     "fused_ce_bwd": ("csrc/fused_ce.cu", "ops/fused_ce.py:284", lambda: fc.lse_gold_bwd.launches),
-    "flash_fwd_gqa_d128": ("csrc/flash_fwd.cu", "ops/flash_attention.py:1740",
+    "flash_fwd_gqa_d128": ("csrc/flash_gqa_sm90.cuh", "ops/flash_attention.py:1740",
                            lambda: fa.flash_attention_gqa.head_dim_launches.get(128, 0)),
     "fused_loca_ce_fwd": ("csrc/fused_loca_ce.cu", "ops/fused_loca.py:1103",
                           lambda: fl.loca_ce_fwd.launches),
@@ -258,11 +265,13 @@ KERNELS = {
     "int8_mm": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_matmul.launches),
     "tmat_int8": ("csrc/tmat_int8.cu", "ops/fused_loca.py:1042",
                   lambda: fl.materialize_teacher_logits_int8.launches),
-    # K13, the phase-ablation arms of K3 (the JAX script's two pallas_calls:
-    # :336 for streaming_smem, :375 for every other arm); no path calls them
-    "flash_phase_ablation": ("csrc/flash_phase_ablation_d64.cu", "scripts/flash_phase_ablation.py:375",
+    # K13, the phase-ablation arms of K3: its kernel's template parameter ARM,
+    # instantiated in csrc/flash_phase_ablation_d{64,128}{a,b}.cu (the JAX
+    # script's two pallas_calls: :336 for streaming_smem, :375 for every
+    # other arm); no path calls them
+    "flash_phase_ablation": ("csrc/flash_gqa_sm90.cuh", "scripts/flash_phase_ablation.py:375",
                              lambda: k13.phase_ablation_forward.head_dim_launches.get(64, 0)),
-    "flash_phase_ablation_d128": ("csrc/flash_phase_ablation_d128.cu", "scripts/flash_phase_ablation.py:375",
+    "flash_phase_ablation_d128": ("csrc/flash_gqa_sm90.cuh", "scripts/flash_phase_ablation.py:375",
                                   lambda: k13.phase_ablation_forward.head_dim_launches.get(128, 0)),
 }
 # Every launch count a path is held to: the kernels', and K8's dW kernel.
@@ -413,14 +422,15 @@ def load_parent(root):
     return parent
 
 
-PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8")
+PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8", "int8_quantize", "int8_gemm", "flash_phase_ablation")
 
 
 @contextlib.contextmanager
 def parent_kernels(parent):
-    """Route the flash forward (K1/K3), the flash backward (K2/K4) and K10
-    through the parent's launchers (the same signatures).  The wrappers,
-    their checks and their counters stay this checkout's."""
+    """Route the flash forward (K1/K3), the flash backward (K2/K4), K10, K12
+    (its quantize pass and GEMM) and K13 through the parent's launchers (the
+    same signatures).  The wrappers, their checks and their counters stay
+    this checkout's."""
     saved = {name: getattr(_build, name) for name in PARENT_LAUNCHERS}
     for name in PARENT_LAUNCHERS:
         setattr(_build, name, getattr(parent, name))
@@ -490,11 +500,80 @@ def _theirs(parent, fn):
     return run
 
 
+LSE_TOL = 1e-3
+
+
+def _hold_lse(name, got, out_l, lse_l, want_lse) -> None:
+    """A forward run with the lse: its output bit-equal to the run without
+    it, its lse within LSE_TOL of the plain logsumexp where that is finite
+    and -inf where it is (rows with no valid key)."""
+    live = torch.isfinite(want_lse)
+    err = (lse_l[live] - want_lse[live]).abs().max().item() if bool(live.any()) else 0.0
+    same = torch.equal(out_l, got)
+    log(f"[kernel] {name} with the lse: output bit-equal to the one without: {same}; lse max_abs_err={err:.3e} "
+        f"(tol {LSE_TOL}), -inf where the plain lse is: {torch.equal(torch.isfinite(lse_l), live)}")
+    if not (same and err <= LSE_TOL and torch.equal(torch.isfinite(lse_l), live)):
+        raise AssertionError(f"{name}'s lse disagrees with its plain version")
+
+
+# K3 beyond the main paths' two shapes: (label, b, sq, skv, q heads, kv
+# heads, valid keys per batch row or None), causal, at d = 64 and 128.
+K3_CASES = (
+    ("ragged S = 200", 2, 200, 200, 14, 2, None),
+    ("Sq < Skv, a kv mask", 1, 100, 230, 14, 2, [150]),
+    ("the evaluator's B = 8 over ragged prompts", 8, 700, 732, 14, 2, [732, 700, 640, 612, 540, 451, 380, 300]),
+)
+
+
+def k3_cases(dev, g) -> None:
+    """K3 (``flash_attention_gqa``) at K3_CASES at both head dims: output
+    within KERNEL_TOL of the plain version, the lse held by
+    :func:`_hold_lse`, two launches bit-identical."""
+    for d, scale_heads in ((64, 1), (128, 2)):
+        for label, b, sq, skv, hq, hkv, lengths in K3_CASES:
+            hq, hkv = hq * scale_heads, hkv * scale_heads
+            q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+                       for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+            mask = None
+            if lengths is not None:
+                mask = torch.arange(skv, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+            with torch.no_grad():
+                got, again = (fa.flash_attention_gqa(q, k, v, mask=mask, causal=True) for _ in range(2))
+            out_l, lse_l = torch.empty_like(q), torch.empty(b, hq, sq, device=dev)
+            _build.flash_fwd(q, k, v, None if mask is None else mask.view(torch.uint8), out_l, lse_l, True, d**-0.5)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_ref(q, k, v, mask, True, return_lse=True)
+            name = f"flash_fwd_gqa d={d}, {label}"
+            _hold(name, [("out", got, want, KERNEL_TOL)])
+            _hold_lse(name, got, out_l, lse_l, want_lse)
+            log(f"[kernel] {name}: two launches bit-identical: {torch.equal(got, again)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} is not deterministic")
+
+
+def _causal_yardstick(name, q, k, v) -> None:
+    """Log K3's time on the causal work of its first Sq = Skv keys without a
+    kv mask beside SDPA's ``is_causal`` call on the same work: the library's
+    speed for that work (its flash backend), not the same function as the
+    masked call (the masked keys and the padded query rows differ)."""
+    s = q.shape[1]
+    kc, vc = k[:, :s].contiguous(), v[:, :s].contiguous()
+    with torch.no_grad():
+        ms = time_ms(lambda: fa.flash_attention_gqa(q, kc, vc, causal=True), iters=20)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    log(f"[kernel] {name} on the causal work without a kv mask (Sq = Skv = {s}): kernel {ms:.4f} ms, SDPA "
+        f"is_causal {lib:.4f} ms (the library's speed for that work, not the same function as the masked "
+        f"call: the masked keys and padded query rows differ)")
+    del qt, kt, vt, kc, vc
+
+
 def flash_kernel_phase(dev, g, parent=None) -> list:
     """K1-K4 against their plain versions at the main paths' shapes, with
-    K1's time with and without the lse and K2/K4's split by kernel; with
-    ``parent``, each against the parent's kernel in turns (K3 and K4 held
-    bit-equal to it)."""
+    the forwards' times with and without the lse, K3's time beside SDPA's
+    causal call without a mask, and K2/K4's split by kernel; with ``parent``,
+    each against the parent's kernel in turns (K1, K2 and K4, unchanged,
+    held bit-equal to it; K3, redesigned, compared and logged)."""
 
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(torch.bfloat16)
@@ -533,7 +612,8 @@ def flash_kernel_phase(dev, g, parent=None) -> list:
 
         got = kernel()
         torch.cuda.synchronize()
-        err = _hold(c["name"], [("out", got, plain(), KERNEL_TOL)])
+        want, want_lse = fa.flash_attention_ref(q, k, v, mask, c["causal"], return_lse=True)
+        err = _hold(c["name"], [("out", got, want, KERNEL_TOL)])
         again = kernel()
         torch.cuda.synchronize()
         log(f"[kernel] {c['name']}: two launches bit-identical: {torch.equal(got, again)}")
@@ -547,9 +627,15 @@ def flash_kernel_phase(dev, g, parent=None) -> list:
         def with_lse():  # the launcher, as the autograd forward calls it (not counted)
             _build.flash_fwd(q, k, v, mask_u8, out_l, lse_l, c["causal"], d**-0.5)
 
+        with_lse()
+        torch.cuda.synchronize()
+        _hold_lse(c["name"], got, out_l, lse_l, want_lse)
+        del want, want_lse
         log(f"[kernel] {c['name']} with the lse: {time_ms(with_lse, iters=20):.4f} ms")
+        if c["causal"]:
+            _causal_yardstick(c["name"], q, k, v)
         if parent is not None:
-            _same_as_parent(parent, c["name"], kernel, got, must=c["name"] != "flash_fwd_mha")
+            _same_as_parent(parent, c["name"], kernel, got, must=c["name"] == "flash_fwd_mha")
             log_in_turns(c["name"], _theirs(parent, kernel), kernel, iters=20)
             log_in_turns(c["name"] + " with the lse", _theirs(parent, with_lse), with_lse, iters=20)
         qt, kt, vt, kw = _sdpa_inputs(q, k, v, mask, c["causal"])
@@ -557,6 +643,7 @@ def flash_kernel_phase(dev, g, parent=None) -> list:
         del got, again, qt, kt, vt, out_l, lse_l
         results.append(_result(c["name"], err, time_ms(kernel, iters=20), time_ms(plain, iters=5, warmup=1),
                                least, library))
+    k3_cases(dev, g)
 
     bwd_cases = [
         # the training shapes: SigLIP as above; Qwen2 over its own 3072 keys
@@ -596,7 +683,7 @@ def flash_kernel_phase(dev, g, parent=None) -> list:
         log(f"[kernel] {c['name']} split (torch.profiler, ms a call): "
             + ", ".join(f"{n} {ms:.4f}" for n, ms in split.items()))
         if parent is not None:
-            _same_as_parent(parent, c["name"], kernel, got, must=c["name"] == "flash_bwd_gqa")
+            _same_as_parent(parent, c["name"], kernel, got, must=True)
             with parent_kernels(parent):
                 parent_split = kernel_split(kernel)
             log(f"[kernel] {c['name']} parent split (ms a call): "
@@ -689,7 +776,7 @@ def k13_build_stats() -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
 
     def arm_of(line):
-        m = re.search(r"phase_ablation.*flash_fwd_kernelILi(\d+)ELb1ELb0ELi(\d+)E", line)
+        m = re.search(r"kdss_gqa90\d*fwd_kernelILi(\d+)ELb1ELb0ELi(\d+)E", line)
         return (int(m[1]), k13.ARMS[int(m[2])]) if m else None
 
     regs, cur = {}, None
@@ -711,7 +798,7 @@ def k13_build_stats() -> dict:
     return {key: (regs.get(key), sass[key]) for key in sass}
 
 
-def k13_phase(dev) -> list:
+def k13_phase(dev, parent=None) -> list:
     """[k13]: every phase-ablation arm at each of K13_CASES on standard-normal
     bf16 inputs, causal, no mask: each arm against its plain version at the
     kernel's tiling (max abs error <= 2e-2 x max(1, max |plain|) and relative
@@ -721,8 +808,9 @@ def k13_phase(dev) -> list:
     (``flash_attention_gqa``, no mask), a negative control (nostorem's
     output, which keeps no running max and so attends to the last visited
     tile alone, against full's plain version must fail the bounds), then each
-    arm's time
-    and the script's phase accounting."""
+    arm's time and the script's phase accounting; with ``parent``, each arm
+    against the parent's kernel in turns (bit-equality logged, not held: the
+    kernel is redesigned)."""
     g = torch.Generator(device=dev).manual_seed(13)
     results = []
     stats = k13_build_stats()
@@ -768,6 +856,13 @@ def k13_phase(dev) -> list:
             del got, want
         ms = {arm: k13.time_arm(q, k, v, arm, iters=20) for arm in k13.ARMS}
         log(f"[k13] d={d} ms/pass: " + ", ".join(f"{a} {t:.4f}" for a, t in ms.items()))
+        if parent is not None:
+            for arm in k13.ARMS:
+                def run(arm=arm):
+                    return k13.phase_ablation_forward(q, k, v, arm)
+
+                _same_as_parent(parent, f"k13 d={d} {arm}", run, run(), must=False)
+                log_in_turns(f"k13 d={d} {arm}", _theirs(parent, run), run, iters=10)
         # streaming_smem's pass includes the wrapper's shift (PyTorch ops over
         # q and k, as the script's jitted call computes it); its kernel alone:
         shift, out = k13.streaming_shift(q, k, d**-0.5), torch.empty_like(q)
@@ -1037,9 +1132,11 @@ def int8_kernel_phase(dev, g, parent=None) -> list:
     called by the port): for K12 ``torch._int_mm`` on pre-quantized
     operands (the product alone) and bf16 ``torch.mm`` on the dequantized
     weight; for K10 bf16 ``torch.mm`` against the dequantized head, what the
-    bf16 head costs.  Two negative controls must fail K12's bounds: weight
-    scales of 1 in half the columns, and every row scaled by the first
-    row's amax."""
+    bf16 head costs.  K12 is held bit-equal to its plain version (exact s32
+    sums, the same f32 epilogue), and with ``parent`` to the parent's kernel
+    at every shape, timed in turns.  Two negative controls must fail K12's
+    bounds: weight scales of 1 in half the columns, and every row scaled by
+    the first row's amax."""
     results, worst, first = [], 0.0, None
     for label, n, k, m, kb in INT8_CASES:
         x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
@@ -1056,6 +1153,11 @@ def int8_kernel_phase(dev, g, parent=None) -> list:
         want = plain()
         tol = KERNEL_TOL * max(1.0, want.float().abs().max().item())
         worst = max(worst, _hold(f"int8_mm {label}", [("out", got, want, tol)]))
+        log(f"[kernel] int8_mm {label}: bit-equal to its plain version: {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_mm {label} is not bit-equal to its plain version")
+        if parent is not None:
+            _same_as_parent(parent, f"int8_mm {label}", kernel, got, must=True)
         if first is None:
             bad_ws = ws.clone()
             bad_ws[::2] = 1.0
@@ -1070,6 +1172,8 @@ def int8_kernel_phase(dev, g, parent=None) -> list:
             del bad_ws, one_row
         del got, want
         iters = 200 if n == 1 else 10
+        if parent is not None:
+            log_in_turns(f"int8_mm {label}", _theirs(parent, kernel), kernel, iters=iters)
         ms = time_ms(kernel, iters=iters)
         plain_ms = time_ms(plain, iters=2, warmup=1)
         least = bound(2 * n * k * m, nbytes(x, wq, ws) + n * m * 2, peak=PEAK_INT8_OPS)
@@ -2089,8 +2193,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                         "time K1-K4 and K10 and the [train], [main], [kd], [kd8] and [eval] runs with its "
-                         "kernels beside this checkout's, and hold K3, K4 and K10 bit-equal to its output")
+                         "time K1-K4, K10, K12 and K13 and the [train], [main], [kd], [kd8] and [eval] runs "
+                         "with its kernels beside this checkout's, and hold K1, K2, K4, K10 and K12 bit-equal "
+                         "to its output")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -2121,7 +2226,7 @@ def main() -> int:
                 log(f"[build] {entry}: {line.strip()}")
 
     parent = None if args.parent is None else load_parent(args.parent)
-    kernels = kernel_phase(dev, parent) + k13_phase(dev)
+    kernels = kernel_phase(dev, parent) + k13_phase(dev, parent)
     train = training_phase(dev)
     steps_parent = {}
     if parent is not None:
@@ -2165,7 +2270,7 @@ def main() -> int:
     for name, r in (("train", train), ("kd", kd), ("kd8", kd8)):
         if name in steps_parent:
             log(f"[summary] {card}: [{name}] step {steps_parent[name]['change_ms']:.1f} ms, with the parent's "
-                f"K1-K4/K10 {steps_parent[name]['step_ms']:.1f} ms (means of two runs each, in turns, same "
+                f"kernels {steps_parent[name]['step_ms']:.1f} ms (means of two runs each, in turns, same "
                 f"call); last loss {r['losses'][-1]:.6f} vs {steps_parent[name]['losses'][-1]:.6f}")
     if "main" in steps_parent:
         log(f"[summary] {card}: [main] generate {serve['ms_call']:.1f} ms/call, with the parent's kernels "

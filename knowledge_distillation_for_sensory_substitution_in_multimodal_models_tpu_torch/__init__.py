@@ -28,7 +28,8 @@ in ``ops/flash_attention.py``), the vocab-streaming cross-entropy
 int8 teacher, the w8a8 GEMM (``csrc/int8_mm.cu``, ``ops/int8.py``) and the
 teacher's logits from its int8 head (``csrc/tmat_int8.cu``); and the
 flash forward's phase-ablation arms, a profiling instrument
-(``csrc/flash_phase_ablation_d*.cu``, ``ops/flash_phase_ablation.py``).
+(``csrc/flash_phase_ablation*.cu``, the template parameter of
+``csrc/flash_gqa_sm90.cuh``; ``ops/flash_phase_ablation.py``).
 """
 
 __version__ = "0.1.0"

@@ -45,16 +45,6 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, int box1, const CUt
   tma_load_4d(dst + box1, map, bar, 64, h, row0, b);
 }
 
-// An empty asm that reads and writes every register of a set of A
-// fragments: keeps them live, and unchanged, until after the wgmma_wait that
-// it follows (a wgmma with a register A operand reads it while in flight).
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
 // x = A B^T over d (64 x 64 out), A and B two-box tiles read K-major: box 0
 // of A at a0 and box 1 at a1 (likewise B).  Issues the five wgmmas only; the
 // caller fences, commits and waits.

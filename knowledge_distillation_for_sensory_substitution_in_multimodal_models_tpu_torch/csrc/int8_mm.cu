@@ -30,49 +30,68 @@
 //     per output tile if the GEMM quantized its bf16 tile on every load,
 //     for N*K int8 bytes written and read back (~1/4 of the GEMM's input
 //     bytes at the 7B teacher's shapes);
-//   `int8_gemm`: one block of 4 warps per 128 x 128 output tile (128 x 64
-//     in K12's form), K in steps of 64 through a 3-stage cp.async ring of
-//     int8 tiles (rows past N, rows past M and columns past K zero-filled; K
-//     need only be a multiple of 16, so SigLIP's K = 4304 takes a partial
-//     last step and its M = 4304 a masked last tile); each warp takes its
-//     fragments with ldmatrix and runs mma.sync m16n8k32 s8 x s8 -> s32
-//     over a 64 x 64 sub-tile (64 x 32 in K12's form, which also carries an
-//     f32 sum that takes the s32 sums at each K-block end).  The s32 sum is
-//     exact (|acc| <= 127 * 127 * 18944 < 2^31).
+//   `gemm_kernel`: s8 x s8 -> s32 wgmma (k32 steps), both operands K-major
+//     from 128-byte-swizzled TMA boxes of 128 K bytes (x [N, K] and W [M,
+//     K] are both row-major over K, as int8 wgmma requires).  A persistent
+//     block an SM: one producer warp streams the A and B tiles of a STAGES-
+//     deep ring under mbarriers, across output tiles, and WGS consumer
+//     warpgroups of 64 A rows each multiply them.  Rows past N or M and
+//     bytes past K load as zeros (TMA's fill), so SigLIP's K = 4304 takes a
+//     partial last box and its M = 4304 a masked last tile; K need only be a
+//     multiple of 16 (the row stride TMA takes).  The output tiles run A
+//     tiles fastest, so the blocks in flight share a few W tiles, which stay
+//     in L2.  The s32 sums are exact (|acc| <= 127 * 127 * 18944 < 2^31):
+//     the XLA form keeps one through K; K12's form folds it into an f32 sum
+//     at each K-block end, in the JAX order.
+//   Three shapes of the GEMM: the XLA form at N > 8 (A = x, 128 rows of two
+//   warpgroups, B = a 256-row W tile: 128 s32 accumulators a thread); K12's
+//   form at N > 8 (B = 128 W rows, so that the f32 sum fits beside the s32
+//   one); and N <= 8, decode (A and B swapped: A = 64 W rows, B = the x rows
+//   at n = 8, zero-filled past N), where a 64-row x tile would waste 63/64
+//   of the tensor cores' work on zeros and the weight bytes bound the time.
 //
 // What bounds it on the H100: at the 7B teacher's projections (N = 3072
 // rows, K and M of 3584 and 18944) the product is 70-417 GOP against
 // 30-206 MB of operands and output, so it is bound by the int8 tensor-core
 // rate (1979 TOP/s: 0.21 ms for gate_proj); decode (N = 1) is bound by the
-// weight bytes.  With mma.sync the operands pass through shared memory and
-// registers for every product: a k32 step of a 64 x 64 warp tile loads 4 KB
-// of fragments for 131072 multiply-adds, so shared-memory bandwidth, not
-// the tensor cores, caps this design.  Two blocks of 4 warps share an SM.  wgmma, which reads B from shared memory without the register file,
-// and TMA are the next steps.
+// weight bytes.  The mma.sync kernel this replaces passed every
+// operand through shared memory and registers (a k32 step of a 64 x 64 warp
+// tile loaded 4 KB of fragments for 131072 multiply-adds), so shared-memory
+// bandwidth capped it at ~25% of the int8 peak; wgmma reads both operands
+// from shared memory without the register file, and TMA issues a tile's
+// copy from one thread.
 
-#include "kdss_mma.cuh"
+#include "kdss_sm90.cuh"
 
 namespace kdss_int8 {
 
-using namespace kdss;
+using namespace kdss_sm90;
+using kdss::FULL;
 using bf = __nv_bfloat16;
 
 constexpr int Q_WARPS = 8;  // rows per block of the quantize pass
-constexpr int BM = 128, BK = 64, STAGES = 3;
-constexpr int LDS = BK + 16;  // shared row stride in bytes: conflict-free ldmatrix rows
+constexpr int BK = 128;     // K bytes a stage: one 128-byte swizzle row
 
-// The GEMM's tiling: 2 x 2 warps, each 64 rows x (8 NT) columns.  The XLA
-// form folds its s32 sums into f32 once, in the epilogue, so its warps take
-// 64 columns (128 s32 accumulators a thread); K12's form also carries the
-// f32 sum over K blocks, so its warps take 32.
-template <bool KBLOCK>
-struct Tiling {
-  static constexpr int NT = KBLOCK ? 4 : 8;  // n-tiles of 8 columns per warp
-  static constexpr int BN = 2 * 8 * NT;      // 128 or 64 columns per block
-  static constexpr int THREADS = 128;
-  static constexpr int STAGE = (BM + BN) * LDS;
-  static constexpr int SMEM = STAGES * STAGE;  // 61440 or 46080 bytes, dynamic
+// The GEMM's block: WGS consumer warpgroups of 64 A rows, B tiles of BN rows,
+// a ring of STAGES stages.  SWAP: A = W (output channels), B = x rows.
+template <int WGS_, int BN_, int STAGES_, bool SWAP_, bool KBLOCK_>
+struct Gemm {
+  static constexpr int WGS = WGS_, BN = BN_, STAGES = STAGES_;
+  static constexpr bool SWAP = SWAP_, KBLOCK = KBLOCK_;
+  static constexpr int BM = 64 * WGS;  // A rows of a tile
+  static constexpr int CONSUMERS = 128 * WGS, THREADS = CONSUMERS + 32;
+  static constexpr int ABYTES = BM * BK, STAGE = ABYTES + BN * BK;  // 1024-byte multiples
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;  // full[STAGES], empty[STAGES], alignment slack
+  static constexpr int NACC = BN / 2;                        // s32 accumulators a thread (64 x BN / 128)
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
+using GemmXla = Gemm<2, 256, 4, false, false>;
+using GemmKBlock = Gemm<2, 128, 6, false, true>;
+using GemmDecode = Gemm<1, 8, 8, true, false>;
+using GemmDecodeKBlock = Gemm<1, 8, 8, true, true>;
+// The N at and below which the GEMM swaps A and B.
+constexpr int DECODE_ROWS = 8;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -114,161 +133,204 @@ __global__ void __launch_bounds__(Q_WARPS * 32)
   }
 }
 
-// Rows [r0, r0 + ROWS) x bytes [k0, k0 + 64) of a row-major [R, K] int8
-// matrix into a [ROWS][LDS] stage; rows >= R and bytes >= K zero-filled.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_stage(int8_t* s, const int8_t* g, int r0, int R, int k0, int K) {
-  constexpr int CHUNKS = BK / 16;
+
+// acc (+)= A (64 x 32) B^T (BN x 32) for the four k32 steps of one stage;
+// scale_d = 0 on the first step overwrites acc.  Issues the wgmmas only.
+template <class G>
+__device__ __forceinline__ void mma_stage(int (&acc)[G::NACC], const unsigned char* a, const unsigned char* b,
+                                          bool fresh) {
+  const uint64_t da = desc_kmajor(a), db = desc_kmajor(b);
 #pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const int row = r0 + r, k = k0 + c * 16;
-    const bool ok = row < R && k < K;
-    cp_async16(s + r * LDS + c * 16, ok ? g + (long)row * K + k : g, ok);
+  for (int kk = 0; kk < BK / 32; ++kk) {
+    const int scale_d = fresh && kk == 0 ? 0 : 1;
+    if constexpr (G::BN == 256)
+      wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, scale_d);
+    else if constexpr (G::BN == 128)
+      wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk, scale_d);
+    else
+      wgmma_m64n8k32_s8(acc, da + 2 * kk, db + 2 * kk, scale_d);
   }
 }
 
-template <bool KBLOCK>
-__global__ void __launch_bounds__(Tiling<KBLOCK>::THREADS, 2)
-    int8_gemm(const int8_t* __restrict__ xq, const float* __restrict__ xs, const int8_t* __restrict__ wq,
-              const float* __restrict__ ws, void* __restrict__ out, int N, int K, int M, int k_block,
-              int nkb, int out_f32) {
-  using T = Tiling<KBLOCK>;
-  constexpr int NT = T::NT;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane >> 2, ti = lane & 3;
-  const int wm = warp / 2, wn = warp % 2;
-  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * T::BN;
-  const int nkt = (K + BK - 1) / BK;
-  // this lane's ldmatrix row and byte offsets (see kdss_mma.cuh::ldmatrix_x4)
-  const int a_off = (wm * 64 + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + 16 * (lane / 16);
-  const int b_off = (wn * 8 * NT + (lane % 8) + 8 * (lane / 16)) * LDS + 16 * ((lane / 8) % 2);
-
-  int acc[4][NT][4];
-  float accf[4][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0, accf[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nkt) {
-      load_stage<BM, T::THREADS>(smem + s * T::STAGE, xq, r0, N, s * BK, K);
-      load_stage<T::BN, T::THREADS>(smem + s * T::STAGE + BM * LDS, wq, c0, M, s * BK, K);
+template <class G>
+__global__ void __launch_bounds__(G::THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                const float* __restrict__ xs, const float* __restrict__ ws, void* __restrict__ out, int N, int K,
+                int M, int k_block, int nkb, int out_f32, int n_at, int n_tiles) {
+  constexpr int STAGES = G::STAGES, NACC = G::NACC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BARS);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);                    // the producer, with the stage's bytes
+      mbar_init(empty + s, G::CONSUMERS / 32);   // one arrival per consumer warp
     }
-    cp_async_commit();
+    fence_barrier_init();
   }
+  __syncthreads();
+  const int nkt = (K + BK - 1) / BK;
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed; every warp is done with stage kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < nkt) {
-      int8_t* s = smem + (next % STAGES) * T::STAGE;
-      load_stage<BM, T::THREADS>(s, xq, r0, N, next * BK, K);
-      load_stage<T::BN, T::THREADS>(s + BM * LDS, wq, c0, M, next * BK, K);
-    }
-    cp_async_commit();
-
-    const int8_t* as = smem + (kt % STAGES) * T::STAGE;
-    const int8_t* bs = as + BM * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[4][4], bfr[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(af[mt], as + a_off + mt * 16 * LDS + ks);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bs + b_off + np * 16 * LDS + ks);
-        bfr[2 * np][0] = r[0], bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2], bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma16832_s8(acc[mt][nt], af[mt], bfr[nt]);
-    }
-
-    // K12's form, at the end of a K block (k_block a multiple of BK, or
-    // the end of K): fold the exact s32 sums into f32 with the rows'
-    // scales of this block.
-    if (KBLOCK && (kt == nkt - 1 || ((kt + 1) * BK) % k_block == 0)) {
-      const int kb = kt * BK / k_block;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int ra = r0 + wm * 64 + mt * 16 + gi, rb = ra + 8;
-        const float sa = ra < N ? xs[(long)ra * nkb + kb] : 0.f;
-        const float sb = rb < N ? xs[(long)rb * nkb + kb] : 0.f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            accf[mt][nt][e] = __fadd_rn(accf[mt][nt][e],
-                                        __fmul_rn(__int2float_rn(acc[mt][nt][e]), e < 2 ? sa : sb));
-            acc[mt][nt][e] = 0;
-          }
+  if (threadIdx.x >= G::CONSUMERS) {  // producer: one thread streams every tile's stages
+    if (threadIdx.x != G::CONSUMERS) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int a0 = t % n_at * G::BM, b0 = t / n_at * G::BN;
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(empty + s, phase ^ 1);
+        mbar_arrive_expect_tx(full + s, G::STAGE);
+        unsigned char* st = smem + s * G::STAGE;
+        tma_load_2d(st, &map_a, full + s, kt * BK, a0);
+        tma_load_2d(st + G::ABYTES, &map_b, full + s, kt * BK, b0);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
-  // y = (acc * row scale) * ws per output channel (the XLA form: its one
-  // K block's sum), or accf * ws (K12's); M is even, so a pair never
-  // straddles M.
+  // consumer warpgroup wg: A rows a0 + 64 wg + 16 warp + gi (+ 8) of each tile
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int gi = lane >> 2, ti = lane & 3;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int a0 = t % n_at * G::BM, b0 = t / n_at * G::BN;
+    // accumulator i of this thread: A row ar + 8 ((i / 2) % 2), B row br + 8 (i / 4) + (i % 2)
+    const int ar = a0 + 64 * wg + 16 * warp + gi, br = b0 + 2 * ti;
+    auto x_row = [&](int i) { return G::SWAP ? br + 8 * (i / 4) + (i % 2) : ar + 8 * ((i / 2) % 2); };
+    int acc[NACC];
+    float accf[NACC];  // K12's form: the f32 sum over K blocks
+    if constexpr (G::KBLOCK) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+      for (int i = 0; i < NACC; ++i) accf[i] = 0.f;
+    }
+    bool fresh = true;
+    int prev = 0;
+    for (int kt = 0; kt < nkt; ++kt) {
+      mbar_wait(full + s, phase);
+      const unsigned char* st = smem + s * G::STAGE;
+      wgmma_fence();
+      mma_stage<G>(acc, st + wg * 64 * BK, st + G::ABYTES, fresh);
+      wgmma_commit();
+      fresh = false;
+      if constexpr (G::KBLOCK) {
+        // Every stage's products end here (a wait that depends on the K
+        // block, to keep one group in flight between folds, made ptxas
+        // serialize the wgmmas: slower, PERF.md).
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(empty + s);
+        // at a K-block end (k_block a multiple of BK, or the end of K):
+        // fold the exact s32 sums into f32 with the rows' scales of this block
+        if (kt == nkt - 1 || (kt + 1) * BK % k_block == 0) {
+          const int kb = kt * BK / k_block;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + wm * 64 + mt * 16 + gi + h * 8;
-      if (row >= N) continue;
-      const float srow = KBLOCK ? 1.f : xs[row];
+          for (int i = 0; i < NACC; ++i) {
+            const int xr = x_row(i);
+            const float sc = xr < N ? xs[static_cast<long>(xr) * nkb + kb] : 0.f;
+            accf[i] = __fadd_rn(accf[i], __fmul_rn(__int2float_rn(acc[i]), sc));
+          }
+          fresh = true;
+        }
+      } else {
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kt > 0 && lane == 0) mbar_arrive(empty + prev);
+        prev = s;
+      }
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    if constexpr (!G::KBLOCK) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + prev);
+    }
+
+    // y = (acc * row scale) * ws per output channel (the XLA form: its one
+    // K block's sum), or accf * ws (K12's).
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = c0 + wn * 8 * NT + nt * 8 + ti * 2;
-        if (col >= M) continue;
+    for (int i = 0; i < NACC; i += 2) {
+      const int xr = x_row(i);
+      if constexpr (G::SWAP) {
+        const int ch = ar + 8 * ((i / 2) % 2);
+        if (ch >= M) continue;
+        const float w = ws[ch];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (xr + e >= N) continue;
+          const float sum = G::KBLOCK ? accf[i + e] : __fmul_rn(__int2float_rn(acc[i + e]), xs[xr + e]);
+          const float y = __fmul_rn(sum, w);
+          const long o = static_cast<long>(xr + e) * M + ch;
+          if (out_f32)
+            static_cast<float*>(out)[o] = y;
+          else
+            static_cast<bf*>(out)[o] = __float2bfloat16_rn(y);
+        }
+      } else {
+        const int col = b0 + 8 * (i / 4) + 2 * ti;  // M is even, so a pair never straddles M
+        if (xr >= N || col >= M) continue;
+        const float srow = G::KBLOCK ? 1.f : xs[xr];
         float v[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float sum = KBLOCK ? accf[mt][nt][2 * h + j]
-                                   : __fmul_rn(__int2float_rn(acc[mt][nt][2 * h + j]), srow);
-          v[j] = __fmul_rn(sum, ws[col + j]);
+        for (int e = 0; e < 2; ++e) {
+          const float sum = G::KBLOCK ? accf[i + e] : __fmul_rn(__int2float_rn(acc[i + e]), srow);
+          v[e] = __fmul_rn(sum, ws[col + e]);
         }
-        const long o = (long)row * M + col;
+        const long o = static_cast<long>(xr) * M + col;
         if (out_f32)
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v[0], v[1]);
         else
-          *reinterpret_cast<uint32_t*>(static_cast<bf*>(out) + o) = pack_bf16(v[0], v[1]);
+          *reinterpret_cast<uint32_t*>(static_cast<bf*>(out) + o) = kdss::pack_bf16(v[0], v[1]);
       }
     }
   }
 }
 
-template <bool KBLOCK>
-cudaError_t launch_gemm(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int N,
-                        int K, int M, int k_block, int nkb, int out_f32, cudaStream_t st) {
-  using T = Tiling<KBLOCK>;
-  if ((M + T::BN - 1) / T::BN > 65535) return cudaErrorInvalidValue;
-  const cudaError_t err =
-      cudaFuncSetAttribute(int8_gemm<KBLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+// A 2-D map of an int8 matrix [rows, K] (row-major, 16-byte aligned, K a
+// multiple of 16): dims {K, rows}, boxes of 128 K bytes x `box_rows` rows
+// with the 128-byte swizzle; ops/int8.py::tma_map states the same map.
+inline cudaError_t int8_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(K)};
+  const uint32_t box[2] = {BK, static_cast<uint32_t>(box_rows)};
+  return kdss_sm90_host::make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <class G>
+cudaError_t launch_gemm(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int N, int K,
+                        int M, int k_block, int nkb, int out_f32, cudaStream_t st) {
+  const int ra = G::SWAP ? M : N, rb = G::SWAP ? N : M;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = int8_map(&map_a, G::SWAP ? wq : xq, ra, K, G::BM);
+  if (err == cudaSuccess) err = int8_map(&map_b, G::SWAP ? xq : wq, rb, K, G::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BM - 1) / BM, (M + T::BN - 1) / T::BN);  // row tiles fastest: W is read ~once
-  int8_gemm<KBLOCK><<<grid, T::THREADS, T::SMEM, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(ws), out, N, K, M, k_block, nkb, out_f32);
+  const int n_at = (ra + G::BM - 1) / G::BM;
+  const long n_tiles = static_cast<long>(n_at) * ((rb + G::BN - 1) / G::BN);
+  if (n_tiles > (1L << 30)) return cudaErrorInvalidValue;
+  const int grid = n_tiles < sms ? static_cast<int>(n_tiles) : sms;
+  gemm_kernel<G><<<grid, G::THREADS, G::SMEM, st>>>(map_a, map_b, static_cast<const float*>(xs),
+                                                    static_cast<const float*>(ws), out, N, K, M, k_block, nkb,
+                                                    out_f32, n_at, static_cast<int>(n_tiles));
   return cudaGetLastError();
 }
 
 int n_blocks(int K, int k_block) { return (K + k_block - 1) / k_block; }
 
 bool shapes_ok(int N, int K, int k_block) {
-  return N > 0 && K > 0 && K % 16 == 0 && k_block > 0 && k_block % 8 == 0 &&
-         (k_block >= K || k_block % BK == 0);
+  return N > 0 && K > 0 && K % 16 == 0 && k_block > 0 && (k_block >= K || k_block % BK == 0);
 }
 
 }  // namespace kdss_int8
@@ -292,14 +354,21 @@ int kdss_int8_quantize(const void* x, void* xq, void* xs, int N, int K, int k_bl
 }
 
 // Pass 2 of K12.  out [N, M] (f32 if out_f32, else bf16) from xq, xs (pass
-// 1's, same k_block), wq int8 [M, K] and ws f32 [M]; M a multiple of 8.
+// 1's, same k_block), wq int8 [M, K] and ws f32 [M]; M a multiple of 8, K of
+// 16, k_block >= K or a multiple of 128.
 int kdss_int8_gemm(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int N,
                    int K, int M, int k_block, int out_f32, void* stream) {
   if (!shapes_ok(N, K, k_block) || M <= 0 || M % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nkb = n_blocks(K, k_block);
-  return static_cast<int>(nkb == 1 ? launch_gemm<false>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st)
-                                   : launch_gemm<true>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st));
+  cudaError_t err;
+  if (N <= DECODE_ROWS)
+    err = nkb == 1 ? launch_gemm<GemmDecode>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st)
+                   : launch_gemm<GemmDecodeKBlock>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st);
+  else
+    err = nkb == 1 ? launch_gemm<GemmXla>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st)
+                   : launch_gemm<GemmKBlock>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

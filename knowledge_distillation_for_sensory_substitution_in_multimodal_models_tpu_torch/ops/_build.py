@@ -102,10 +102,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        # q, k, v, kv_mask, out, lse, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
-        "kdss_flash_fwd": [vp] * 6 + [ci] * 7 + [cf, vp],
-        # q, k, v, out, shift, B, S, Hq, Hkv, D, arm, scale, stream
-        "kdss_flash_phase_ablation": [vp] * 5 + [ci] * 6 + [cf, vp],
+        # q, k, v, kv_mask, out, lse, next_tile, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+        "kdss_flash_fwd": [vp] * 7 + [ci] * 7 + [cf, vp],
+        # q, k, v, out, next_tile, shift, B, S, Hq, Hkv, D, arm, scale, stream
+        "kdss_flash_phase_ablation": [vp] * 6 + [ci] * 6 + [cf, vp],
         # q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, part, B, Sq, Skv, Hq, Hkv, D, causal,
         # scale, stream
         "kdss_flash_bwd": [vp] * 11 + [ci] * 7 + [cf, vp],
@@ -167,13 +167,19 @@ def _aligned(*ts) -> None:
             raise ValueError("kernel operands must be 16-byte aligned")
 
 
+def _tile_counter(device):
+    """One int32 of device memory: the persistent flash kernels' tile
+    counter, which the launch sets to 0 on the stream."""
+    return torch.empty(1, dtype=torch.int32, device=device)
+
+
 def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None:
     """Flash forward (K1/K3); ``lse`` f32 [B, Hq, Sq] or None."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _aligned(q, k, v, out)
     _launch("kdss_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kv_mask_u8), out.data_ptr(), _ptr(lse),
+            _ptr(kv_mask_u8), out.data_ptr(), _ptr(lse), _tile_counter(q.device).data_ptr(),
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
@@ -184,7 +190,8 @@ def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
     b, s, hq, d = q.shape
     _aligned(q, k, v, out)
     _launch("kdss_flash_phase_ablation", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), _ptr(shift), b, s, hq, k.shape[2], d, int(arm), float(scale))
+            out.data_ptr(), _tile_counter(q.device).data_ptr(), _ptr(shift), b, s, hq, k.shape[2], d,
+            int(arm), float(scale))
 
 
 def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,

@@ -11,10 +11,12 @@ True = attend); ``causal``; ``scale`` (default D**-0.5).
 * :func:`flash_attention_gqa` is the grouped-query path (the Qwen2 prefill):
   K/V are read by kv head ``h // G``, never repeated.
 
-Both run a hand-written CUDA kernel on a CUDA tensor, one kernel a head dim
-(the C entry of ``csrc/flash_fwd.cu`` routes them): D = 72, SigLIP's, the
-wgmma/TMA kernel of ``csrc/flash_fwd_sm90.cu``; D = 64 and 128 the mma.sync
-kernel of ``csrc/flash_fwd.cuh``.  A CPU tensor takes the plain PyTorch
+Both run a hand-written CUDA kernel on a CUDA tensor (the C entry of
+``csrc/flash_fwd.cu`` routes the head dims), each a persistent wgmma kernel
+fed by TMA under mbarriers: D = 72, SigLIP's, ``csrc/flash_fwd_sm90.cu``;
+D = 64 and 128, the Qwen2 prefills, ``csrc/flash_gqa_sm90.cuh`` (whose
+blocks :data:`GQA_SHAPES` states, and whose TMA maps
+:func:`tma_head_map`).  A CPU tensor takes the plain PyTorch
 version :func:`flash_attention_ref` (one function for both paths: G = 1 is
 the MHA case).  On a CUDA tensor the wrapper launches the kernel or raises;
 nothing falls back.
@@ -62,6 +64,39 @@ KERNEL_HEAD_DIMS = (64, 72, 128)
 BWD_HEAD_DIMS = (64, 72)
 # The head dim whose backward runs the wgmma kernels (csrc/flash_bwd_sm90.cu).
 WGMMA_BWD_HEAD_DIM = 64
+# The block of the D = 64 / 128 forward (csrc/flash_gqa_sm90.cuh, Shape<D>):
+# head dim -> (consumer warpgroups of 64 q rows, kv tile rows, K/V stages).
+GQA_SHAPES = {64: (3, 64, 4), 128: (2, 128, 2)}
+# TMA's limits on a tiled map (CUDA driver API, cuTensorMapEncodeTiled).
+TMA_MAX_BOX = 256
+TMA_SWIZZLE_BYTES = 128
+
+
+def tma_head_map(shape, rows: int) -> dict:
+    """The tensor map the flash kernels load a bf16 BSHD tensor [B, S, H, D]
+    through (``tma_head_map`` / ``head_map`` in ``csrc/flash_gqa_sm90.cuh``
+    and ``csrc/flash_d72_sm90.cuh``): dims {D, H, S, B} innermost first, the
+    byte strides of dims 1-3, a box of 64 columns (128 bytes, the swizzle
+    span) x ``rows`` rows of one head, and the boxes a row takes (columns
+    past D zero-filled).  Raises ValueError for a map TMA cannot encode."""
+    b, s, h, d = (int(x) for x in shape)
+    row = 2 * d
+    strides = (row, row * h, row * h * s)
+    box = (64, 1, int(rows), 1)
+    if any(x % 16 for x in strides):
+        raise ValueError(f"TMA needs 16-byte strides: head dim {d} gives {strides}")
+    if not 0 < rows <= TMA_MAX_BOX:
+        raise ValueError(f"a TMA box takes 1-{TMA_MAX_BOX} rows, got {rows}")
+    if any(not 0 < x < 2**32 for x in (d, h, s, b)) or strides[-1] >= 2**40:
+        raise ValueError(f"a TMA map takes dims below 2^32 and strides below 2^40, got {tuple(shape)}")
+    return dict(dims=(d, h, s, b), strides=strides, box=box, boxes=-(-d // 64),
+                box_bytes=box[0] * 2 * rows)
+
+
+def gqa_tiles(b: int, sq: int, hq: int, d: int) -> int:
+    """The (q tile, q head, batch) tiles of the D = 64 / 128 forward: what its
+    persistent blocks walk, longest first under causality."""
+    return -(-sq // (64 * GQA_SHAPES[d][0])) * hq * b
 
 
 def bwd_workspace_shape(q_shape, k_shape):
@@ -211,6 +246,14 @@ def kernel_args(q, k, v, kv_mask, head_dims=KERNEL_HEAD_DIMS):
         if kv_mask.shape != (b, k.shape[1]) or kv_mask.dtype != torch.bool:
             raise ValueError("kv_mask must be bool [B, Skv]")
         kv_mask = kv_mask.contiguous().view(torch.uint8)
+    if b > 65535 or hq > 65535:
+        raise ValueError(f"the kernels take B and Hq up to 65535, got {b} and {hq}")
+    if d in GQA_SHAPES:
+        wgs, bk, _ = GQA_SHAPES[d]
+        tma_head_map(q.shape, 64 * wgs)
+        tma_head_map(k.shape, bk)
+        if gqa_tiles(b, sq, hq, d) > 2**30:
+            raise ValueError(f"{gqa_tiles(b, sq, hq, d)} q tiles: the tile counter takes at most 2^30")
     return kv_mask
 
 

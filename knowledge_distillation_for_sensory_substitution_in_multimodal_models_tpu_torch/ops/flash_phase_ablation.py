@@ -2,8 +2,8 @@
 (port of the JAX package's ``scripts/flash_phase_ablation.py``: its
 ``build``, ``_variant_kernel`` and ``_streaming_smem_kernel``).
 
-The arms are a profiling instrument.  Each one keeps K3's grid, tiles and
-memory traffic (``csrc/flash_fwd.cuh``, template parameter ``ARM``) and drops
+The arms are a profiling instrument.  Each one keeps K3's schedule, tiles
+and memory traffic (``csrc/flash_gqa_sm90.cuh``, template parameter ``ARM``) and drops
 or replaces one phase of the online softmax; the differences of their times
 attribute K3's time to its phases.  ``full`` is the shipped kernel itself.
 Shapes as the script builds them: q [B, S, Hq, D], k/v [B, S, Hkv, D] (the
@@ -20,8 +20,9 @@ the package calls them; ``scripts/torch_flash_phase_ablation.py`` and
   tiles a q block visits, so it walks tiles as a kernel does: q blocks of
   ``bq`` rows, kv tiles of ``bk`` rows, a tile visited by a q block that
   reaches it, masked scores set to ``fill``.  The card's kernel runs at
-  ``KERNEL_BLOCK`` x ``KERNEL_BLOCK`` with -inf; the JAX arm at the JAX
-  build's blocks with ``JAX_MASK_VALUE``.
+  ``KERNEL_BLOCK[d]`` with -inf (each 64-row warpgroup visits the kv tiles
+  that reach its own rows); the JAX arm at the JAX build's blocks with
+  ``JAX_MASK_VALUE``.
 * :func:`time_arm` and :func:`accounting` are the timing and the phase
   accounting that the script and ``chip_smoke.py`` share.
 """
@@ -32,7 +33,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-# The order of csrc/flash_fwd.cuh's `enum Arm`.
+from .flash_attention import GQA_SHAPES, flash_attention_ref, kernel_args
+
+# The order of csrc/flash_gqa_sm90.cuh's `enum Arm`.
 ARMS = ("full", "noexp", "nored", "nomax", "nosum", "nosub", "noalpha", "nostorem", "nomaxsum",
         "redonly", "local", "bound", "streaming", "streaming_rowm", "streaming_smem", "mxu")
 # Arms that compute attention: held to ``full`` (the script's check, :440).
@@ -46,9 +49,11 @@ DELTAS = (("nomax", "row max (cross-lane)"), ("nosum", "p sum (cross-lane)"),
           ("nosub", "m broadcast-subtract"), ("noalpha", "alpha rescale chain"),
           ("nostorem", "m broadcast-store"), ("nomaxsum", "both reductions"),
           ("redonly", "all but reductions"))
-# The kernel's q block and kv tile (csrc/flash_fwd.cuh BM, BN).
-KERNEL_BLOCK = 64
 HEAD_DIMS = (64, 128)
+# The kernel's tiling by head dim, (bq, bk): the rows that visit kv tiles
+# together (a 64-row warpgroup, which stops at the last tile that reaches
+# its rows) and the kv tile rows (csrc/flash_gqa_sm90.cuh, Shape<D>).
+KERNEL_BLOCK = {d: (64, GQA_SHAPES[d][1]) for d in HEAD_DIMS}
 # The JAX kernels' masked score (ops/flash_attention.py MASK_VALUE).
 JAX_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The script's `_variant_kernel` starts the running max here (nats).
@@ -131,22 +136,24 @@ def _arm_step(arm, s, m, l, acc, v, qn, kt, masked, scale, c):
 
 
 def phase_ablation_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, arm: str, *,
-                       bq: int = KERNEL_BLOCK, bk: int = KERNEL_BLOCK,
+                       bq: Optional[int] = None, bk: Optional[int] = None,
                        fill: float = float("-inf")) -> torch.Tensor:
     """Plain PyTorch version of arm ``arm``: q [B, S, Hq, D], k/v [B, S, Hkv, D]
     -> q.dtype [B, S, Hq, D].  ``full`` is K3's plain version
     (``flash_attention_ref``); every other arm walks q blocks of ``bq`` rows
-    and kv tiles of ``bk`` rows as the kernels do, with masked scores set to
-    ``fill``, and ends with acc / (l == 0 ? 1 : l)."""
+    and kv tiles of ``bk`` rows as the kernels do (by default the kernel's,
+    ``KERNEL_BLOCK``), with masked scores set to ``fill``, and ends with
+    acc / (l == 0 ? 1 : l)."""
     if arm not in ARMS:
         raise ValueError(f"unknown arm {arm!r}; one of {ARMS}")
     b, s, hq, d = q.shape
+    if bq is None or bk is None:
+        kbq, kbk = KERNEL_BLOCK.get(d, KERNEL_BLOCK[64])
+        bq, bk = bq or kbq, bk or kbk
     hkv = k.shape[2]
     g = hq // hkv
     scale = d**-0.5
     if arm == "full":
-        from .flash_attention import flash_attention_ref
-
         return flash_attention_ref(q, k, v, None, causal=True, scale=scale)
     dev = q.device
     qg = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, S, D]
@@ -181,8 +188,6 @@ def phase_ablation_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ar
         raise ValueError(f"unknown arm {arm!r}; one of {ARMS}")
     if q.device.type == "cpu":
         return phase_ablation_ref(q, k, v, arm)
-    from .flash_attention import kernel_args
-
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kernel_args(q, k, v, None, HEAD_DIMS)
     if q.device.type != "cuda":

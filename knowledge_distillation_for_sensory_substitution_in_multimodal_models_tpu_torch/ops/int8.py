@@ -10,7 +10,9 @@ Scheme, as in the JAX package (symmetric w8a8):
 * an exact int32 product, rescaled in f32, out in the model dtype.
 
 :func:`int8_matmul` computes the two activation forms of the JAX package
-through one kernel, K12 (``csrc/int8_mm.cu``), chosen by ``k_block``:
+through one kernel, K12 (``csrc/int8_mm.cu``: a quantize pass, then an s8
+wgmma GEMM fed by TMA, whose shapes :func:`gemm_shape` and maps
+:func:`tma_map` state), chosen by ``k_block``:
 
 * ``k_block=None``: one absmax per row over the whole of K, the JAX
   ``int8_matmul_xla``.  It is what ``int8_matmul(impl="auto")`` resolves to,
@@ -50,6 +52,36 @@ QUANTIZED_VISION_NAMES = frozenset({"q_proj", "k_proj", "v_proj", "out_proj", "f
 
 # K12's K-block preference (the JAX ``_INT8_BK``).
 K_BLOCK = 512
+# The GEMM kernel (csrc/int8_mm.cu): K bytes a TMA box and a pipeline stage
+# (one 128-byte swizzle row), the N at and below which A and B swap (decode),
+# and its three shapes, (swapped, A rows a tile, B rows a tile): the XLA form
+# and K12's form at N > DECODE_ROWS, and decode.
+GEMM_BK = 128
+DECODE_ROWS = 8
+GEMM_SHAPES = {"xla": (False, 128, 256), "k_block": (False, 128, 128), "decode": (True, 64, 8)}
+
+
+def gemm_shape(n: int, k: int, k_block: Optional[int]) -> Tuple[bool, int, int]:
+    """The GEMM shape that K12 runs for N rows of x: (A and B swapped, A
+    rows, B rows) of a tile.  Swapped, A is the weight and B the x rows."""
+    if n <= DECODE_ROWS:
+        return GEMM_SHAPES["decode"]
+    return GEMM_SHAPES["xla" if k_block is None or k_block >= k else "k_block"]
+
+
+def tma_map(rows: int, k: int, box_rows: int) -> dict:
+    """The tensor map K12 loads an int8 [rows, K] operand through
+    (``int8_map`` in ``csrc/int8_mm.cu``): dims {K, rows}, the row stride in
+    bytes, boxes of ``GEMM_BK`` K bytes x ``box_rows`` rows with the 128-byte
+    swizzle; the boxes a row takes and the bytes TMA zero-fills past K in
+    the last one.  Raises ValueError for a map TMA cannot encode."""
+    if k % 16:
+        raise ValueError(f"TMA needs a 16-byte row stride: K={k}")
+    if not 0 < box_rows <= 256 or not 0 < rows < 2**32:
+        raise ValueError(f"a TMA box of {box_rows} rows over {rows} rows")
+    boxes = -(-k // GEMM_BK)
+    return dict(dims=(k, rows), strides=(k,), box=(GEMM_BK, box_rows), boxes=boxes,
+                zero_fill=boxes * GEMM_BK - k)
 
 
 def pick_block(dim: int, pref: int = K_BLOCK) -> int:
@@ -113,9 +145,8 @@ def int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
 
 
 def kernel_args(x2: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype, k_block) -> None:
-    """Check what K12 takes; raise ValueError on anything else."""
-    if x2.device.type != "cuda":
-        raise ValueError(f"K12 runs on CUDA tensors, got {x2.device}")
+    """Check what K12 takes; raise ValueError on anything else.  The shape
+    checks come first and need no card, so the CPU tests reach them."""
     if x2.dtype != torch.bfloat16:
         raise ValueError(f"x must be bfloat16, got {x2.dtype}")
     k = x2.shape[1]
@@ -129,10 +160,15 @@ def kernel_args(x2: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype,
             raise ValueError(f"operands on {t.device} and {x2.device}")
     if k % 16 or m % 8:
         raise ValueError(f"K12 takes K a multiple of 16 and M of 8, got K={k}, M={m}")
-    if k_block is not None and (k_block <= 0 or k_block % 64):
-        raise ValueError(f"k_block must be a positive multiple of 64 or None, got {k_block}")
+    if k_block is not None and (k_block <= 0 or k_block % GEMM_BK):
+        raise ValueError(f"k_block must be a positive multiple of {GEMM_BK} or None, got {k_block}")
+    swapped, a_rows, b_rows = gemm_shape(x2.shape[0], k, k_block)
+    tma_map(m if swapped else x2.shape[0], k, a_rows)
+    tma_map(x2.shape[0] if swapped else m, k, b_rows)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if x2.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {x2.device}")
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,

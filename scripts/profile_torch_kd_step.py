@@ -1,14 +1,17 @@
 """Where the time of the PyTorch port's KD train step goes, on one CUDA GPU.
 
     python scripts/profile_torch_kd_step.py [--steps 5] [--layers N] [--kd_mode M --phase P]
-        [--loca_faithful_indexing] [--determinism] [--parent DIR]
+        [--loca_faithful_indexing] [--int8_teacher] [--determinism] [--parent DIR]
 
 Builds a KD step that ``chip_smoke.py`` drives (``--kd_mode`` and
 ``--phase``, by default double_trouble phase 3; double_trouble phase 1, the
 KD CLI's default, feature_based and, with ``--loca_faithful_indexing``, the
 faithful LoCa also run there; the vocabulary losses on the fused kernels),
 the 0.5B student
-against the frozen bf16 LLaVA-OneVision-7B teacher, both at full width and
+against the frozen bf16 LLaVA-OneVision-7B teacher (with ``--int8_teacher``
+quantized in place as ``chip_smoke.py``'s ``[kd8]`` quantizes it:
+int8_full, the int8 embedding and the vocab-major int8 head, so its
+projections run K12 and its logits K10), both at full width and
 depth unless ``--layers`` cuts them, seeded random weights, A=2 x B=1 at
 the SUNRGBD 530x730 frame, with the mode's freeze mask; runs ``--steps``
 unprofiled steps, then:
@@ -22,9 +25,9 @@ unprofiled steps, then:
 
 ``--parent DIR`` (another checkout of the port, e.g. the parent commit
 unpacked by ``git archive``) then profiles three more steps, with DIR's
-flash and K10 kernels, DIR's again and this checkout's, and prints each
-step's device kernel time and its flash groups: a comparison that the
-host's noise does not reach.
+flash, K10 and K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's again
+and this checkout's, and prints each step's device kernel time and its
+flash and int8 groups: a comparison that the host's noise does not reach.
 
 ``--determinism`` asks instead whether the step is bit-reproducible on one
 card: ``--steps`` steps from a fresh student of the same seed, twice in this
@@ -79,10 +82,11 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 ACCUM = 2
 # (group, substrings of the kernel's demangled name), first match wins.
 GROUPS = (
-    ("flash forward D=128 (teacher K3)", ("flash_fwd_kernel<128",)),
+    # K3: csrc/flash_gqa_sm90.cuh (kdss_gqa90; the mma.sync flash_fwd_kernel before)
+    ("flash forward D=128 (teacher K3)", ("kdss_gqa90::fwd_kernel<128", "flash_fwd_kernel<128")),
     # K1 at D = 72: csrc/flash_fwd_sm90.cu (the mma.sync kernel before)
     ("flash forward D=72 (K1)", ("kdss_fwd90", "flash_fwd_kernel<72")),
-    ("flash forward D=64 (student K3)", ("flash_fwd_kernel",)),
+    ("flash forward D=64 (student K3)", ("kdss_gqa90::fwd_kernel<64", "flash_fwd_kernel")),
     # K2 at D = 72: csrc/flash_bwd_d72_sm90.cu's dq and dk/dv kernels
     ("flash backward D=72 (K2)", ("kdss_bwd72", "flash_bwd_dq_kernel<72", "flash_bwd_dkv_kernel<72")),
     # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
@@ -92,6 +96,9 @@ GROUPS = (
     ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
     ("fused CE (K5, K6)", ("ce_fwd", "CERows")),
     ("dh split reductions (K6, K8, K11)", ("reduce_dh",)),
+    # K12's quantize pass and GEMM (the int8 teacher), before cuBLAS's "gemm"
+    ("w8a8 GEMM K12 (int8 teacher)", ("kdss_int8",)),
+    ("int8-head teacher logits K10", ("kdss_tmat",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90_", "cublas")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
 )
@@ -180,11 +187,13 @@ def main() -> int:
                    choices=["logit_based", "feature_based", "double_trouble"])
     p.add_argument("--phase", type=int, default=3, choices=[1, 2, 3])
     p.add_argument("--loca_faithful_indexing", action="store_true")
+    p.add_argument("--int8_teacher", action="store_true",
+                   help="quantize the teacher in place as chip_smoke.py's [kd8] does")
     p.add_argument("--determinism", action="store_true",
                    help="compare the bits of two runs, then run under deterministic mode")
     p.add_argument("--parent", default=None,
                    help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                        "profile the step again with its flash and K10 kernels, in turns with this one's")
+                        "profile the step again with its flash, K10 and K12 kernels, in turns with this one's")
     args = p.parse_args()
     if args.steps < 3:
         p.error("--steps must be at least 3")
@@ -200,6 +209,10 @@ def main() -> int:
     scfg, tcfg = cut(llava_onevision_0_5b(), args.layers), cut(llava_onevision_7b(), args.layers)
     teacher = common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
                                          dtype=torch.bfloat16)
+    if args.int8_teacher:
+        from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import int8
+
+        int8.quantize_model_int8(teacher, include_vision=True, include_embed_head=True)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     loss_cfg = dataclasses.replace(kd_loss_config_for(args.kd_mode),
@@ -234,14 +247,18 @@ def main() -> int:
     micro = {k: v[0] for k, v in tb.items()}
     vocab = student.language_model.embed_tokens.weight.shape[0]
     t_logits_ms = event_ms(lambda: kd_step._teacher_logits(teacher, micro, vocab, lc.temperature))
-    with torch.no_grad():
-        hidden = kd_step._forward_hidden(teacher, micro, "teacher")[0]
-        th = hidden.reshape(-1, hidden.shape[-1])
-        wt = teacher.language_model.lm_head.weight[:vocab]
-        tmat_ms = event_ms(lambda: torch.mm(th, wt.T, out_dtype=torch.float32))
-        del hidden, th
-    print(f"[teacher] per micro-batch: forward + logits {t_logits_ms:.3f} ms, of which the f32 "
-          f"logit product [{3072}, {vocab}] {tmat_ms:.3f} ms (CUDA events)", flush=True)
+    if args.int8_teacher:  # the logits are K10's, inside the profile's K10 group
+        print(f"[teacher] int8 teacher per micro-batch: forward + logits {t_logits_ms:.3f} ms (CUDA events)",
+              flush=True)
+    else:
+        with torch.no_grad():
+            hidden = kd_step._forward_hidden(teacher, micro, "teacher")[0]
+            th = hidden.reshape(-1, hidden.shape[-1])
+            wt = teacher.language_model.lm_head.weight[:vocab]
+            tmat_ms = event_ms(lambda: torch.mm(th, wt.T, out_dtype=torch.float32))
+            del hidden, th
+        print(f"[teacher] per micro-batch: forward + logits {t_logits_ms:.3f} ms, of which the f32 "
+              f"logit product [{3072}, {vocab}] {tmat_ms:.3f} ms (CUDA events)", flush=True)
 
     def profiled_step(state):
         """One step under torch.profiler: (state, metrics, device ms by group,
@@ -270,7 +287,9 @@ def main() -> int:
 
     state, metrics, groups, count, other, ranges = profiled_step(state)
     busy = sum(groups.values())
-    print(f"[profile] {args.kd_mode} phase {args.phase}: one step (A={ACCUM} x B=1), loss {metrics['loss'].item():.6f}: device kernel time "
+    teacher_tag = ", int8 teacher" if args.int8_teacher else ""
+    print(f"[profile] {args.kd_mode} phase {args.phase}{teacher_tag}: one step (A={ACCUM} x B=1), "
+          f"loss {metrics['loss'].item():.6f}: device kernel time "
           f"{busy:.1f} ms, {100 * busy / step_ms:.1f}% of the unprofiled step", flush=True)
     if busy == 0:
         print("[profile] the profiler saw no device kernels", flush=True)
@@ -283,9 +302,9 @@ def main() -> int:
     for name, ms in ranges.most_common(5):
         print(f"[profile] annotation range, not counted: {ms:.2f} ms  {name}", flush=True)
     if args.parent is not None:
-        # the same step's device kernel time with the parent's flash and K10
-        # launchers, in turns with this checkout's: change (above), parent,
-        # parent, change
+        # the same step's device kernel time with the parent's flash, K10 and
+        # K12 launchers, in turns with this checkout's: change (above),
+        # parent, parent, change
         import chip_smoke
 
         parent = chip_smoke.load_parent(args.parent)
@@ -296,7 +315,7 @@ def main() -> int:
             runs.append((sum(g.values()), g))
         print("[parent] device kernel time of a step, change / parent / parent / change: "
               + " / ".join(f"{b:.1f}" for b, _ in runs) + " ms", flush=True)
-        for name in [g for g, _ in GROUPS if g.startswith("flash")]:
+        for name in [g for g, _ in GROUPS if g.startswith(("flash", "w8a8", "int8"))]:
             print(f"[parent] {name}: " + " / ".join(f"{g[name]:.2f}" for _, g in runs) + " ms", flush=True)
     return 0
 

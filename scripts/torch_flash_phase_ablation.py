@@ -3,7 +3,7 @@ the card, by ablation: the PyTorch/CUDA counterpart of
 scripts/flash_phase_ablation.py's main().
 
 Every arm (``ops/flash_phase_ablation.py``; the kernel is
-``csrc/flash_fwd.cuh`` with its ``ARM`` template parameter) keeps K3's grid,
+``csrc/flash_gqa_sm90.cuh`` with its ``ARM`` template parameter) keeps K3's schedule,
 tiles and memory traffic and drops or replaces one phase of the online
 softmax; differences of the arms' times attribute K3's time to its phases.
 Each arm is first held to its plain version (and the exact arms to
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
             if not vs_full <= k13.TOL:
                 raise SystemExit(f"{arm} arm diverged from full: {vs_full}")
         ms[arm] = k13.time_arm(q, k, v, arm, args.iters)
-        print(f"{arm:15s} {ms[arm]:.4f} ms/pass  (blocks bq, bk = {k13.KERNEL_BLOCK}, {k13.KERNEL_BLOCK}); {line}",
+        print(f"{arm:15s} {ms[arm]:.4f} ms/pass  (blocks bq, bk = {k13.KERNEL_BLOCK[args.head_dim]}); {line}",
               flush=True)
     for line in k13.accounting(ms, s, args.heads, d, b):
         print(line)

@@ -5,9 +5,13 @@ wgmma/TMA kernel of ``csrc/flash_fwd_sm90.cu``: S = 1, 63, 64 and 65 (one
 q tile of a 128-row block, a full 64-row kv tile, one row past it), S = 729
 at B = 2, causality with Sq != Skv, kv masks with whole kv tiles masked, a
 GQA group, with and without the lse, and two launches bit-identical.  Head
-dims 64 and 128 (K3) keep the mma.sync kernel of ``csrc/flash_fwd.cuh``,
-which K13's ``full`` arm shares bit for bit.  Needs a CUDA device; skips
-without one.
+dims 64 and 128 (K3) run the wgmma/TMA kernel of ``csrc/flash_gqa_sm90.cuh``
+(persistent, tiles drawn from a counter): a ragged S = 200, Sq < Skv, kv
+masks with B > 1 and different valid lengths, a batch row with no valid key
+(zeros and lse -inf), the lse against the plain logsumexp, the output with
+the lse bit-identical to the output without it, two launches
+bit-identical; K13's ``full`` arm is the same kernel, bit for bit.  Needs a
+CUDA device; skips without one.
 
 Run on the card (the tests' conftest imports jax, which the card's machine
 may lack):
@@ -15,7 +19,8 @@ may lack):
 
 Tolerance: max abs error 2e-2 after an f32 cast — bf16 output (8-bit
 mantissa) of values of magnitude up to ~4, and the kernel rounds the
-probabilities to bf16 before the PV product."""
+probabilities to bf16 before the PV product; the lse within 1e-3 (f32 sums
+in another order)."""
 
 import pytest
 import torch
@@ -143,10 +148,63 @@ def test_d72_forward_is_deterministic(dev):
     assert torch.equal(first, second)
 
 
+K3_CASES = [
+    # (b, sq, skv, hq, hkv, causal, valid keys per batch row or None)
+    (2, 200, 200, 4, 2, True, None),            # ragged S, no mask
+    (1, 100, 230, 14, 2, True, None),           # Sq < Skv, causal over a longer cache
+    (3, 130, 230, 14, 2, True, [230, 150, 61]),  # B > 1, different valid lengths
+    (2, 200, 200, 14, 2, False, [200, 77]),     # a kv mask without causality
+    (8, 65, 300, 7, 1, True, [300, 260, 211, 180, 150, 99, 70, 64]),  # the evaluator's B = 8 over ragged prompts
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,causal,lengths", K3_CASES)
+def test_k3_matches_plain_with_and_without_lse(dev, d, b, sq, skv, hq, hkv, causal, lengths):
+    """K3's output against the plain version, its lse against the plain
+    logsumexp, the output written with the lse bit-identical to the one
+    written without it, and two launches bit-identical."""
+    q, k, v = _qkv(dev, b, sq, skv, hq, hkv, d, seed=5)
+    mask = None
+    if lengths is not None:
+        mask = torch.arange(skv, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    with torch.no_grad():
+        got = fa.flash_attention_gqa(q, k, v, mask=mask, causal=causal)
+        again = fa.flash_attention_gqa(q, k, v, mask=mask, causal=causal)
+    out, lse = torch.empty_like(q), torch.empty(b, hq, sq, device=dev)
+    _build.flash_fwd(q, k, v, None if mask is None else mask.view(torch.uint8), out, lse, causal, d**-0.5)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_ref(q, k, v, mask, causal, return_lse=True)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert torch.equal(got, again) and torch.equal(out, got)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3_rows_without_a_valid_key(dev, d):
+    """A batch row whose keys are all masked outputs zeros and lse -inf; so do
+    the first rows of a row whose first keys are masked under causality."""
+    q, k, v = _qkv(dev, 2, 150, 180, 14, 2, d, seed=6)
+    mask = torch.ones(2, 180, dtype=torch.bool, device=dev)
+    mask[0] = False
+    mask[1, :70] = False
+    out, lse = torch.empty_like(q), torch.empty(2, 14, 150, device=dev)
+    _build.flash_fwd(q, k, v, mask.view(torch.uint8), out, lse, True, d**-0.5)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q, k, v, mask, True)
+    assert torch.isfinite(out.float()).all()
+    assert (out[0] == 0).all() and (out[1, :70] == 0).all()
+    assert torch.isneginf(lse[0]).all() and torch.isneginf(lse[1, :, :70]).all()
+    assert torch.isfinite(lse[1, :, 70:]).all()
+    assert (out.float() - want.float()).abs().max().item() <= TOL
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_k3_keeps_the_k13_full_arm_kernel(dev, d):
-    """K3 still runs the mma.sync kernel of flash_fwd.cuh: K13's ``full``
-    arm, instantiated from the same body, gives the same bits at a ragged S."""
+    """K3 and K13's ``full`` arm are one instantiation of
+    flash_gqa_sm90.cuh's kernel: the same bits at a ragged S."""
     q, k, v = _qkv(dev, 2, 200, 200, 4, 2, d, seed=4)
     with torch.no_grad():
         k3 = fa.flash_attention_gqa(q, k, v, causal=True)

@@ -106,7 +106,7 @@ def test_exact_arms_are_attention(inputs, arm):
     attention agree with the port's ``flash_attention_ref``."""
     q, k, v = inputs
     want = fa.flash_attention_ref(q, k, v, None, causal=True).float()
-    for bq, bk in ((128, 128), (k13.KERNEL_BLOCK, k13.KERNEL_BLOCK)):
+    for bq, bk in ((128, 128), k13.KERNEL_BLOCK[D]):
         got = k13.phase_ablation_ref(q, k, v, arm, bq=bq, bk=bk).float()
         assert (got - want).abs().max().item() <= TOL, (arm, bq, bk)
 
@@ -125,7 +125,8 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(inputs):
     k13.reset_launch_counts()
     for arm in ("full", "nosum", "mxu"):
         got = k13.phase_ablation_forward(q, k, v, arm)
-        want = k13.phase_ablation_ref(q, k, v, arm, bq=64, bk=64, fill=float("-inf"))
+        bq, bk = k13.KERNEL_BLOCK[D]
+        want = k13.phase_ablation_ref(q, k, v, arm, bq=bq, bk=bk, fill=float("-inf"))
         assert torch.equal(torch.isfinite(got), torch.isfinite(want))
         assert torch.equal(got[torch.isfinite(got)], want[torch.isfinite(want)])
     assert k13.phase_ablation_forward.launches == 0
@@ -145,3 +146,26 @@ def test_accounting_lines():
     assert "softmax total            0.1200" in lines[10]
     assert abs(k13.tensor_core_floor_ms(3072, 14, 64) - 0.0171) < 1e-4
     assert abs(k13.tensor_core_floor_ms(3072, 28, 128) - 0.0684) < 1e-4
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_block_is_the_kernels_tiling(d):
+    """The plain walk's default tiling is the kernel's: 64-row warpgroups over
+    kv tiles of the kernel's width (csrc/flash_gqa_sm90.cuh, Shape<D>)."""
+    assert k13.KERNEL_BLOCK[d] == (64, fa.GQA_SHAPES[d][1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("arm", k13.EXACT_ARMS)
+def test_exact_arms_at_the_kernel_blocks(arm, d):
+    """At the kernel's tiling of each head dim, at a ragged S (the last kv tile
+    and the last warpgroup's rows partial), the arms that compute attention
+    agree with ``flash_attention_ref``; the default tiling is the kernel's."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 200, h, d)).astype(np.float32)).to(torch.bfloat16)
+               for h in (4, 2, 2))
+    want = fa.flash_attention_ref(q, k, v, None, causal=True).float()
+    bq, bk = k13.KERNEL_BLOCK[d]
+    got = k13.phase_ablation_ref(q, k, v, arm, bq=bq, bk=bk)
+    assert torch.equal(got, k13.phase_ablation_ref(q, k, v, arm))
+    assert (got.float() - want).abs().max().item() <= TOL, (arm, d)

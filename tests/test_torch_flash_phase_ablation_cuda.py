@@ -1,9 +1,12 @@
 """K13 on the card (``csrc/flash_phase_ablation_d*.cu``: the phase-ablation
-arms of the causal flash forward, ``csrc/flash_fwd.cuh``) against its plain
-versions at small shapes, a ragged sequence included.
+arms of the causal flash forward, ``csrc/flash_gqa_sm90.cuh``'s template
+parameter ARM) against its plain versions at small shapes, ragged sequences
+included (S = 449 at d=64 ends in a 65-row q tile of the 192-row blocks, so
+one warpgroup has no rows and one has one).
 
 * every arm at d=64 and d=128 against ``phase_ablation_ref`` at the
-  kernel's tiling: max abs error <= 2e-2 x max(1, max |plain|) and relative
+  kernel's tiling (``KERNEL_BLOCK``: 64-row warpgroups, the kernel's kv
+  tiles): max abs error <= 2e-2 x max(1, max |plain|) and relative
   Frobenius error <= 1e-2 where both are finite, non-finite at the same
   positions (noexp and mxu put masked scores into the PV product; every
   other arm is finite);
@@ -39,7 +42,8 @@ def _inputs(dev, b, s, hq, hkv, d, seed=0):
     return tuple(torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16) for h in (hq, hkv, hkv))
 
 
-@pytest.mark.parametrize("shape", [(2, 320, 4, 2, 64), (1, 200, 6, 2, 128)], ids=["d64", "d128_ragged"])
+@pytest.mark.parametrize("shape", [(2, 320, 4, 2, 64), (1, 200, 6, 2, 128), (1, 449, 14, 2, 64), (1, 333, 28, 4, 128)],
+                         ids=["d64", "d128_ragged", "d64_ragged_tile", "d128_teacher_heads"])
 @pytest.mark.parametrize("arm", k13.ARMS)
 def test_arm_matches_its_plain_version(dev, shape, arm):
     q, k, v = _inputs(dev, *shape)

@@ -1,7 +1,9 @@
 """The port's int8 kernels on the card against their plain PyTorch versions:
-the w8a8 GEMM (K12, ``csrc/int8_mm.cu``) in the XLA form and in its K-block
-form, at ragged K, M and N, at N = 1 (a decode step) and at a K that the
-K block does not divide; the int8-head teacher logits (K10,
+the w8a8 GEMM (K12, ``csrc/int8_mm.cu``, s8 wgmma fed by TMA) in the XLA
+form and in its K-block form, at ragged K, M and N, at N = 1 (a decode
+step) and at a K that the K block does not divide, and bit for bit at the
+main paths' shapes (``chip_smoke.py``'s INT8_CASES) in both forms, where a
+dropped weight scale breaks the bits; the int8-head teacher logits (K10,
 ``csrc/tmat_int8.cu``) over one and several vocab tiles, an odd vocab that
 ends in a partial tile, one row, a row count one past whole tiles, a D the
 64-column k step does not divide, and hidden states given as an offset
@@ -79,6 +81,31 @@ def test_int8_matmul_matches_plain(dev, n, k, m, k_block, out_dtype):
     assert got.shape == (n, m) and got.dtype == out_dtype
     ok, errs = _close(got, int8.int8_matmul_ref(x, wq, ws, out_dtype, k_block=k_block))
     assert ok, errs
+
+
+# The main paths' shapes (chip_smoke.py's INT8_CASES): (rows N, K, M).
+INT8_SHAPES = [
+    (3072, 3584, 18944),   # teacher gate_proj
+    (3072, 18944, 3584),   # teacher down_proj
+    (7290, 4304, 1152),    # SigLIP fc2: K not a multiple of 32 (a zero-filled last box), a masked last M tile
+    (1, 896, 4864),        # student decode gate_proj: A and B swapped
+]
+
+
+@pytest.mark.parametrize("n,k,m", INT8_SHAPES, ids=["gate_proj", "down_proj", "siglip_fc2", "decode"])
+@pytest.mark.parametrize("form", ["xla", "k_block"])
+def test_int8_matmul_is_bit_equal_to_plain(dev, n, k, m, form):
+    """The s32 sums are exact and the f32 epilogue is the plain version's, so
+    K12 equals it bit for bit; a kernel that drops the weight scales does not."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+    wq, ws = int8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.02)
+    kb = None if form == "xla" else int8.pick_block(k)
+    got = int8.int8_matmul(x, wq, ws, k_block=kb)
+    torch.cuda.synchronize()
+    want = int8.int8_matmul_ref(x, wq, ws, k_block=kb)
+    assert torch.equal(got, want)
+    assert not torch.equal(int8.int8_matmul(x, wq, torch.ones_like(ws), k_block=kb), want)
 
 
 def test_int8_matmul_forms_differ_past_one_k_block(dev):
