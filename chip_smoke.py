@@ -90,16 +90,20 @@ bit-equal to its plain version, and logs the flash backwards' time by kernel (dq
 reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
 port, e.g. the parent commit unpacked by `git archive` under build/), the
 script also builds DIR's kernels and, with DIR's flash forward, flash
-backward, K10, K12 and K13 launchers in place of this checkout's, holds
-K1, K2, K4, K10 and K12 (at every shape of INT8_CASES) bit-equal to DIR's
-output and logs whether K3 and each K13 arm are, logs K2/K4's split and
-each kernel's time in turns (parent, change, change, parent), runs the
-[train], [kd] and [kd8] steps twice more with DIR's kernels and once more
-with this checkout's (in turns), and [main] and the B=8 evaluator once
-more beside this checkout's.
+backward, K10, K12, K13, K11 and K9 launchers in place of this checkout's,
+holds K1, K2, K4, K10 and K12 (at every shape of INT8_CASES) bit-equal to
+DIR's output and logs whether K3, each K13 arm and K11 are, logs K2/K4's
+split and each kernel's time in turns (parent, change, change, parent),
+runs the [train], [kd] and [kd8] steps twice more with DIR's kernels and
+once more with this checkout's (in turns; their peak memory beside each
+other), and [main] and the B=8 evaluator once more beside this checkout's.
 
-Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well),
-K9 (LoCa without CE: forward, backward, and against K11's LoCa part),
+Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well;
+at the KD path's N = 3072 and at a ragged N = 3000, on teacher maxima tied
+inside a vocab tile, across two tiles, across vocab splits and at the last
+column, with LoCa and CE labels at column V - 1; two launches
+bit-identical), K9 (LoCa without CE: forward, backward, two launches
+bit-identical, and bit-equal to K11's LoCa part),
 the temperature-KL K7 and K8 (with and without dW), the flash forward at
 the teacher's D = 128, the w8a8 GEMM K12 (both activation forms, ragged K,
 a decode row) and the int8-head teacher logits K10 against their plain
@@ -422,35 +426,82 @@ def load_parent(root):
     return parent
 
 
-PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8", "int8_quantize", "int8_gemm", "flash_phase_ablation")
+PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8", "int8_quantize", "int8_gemm", "flash_phase_ablation",
+                    "loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd")
+
+
+def _parent_loca(parent) -> tuple:
+    """The parent's K11 / K9 launchers under this checkout's signatures, and
+    the backward scratch to use in place of ``fl._bwd_scratch``'s (None where
+    the signatures agree).  Before the Hopper redesign of K11 and K9 a
+    backward launcher took no bf16 ds and no sweep split, and both
+    directions sized their split partials as the fused CE's kernels still do
+    (``fused_ce._n_split``): the adapters drop the one and allocate the
+    others, so that the parent's kernels run on their own grids and a step
+    with them holds the parent's memory."""
+    import inspect
+
+    names = ("loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd")
+    if "ds" in inspect.signature(parent.loca_ce_bwd).parameters:
+        return {name: getattr(parent, name) for name in names}, None
+
+    def fwd(fn, at):  # ``at``: the place of ``part`` among the arguments
+        def launch(*args):
+            args = list(args)
+            h = args[0]
+            args[at] = torch.empty(7, fc._n_split(64, h.shape[0], h.device, blocks_per_sm=4), h.shape[0],
+                                   dtype=torch.float32, device=h.device)
+            fn(*args)
+        return launch
+
+    def bwd(fn):
+        def launch(*args):
+            *head, _ds, dh_part, dh, dw, _nsplit_ds, inv_t, log_eps = args
+            fn(*head, dh_part, dh, dw, inv_t, log_eps)
+        return launch
+
+    def scratch(hs, ws):
+        nsplit = fc._n_split(32, hs.shape[0], hs.device, blocks_per_sm=2)
+        return None, torch.empty(nsplit, *hs.shape, dtype=torch.float32, device=hs.device), 0
+
+    return dict(loca_ce_fwd=fwd(parent.loca_ce_fwd, 5), loca_fwd=fwd(parent.loca_fwd, 4),
+                loca_ce_bwd=bwd(parent.loca_ce_bwd), loca_bwd=bwd(parent.loca_bwd)), scratch
 
 
 @contextlib.contextmanager
 def parent_kernels(parent):
     """Route the flash forward (K1/K3), the flash backward (K2/K4), K10, K12
-    (its quantize pass and GEMM) and K13 through the parent's launchers (the
-    same signatures).  The wrappers, their checks and their counters stay
-    this checkout's."""
+    (its quantize pass and GEMM), K13, K11 and K9 through the parent's
+    launchers (the same signatures, or K11's and K9's through
+    :func:`_parent_loca`).  The wrappers, their checks and their counters
+    stay this checkout's."""
     saved = {name: getattr(_build, name) for name in PARENT_LAUNCHERS}
+    saved_scratch = fl._bwd_scratch
+    loca, scratch = _parent_loca(parent)
     for name in PARENT_LAUNCHERS:
-        setattr(_build, name, getattr(parent, name))
+        setattr(_build, name, loca.get(name) or getattr(parent, name))
+    if scratch is not None:
+        fl._bwd_scratch = scratch
     try:
         yield
     finally:
         for name, fn in saved.items():
             setattr(_build, name, fn)
+        fl._bwd_scratch = saved_scratch
 
 
 def steps_in_turns(parent, run, tag: str, first: dict) -> dict:
     """A path's step times in turns: this checkout's run ``first``, then
     ``run`` with the parent's kernels twice and with this checkout's again.
-    Returns the parent's runs (their mean step ms, the first one's losses)."""
+    Returns the parent's runs (their mean step ms, the first one's losses
+    and peak memory)."""
     with parent_kernels(parent):
         theirs = [run(f"{tag}-parent"), run(f"{tag}-parent")]
     again = run(f"{tag}-again")
     ms = [first["step_ms"], theirs[0]["step_ms"], theirs[1]["step_ms"], again["step_ms"]]
     log(f"[{tag}] step ms, change / parent / parent / change: " + " / ".join(f"{t:.1f}" for t in ms))
-    return dict(step_ms=(ms[1] + ms[2]) / 2, change_ms=(ms[0] + ms[3]) / 2, losses=theirs[0]["losses"])
+    return dict(step_ms=(ms[1] + ms[2]) / 2, change_ms=(ms[0] + ms[3]) / 2, losses=theirs[0]["losses"],
+                peak=theirs[0]["peak"])
 
 
 def kernel_split(fn, iters: int = 5) -> dict:
@@ -753,7 +804,7 @@ def kernel_phase(dev, parent=None) -> list:
                            bound(6 * n * d * vocab, 2 * nbytes(h, w) + nbytes(labels, lse, ones, g_gold))))
     del h, w
     torch.cuda.empty_cache()
-    results += loca_kernel_phase(dev, g)
+    results += loca_kernel_phase(dev, g, parent)
     results += kl_kernel_phase(dev, g)
     results += int8_kernel_phase(dev, g, parent)
     return results
@@ -882,97 +933,149 @@ def k13_phase(dev, parent=None) -> list:
     return results
 
 
-def loca_kernel_phase(dev, g) -> list:
-    """K11 forward and backward against their plain versions at the KD
-    path's shapes: N = 3072 rows, the 896-wide student head of 151936 rows,
-    and an f32 teacher-logit matrix whose rows are peaked (std 3), with the
-    teacher maximum duplicated in a few rows (inside one vocab tile, and
-    across vocab splits) and ignored LoCa and CE labels in others."""
-    cfg = llava_onevision_0_5b()
-    n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
-    lc = kd_loss_config_for("double_trouble")
-    kw = dict(inv_t=1.0 / lc.temperature, eps=1e-8)
+# K11 / K9 beyond the main shape: N a multiple of neither the sweep's 64-row
+# block nor the products' 128-row tile (V = 151936 is no multiple of 256).
+LOCA_RAGGED_N = 3000
+
+
+def _loca_inputs(dev, g, n, vocab, d):
+    """K11's operands at ``n`` rows: h, the head, an f32 teacher-logit matrix
+    whose rows are peaked (std 3), with the teacher maximum duplicated in a
+    few rows inside one vocab tile (columns 5 and 7), across two tiles
+    (120 and 130), across vocab splits (11 and V - 3) and at the last column
+    (0 and V - 1); LoCa labels at a tied maximum and at column V - 1, a CE
+    label at V - 1, and ignored LoCa and CE labels in others."""
     hs = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
     ws = (torch.randn(vocab, d, generator=g, device=dev) * 0.05).to(torch.bfloat16)
     tmat = torch.randn(n, vocab, generator=g, device=dev) * 3.0
     top = tmat.max(dim=1).values + 2.0
     tmat[0:8, 5] = tmat[0:8, 7] = top[0:8]
     tmat[8:16, 11] = tmat[8:16, vocab - 3] = top[8:16]
+    tmat[16:24, 120] = tmat[16:24, 130] = top[16:24]
+    tmat[24:28, 0] = tmat[24:28, vocab - 1] = top[24:28]
     lab = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
     lab_ce = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
-    lab[0], lab[8] = 5, 11  # a label at a tied maximum
+    lab[0], lab[8], lab[16], lab[24] = 5, 11, 130, vocab - 1  # labels at a tied maximum
+    lab[30] = lab_ce[31] = vocab - 1
     lab[100:300] = -1
     lab_ce[-150:] = -1
+    return hs, ws, tmat, lab, lab_ce
 
-    def fwd():
-        return fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
 
-    def fwd_plain():
-        return fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+def _kd_bound(want):
+    return KD_TOL * max(1.0, want.float().abs().max().item())
 
-    def bounds(want):
-        return KD_TOL * max(1.0, want.float().abs().max().item())
 
-    got = fwd()
+def _bit_identical(name, run) -> None:
+    """Two launches of ``run`` give the same bits."""
+    a, b = run(), run()
     torch.cuda.synchronize()
-    want = fwd_plain()
-    outs = [("kl", got[0], want[0]), ("ce", got[1], want[1])]
-    outs += [(name, a, b) for name, a, b in zip(fl.ROW_STATS, got[2], want[2])]
-    err = _hold("fused_loca_ce_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in outs])
-    stats = want[2]
-    results = [_result("fused_loca_ce_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
-                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, lab_ce, *got)))]
-    del got, want
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    same = all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+    log(f"[kernel] {name}: two launches bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{name} is not deterministic")
 
-    # Unit cotangents; with g_ce = 0, dh and dW are the LoCa term alone.
-    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
-    err = 0.0
-    for case, g_ce in (("g_ce=1", ones), ("g_ce=0", zeros)):
-        dh, dw = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
+
+def loca_kernel_phase(dev, g, parent=None) -> list:
+    """K11 forward and backward, and K9, against their plain versions at the
+    KD path's shapes (N = 3072 rows, the 896-wide student head of 151936
+    rows) and at the ragged N = LOCA_RAGGED_N on ``_loca_inputs``: every
+    output within KD_TOL, the negative controls failing, two launches
+    bit-identical, K9 bit-equal to K11's LoCa part; then the times at the
+    main shape and, with ``parent``, the parent's kernels in turns (their
+    bits logged, not held: the kernels are redesigned)."""
+    cfg = llava_onevision_0_5b()
+    d, vocab = cfg.text.hidden_size, cfg.text.vocab_size
+    lc = kd_loss_config_for("double_trouble")
+    kw = dict(inv_t=1.0 / lc.temperature, eps=1e-8)
+    for n in (LOCA_RAGGED_N, 3072):
+        tag = "" if n == 3072 else f" N={n}"
+        hs, ws, tmat, lab, lab_ce = _loca_inputs(dev, g, n, vocab, d)
+
+        def fwd():
+            return fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+
+        def fwd_plain():
+            return fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+
+        got = fwd()
         torch.cuda.synchronize()
-        want_dh, want_dw = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
-        err = max(err, _hold(f"fused_loca_ce_bwd {case}", [
-            ("dh", dh, want_dh, bounds(want_dh)), ("dW", dw, want_dw, bounds(want_dw))]))
-        del dh, dw
-    # a backward that loses the p_sT * tsum term (LoCa alone, g_ce = 0) ...
-    no_tsum = stats.clone()
-    no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
-    faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, no_tsum, ones, zeros, **kw)
-    _must_fail("fused_loca_ce_bwd g_ce=0", "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
-    # ... and one that loses the whole KL term, against the true g_kl
-    want = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
-    faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, zeros, ones, **kw)
-    _must_fail("fused_loca_ce_bwd g_ce=1", "g_kl = 0", list(zip(faulty, want)))
-    del faulty, want, want_dh, want_dw
+        want = fwd_plain()
+        outs = [("kl", got[0], want[0]), ("ce", got[1], want[1])]
+        outs += [(name, a, b) for name, a, b in zip(fl.ROW_STATS, got[2], want[2])]
+        fwd_err = _hold("fused_loca_ce_fwd" + tag, [(lbl, a, b, _kd_bound(b)) for lbl, a, b in outs])
+        _bit_identical("fused_loca_ce_fwd" + tag, fwd)
+        stats = want[2]
+        del got, want
 
-    def bwd():
-        return fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+        # Unit cotangents; with g_ce = 0, dh and dW are the LoCa term alone.
+        ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+        bwd_err = 0.0
+        for case, g_ce in (("g_ce=1", ones), ("g_ce=0", zeros)):
+            dh, dw = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
+            torch.cuda.synchronize()
+            want_dh, want_dw = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, g_ce, **kw)
+            bwd_err = max(bwd_err, _hold(f"fused_loca_ce_bwd{tag} {case}", [
+                ("dh", dh, want_dh, _kd_bound(want_dh)), ("dW", dw, want_dw, _kd_bound(want_dw))]))
+            del dh, dw
+        # a backward that loses the p_sT * tsum term (LoCa alone, g_ce = 0) ...
+        no_tsum = stats.clone()
+        no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
+        faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, no_tsum, ones, zeros, **kw)
+        _must_fail(f"fused_loca_ce_bwd{tag} g_ce=0", "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
+        # ... and one that loses the whole KL term, against the true g_kl
+        want = fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+        faulty = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, zeros, ones, **kw)
+        _must_fail(f"fused_loca_ce_bwd{tag} g_ce=1", "g_kl = 0", list(zip(faulty, want)))
+        del faulty, want, want_dh, want_dw, no_tsum
 
-    def bwd_plain():
-        return fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+        def bwd():
+            return fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
 
-    # no single PyTorch call computes the LoCa row statistics or their
-    # gradient over a streamed head
-    results.append(_result("fused_loca_ce_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
+        def bwd_plain():
+            return fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, stats, ones, ones, **kw)
+
+        _bit_identical("fused_loca_ce_bwd" + tag, bwd)
+        alone = loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, stats, lc.loca_alpha, kw, tag,
+                                        parent if n == 3072 else None)
+        if n != 3072:
+            del hs, ws, tmat, stats
+            torch.cuda.empty_cache()
+            continue
+        log(f"[kernel] fused_loca_ce_bwd by kernel (ms a call): "
+            + ", ".join(f"{k} {t:.4f}" for k, t in kernel_split(bwd, iters=2).items()))
+        log(f"[kernel] fused_loca_ce_fwd by kernel (ms a call): "
+            + ", ".join(f"{k} {t:.4f}" for k, t in kernel_split(fwd, iters=2).items()))
+        if parent is not None:
+            _same_as_parent(parent, "fused_loca_ce_fwd", fwd, fwd(), must=False)
+            _same_as_parent(parent, "fused_loca_ce_bwd", bwd, bwd(), must=False)
+            log_in_turns("fused_loca_ce_fwd", _theirs(parent, fwd), fwd, iters=5)
+            log_in_turns("fused_loca_ce_bwd", _theirs(parent, bwd), bwd, iters=3)
+        got = fwd()
+        # no single PyTorch call computes the LoCa row statistics or their
+        # gradient over a streamed head
+        results = [_result("fused_loca_ce_fwd", fwd_err, time_ms(fwd, iters=5),
+                           time_ms(fwd_plain, iters=2, warmup=1),
+                           bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, lab_ce, *got))),
+                   _result("fused_loca_ce_bwd", bwd_err, time_ms(bwd, iters=3),
+                           time_ms(bwd_plain, iters=2, warmup=1),
                            bound(6 * n * d * vocab,
-                                 2 * nbytes(hs, ws) + nbytes(tmat, lab, lab_ce, stats, ones, ones))))
-    del stats
-    results += loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, lc.loca_alpha, kw)
-    del hs, ws, tmat
-    torch.cuda.empty_cache()
-    return results
+                                 2 * nbytes(hs, ws) + nbytes(tmat, lab, lab_ce, stats, ones, ones)))]
+        del got, stats, hs, ws, tmat
+        torch.cuda.empty_cache()
+    return results + alone
 
 
-def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, alpha, kw) -> list:
+def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, stats, alpha, kw, tag="", parent=None) -> list:
     """K9 (LoCa without CE) forward and backward against their plain
-    versions on ``loca_kernel_phase``'s inputs, two negative controls
-    (tsum = 0, and g = 0 in half the rows), and K9 against K11's LoCa part
-    on the same inputs: its KL rows against K11's, its dh and dW against
-    K11's backward with g_ce = 0."""
+    versions on ``loca_kernel_phase``'s inputs (``stats``: K11's plain row
+    statistics there), two negative controls (tsum = 0, and g = 0 in half
+    the rows), two launches bit-identical, and K9 bit-equal to K11's LoCa
+    part on the same inputs: its KL rows and statistics to K11's, its dh
+    and dW to K11's backward with g_ce = 0.  Its times at the main shape
+    (``tag`` empty), with ``parent`` in turns with the parent's kernels."""
     n, d, vocab = hs.shape[0], hs.shape[1], ws.shape[0]
-
-    def bounds(want):
-        return KD_TOL * max(1.0, want.float().abs().max().item())
 
     def fwd():
         return fl.loca_fwd(hs, ws, tmat, lab, alpha=alpha, **kw)
@@ -988,17 +1091,15 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, alpha, kw) -> list:
         raise AssertionError("K9 computes no CE: lse_s1 must stay 0")
     outs = [("kl", got[0], want[0])] + [(name, a, b) for i, (name, a, b) in
                                         enumerate(zip(fl.ROW_STATS, got[1], want[1])) if i != s1]
-    err = _hold("fused_loca_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in outs])
-    stats = want[1]
+    fwd_err = _hold("fused_loca_fwd" + tag, [(lbl, a, b, _kd_bound(b)) for lbl, a, b in outs])
+    _bit_identical("fused_loca_fwd" + tag, fwd)
     # K11's LoCa rows and statistics on the same inputs
     kl11, _, st11 = fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=alpha, **kw)
     keep = [i for i in range(len(fl.ROW_STATS)) if i != s1]
-    _hold("fused_loca_fwd vs K11", [("kl", got[0], kl11, bounds(kl11))]
-          + [(fl.ROW_STATS[i], got[1][i], st11[i], bounds(st11[i])) for i in keep])
-    log(f"[kernel] fused_loca_fwd: KL rows and statistics bit-equal to K11's: "
-        f"{torch.equal(got[0], kl11) and torch.equal(got[1][keep], st11[keep])}")
-    results = [_result("fused_loca_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
-                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, *got)))]
+    same = torch.equal(got[0], kl11) and torch.equal(got[1][keep], st11[keep])
+    log(f"[kernel] fused_loca_fwd{tag}: KL rows and statistics bit-equal to K11's: {same}")
+    if not same:
+        raise AssertionError("K9's forward is not K11's LoCa part")
     del got, want, kl11, st11
 
     ones, zeros = torch.ones(n, device=hs.device), torch.zeros(n, device=hs.device)
@@ -1008,22 +1109,24 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, alpha, kw) -> list:
     if no_dw is not None or not torch.equal(dh_only, dh):
         raise AssertionError("K9 without dW gave a dW or another dh")
     want_dh, want_dw = fl.loca_rows_bwd_ref(hs, ws, tmat, lab, stats, ones, **kw)
-    err = _hold("fused_loca_bwd", [("dh", dh, want_dh, bounds(want_dh)), ("dW", dw, want_dw, bounds(want_dw))])
+    bwd_err = _hold("fused_loca_bwd" + tag, [("dh", dh, want_dh, _kd_bound(want_dh)),
+                                            ("dW", dw, want_dw, _kd_bound(want_dw))])
     dh11, dw11 = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, ones, zeros, **kw)
-    _hold("fused_loca_bwd vs K11 with g_ce = 0", [("dh", dh, dh11, bounds(dh11)), ("dW", dw, dw11, bounds(dw11))])
-    log(f"[kernel] fused_loca_bwd: dh and dW bit-equal to K11's with g_ce = 0: "
-        f"{torch.equal(dh, dh11) and torch.equal(dw, dw11)}")
+    same = torch.equal(dh, dh11) and torch.equal(dw, dw11)
+    log(f"[kernel] fused_loca_bwd{tag}: dh and dW bit-equal to K11's with g_ce = 0: {same}")
+    if not same:
+        raise AssertionError("K9's backward is not K11's with g_ce = 0")
     del dh, dw, dh_only, dh11, dw11
     # a backward that loses the p_sT * tsum term ...
     no_tsum = stats.clone()
     no_tsum[fl.ROW_STATS.index("tsum")] = 0.0
     faulty = fl.loca_bwd(hs, ws, tmat, lab, no_tsum, ones, **kw)
-    _must_fail("fused_loca_bwd", "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
+    _must_fail("fused_loca_bwd" + tag, "tsum = 0", list(zip(faulty, (want_dh, want_dw))))
     # ... and one that loses the cotangent of every other row
     half = ones.clone()
     half[::2] = 0.0
     faulty = fl.loca_bwd(hs, ws, tmat, lab, stats, half, **kw)
-    _must_fail("fused_loca_bwd", "g = 0 in half the rows", list(zip(faulty, (want_dh, want_dw))))
+    _must_fail("fused_loca_bwd" + tag, "g = 0 in half the rows", list(zip(faulty, (want_dh, want_dw))))
     del faulty, want_dh, want_dw, no_tsum
 
     def bwd():
@@ -1032,11 +1135,20 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, alpha, kw) -> list:
     def bwd_plain():
         return fl.loca_rows_bwd_ref(hs, ws, tmat, lab, stats, ones, **kw)
 
+    _bit_identical("fused_loca_bwd" + tag, bwd)
+    if tag:
+        return []
+    if parent is not None:
+        log_in_turns("fused_loca_fwd", _theirs(parent, fwd), fwd, iters=5)
+        log_in_turns("fused_loca_bwd", _theirs(parent, bwd), bwd, iters=3)
+    got = fwd()
     # no single PyTorch call computes the LoCa rows or their gradient over
     # a streamed head
-    results.append(_result("fused_loca_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
-                           bound(6 * n * d * vocab, 2 * nbytes(hs, ws) + nbytes(tmat, lab, stats, ones))))
-    del stats
+    results = [_result("fused_loca_fwd", fwd_err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
+                       bound(2 * n * d * vocab, nbytes(hs, ws, tmat, lab, *got))),
+               _result("fused_loca_bwd", bwd_err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
+                       bound(6 * n * d * vocab, 2 * nbytes(hs, ws) + nbytes(tmat, lab, stats, ones)))]
+    del got
     torch.cuda.empty_cache()
     return results
 
@@ -2193,7 +2305,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                         "time K1-K4, K10, K12 and K13 and the [train], [main], [kd], [kd8] and [eval] runs "
+                         "time K1-K4, K9-K13 and the [train], [main], [kd], [kd8] and [eval] runs "
                          "with its kernels beside this checkout's, and hold K1, K2, K4, K10 and K12 bit-equal "
                          "to its output")
     args = ap.parse_args()
@@ -2271,7 +2383,8 @@ def main() -> int:
         if name in steps_parent:
             log(f"[summary] {card}: [{name}] step {steps_parent[name]['change_ms']:.1f} ms, with the parent's "
                 f"kernels {steps_parent[name]['step_ms']:.1f} ms (means of two runs each, in turns, same "
-                f"call); last loss {r['losses'][-1]:.6f} vs {steps_parent[name]['losses'][-1]:.6f}")
+                f"call); last loss {r['losses'][-1]:.6f} vs {steps_parent[name]['losses'][-1]:.6f}; peak "
+                f"{r['peak'] / 2**30:.2f} GiB vs {steps_parent[name]['peak'] / 2**30:.2f} GiB")
     if "main" in steps_parent:
         log(f"[summary] {card}: [main] generate {serve['ms_call']:.1f} ms/call, with the parent's kernels "
             f"{steps_parent['main']['ms_call']:.1f} ms/call (same call)")

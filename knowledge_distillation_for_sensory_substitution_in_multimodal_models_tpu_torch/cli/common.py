@@ -191,6 +191,8 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     implements."""
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--tensorboard_dir", type=str, default="tensorboard_logs")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace train steps 2-4 with torch.profiler into this directory")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--depth_encoding", type=str, default="prewitt",
                    choices=["prewitt", "gray3", "prewitt_imagenet"])

@@ -101,7 +101,7 @@ def main(argv=None):
     run_training(
         KDModels(model, None), cfg, state, None, train_loader, val_loader,
         put=lambda b: to_device(b, device), ckpt_dir=ckpt_dir,
-        tb_logdir=args.tensorboard_dir, run_name=run_name,
+        tb_logdir=args.tensorboard_dir, run_name=run_name, profile_dir=args.profile_dir,
     )
     print("training complete")
 

@@ -1,8 +1,8 @@
 // The flash-attention forward at head dim 72 for Hopper (sm_90a), redesigned
 // around wgmma and TMA: out = softmax(s Q K^T) V in bf16 with an exact online
 // softmax in f32, and optionally the natural-log row logsumexp.
-// flash_fwd.cu routes D = 72 here; D = 64 and 128 (K3) keep its mma.sync
-// kernel (flash_fwd.cuh), which K13's arms share.
+// flash_fwd.cu routes D = 72 here; D = 64 and 128 (K3) run the wgmma/TMA
+// kernel of flash_gqa_sm90.cuh, which K13's arms share.
 //
 // Replaces the Pallas TPU kernel K1 of the JAX package
 // (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/

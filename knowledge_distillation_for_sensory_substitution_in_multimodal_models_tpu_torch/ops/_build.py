@@ -100,7 +100,7 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         build(path)
     lib = ctypes.CDLL(str(path))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
     signatures = {
         # q, k, v, kv_mask, out, lse, next_tile, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
         "kdss_flash_fwd": [vp] * 7 + [ci] * 7 + [cf, vp],
@@ -116,15 +116,15 @@ def load_library() -> ctypes.CDLL:
         # h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, N, V, DM, nsplit,
         # inv_t, alpha, log_eps, stream
         "kdss_loca_ce_fwd": [vp] * 9 + [ci] * 4 + [cf] * 3 + [vp],
-        # h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, N, V, DM,
-        # nsplit, inv_t, log_eps, stream
-        "kdss_loca_ce_bwd": [vp] * 11 + [ci] * 4 + [cf] * 2 + [vp],
+        # h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, ds, dh_part, dh, dw, N, V, DM,
+        # ld_ds, nsplit_ds, nsplit_dh, inv_t, log_eps, stream
+        "kdss_loca_ce_bwd": [vp] * 12 + [ci] * 3 + [cl] + [ci] * 2 + [cf] * 2 + [vp],
         # h, w, tmat, lab, part, rowstats, kl, N, V, DM, nsplit, inv_t, alpha,
         # log_eps, stream
         "kdss_loca_fwd": [vp] * 7 + [ci] * 4 + [cf] * 3 + [vp],
-        # h, w, tmat, lab, rowstats, g, dh_part, dh, dw (or null), N, V, DM,
-        # nsplit, inv_t, log_eps, stream
-        "kdss_loca_bwd": [vp] * 9 + [ci] * 4 + [cf] * 2 + [vp],
+        # h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw (or null), N, V, DM,
+        # ld_ds, nsplit_ds, nsplit_dh, inv_t, log_eps, stream
+        "kdss_loca_bwd": [vp] * 10 + [ci] * 3 + [cl] + [ci] * 2 + [cf] * 2 + [vp],
         # h, w, tmat, part, kl, lse_s, lse_t, N, V, DM, nsplit, inv_t, stream
         "kdss_kl_fwd": [vp] * 7 + [ci] * 4 + [cf, vp],
         # h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw (or null), N, V, DM, nsplit,
@@ -230,41 +230,45 @@ def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, l
     """Combined LoCa + CE forward (K11) over a [V, DM] head and an f32 [N, V]
     teacher-logit matrix."""
     n, dm = h.shape
-    _aligned(h, w)
+    _aligned(h, w, tmat)
     _launch("kdss_loca_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
             lab.data_ptr(), lab_ce.data_ptr(), part.data_ptr(), rowstats.data_ptr(),
             kl.data_ptr(), ce.data_ptr(), n, w.shape[0], dm, part.shape[1],
             float(inv_t), float(alpha), float(log_eps))
 
 
-def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, dh_part, dh, dw, inv_t,
-                log_eps) -> None:
-    """Combined LoCa + CE backward (K11): dh and dW."""
+def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, ds, dh_part, dh, dw, nsplit_ds: int,
+                inv_t, log_eps) -> None:
+    """Combined LoCa + CE backward (K11): the bf16 d_logits into ``ds`` [N,
+    ld_ds] (a sweep of ``nsplit_ds`` vocab splits), then dh through the f32
+    partials ``dh_part`` [nsplit_dh, N, DM], and dW."""
     n, dm = h.shape
-    _aligned(h, w, dh, dw)
+    _aligned(h, w, tmat, ds, dh, dw)
     _launch("kdss_loca_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
             lab.data_ptr(), lab_ce.data_ptr(), rowstats.data_ptr(), g_kl.data_ptr(),
-            g_ce.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n, w.shape[0],
-            dm, dh_part.shape[0], float(inv_t), float(log_eps))
+            g_ce.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n,
+            w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t), float(log_eps))
 
 
 def loca_fwd(h, w, tmat, lab, part, rowstats, kl, inv_t, alpha, log_eps) -> None:
     """LoCa forward without CE (K9) over a [V, DM] head and an f32 [N, V]
     teacher-logit matrix."""
     n, dm = h.shape
-    _aligned(h, w)
+    _aligned(h, w, tmat)
     _launch("kdss_loca_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
             part.data_ptr(), rowstats.data_ptr(), kl.data_ptr(), n, w.shape[0], dm, part.shape[1],
             float(inv_t), float(alpha), float(log_eps))
 
 
-def loca_bwd(h, w, tmat, lab, rowstats, g, dh_part, dh, dw, inv_t, log_eps) -> None:
-    """LoCa backward without CE (K9): dh, and dW unless ``dw`` is None."""
+def loca_bwd(h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw, nsplit_ds: int, inv_t, log_eps) -> None:
+    """LoCa backward without CE (K9): as :func:`loca_ce_bwd`, dW unless
+    ``dw`` is None."""
     n, dm = h.shape
-    _aligned(h, w, dh, dw)
+    _aligned(h, w, tmat, ds, dh, dw)
     _launch("kdss_loca_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
-            rowstats.data_ptr(), g.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
-            w.shape[0], dm, dh_part.shape[0], float(inv_t), float(log_eps))
+            rowstats.data_ptr(), g.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw),
+            n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t),
+            float(log_eps))
 
 
 def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:

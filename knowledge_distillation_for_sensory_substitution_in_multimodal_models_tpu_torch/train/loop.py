@@ -5,11 +5,14 @@ checkpoints and TensorBoard scalars (port of the JAX package's
 Scalar names match the reference's Lightning logs (``train_loss``,
 ``val_loss``).  A SIGTERM snapshots the state at the next step boundary
 (``preempt-step=N.ckpt``); the val loss is summed on the device and read
-back once per val epoch.
+back once per val epoch.  With ``profile_dir``, steps 2-4 are traced by
+``torch.profiler`` (the host and, for a model on CUDA, the card) into
+``<profile_dir>/trace_steps2-4.json``, the steps the JAX loop traces.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import time
 from typing import Any, Callable, Optional
@@ -55,6 +58,29 @@ def load_checkpoint_state(state: TrainState, saved: dict) -> TrainState:
     return state
 
 
+PROFILE_STEPS = (2, 4)  # first and last traced step, as the JAX loop's
+
+
+def _start_profile(model: torch.nn.Module):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if next(model.parameters()).device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, model: torch.nn.Module, profile_dir: str) -> str:
+    if next(model.parameters()).device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_steps{PROFILE_STEPS[0]}-{PROFILE_STEPS[1]}.json")
+    prof.export_chrome_trace(path)
+    print(f"profile: wrote {path}", flush=True)
+    return path
+
+
 def run_training(
     models: KDModels,
     cfg: TrainConfig,
@@ -68,6 +94,7 @@ def run_training(
     tb_logdir: Optional[str] = None,
     run_name: str = "run",
     log_every: int = 10,
+    profile_dir: Optional[str] = None,
 ) -> TrainState:
     """Epoch loop; returns the final state.  ``put(numpy_batch) -> tensors``
     moves a host batch to the model's device."""
@@ -77,6 +104,7 @@ def run_training(
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
     preempted = {"flag": False}
+    prof = None
 
     def _on_term(signum, frame):
         preempted["flag"] = True
@@ -94,7 +122,12 @@ def run_training(
                 batch.pop("question_id", None)
                 a, b = batch["student_input_ids"].shape[:2]
                 step_i = state.step
+                if profile_dir and step_i == PROFILE_STEPS[0]:
+                    prof = _start_profile(state.model)
                 state, metrics = train_step(state, teacher_params, put(batch))
+                if prof is not None and step_i == PROFILE_STEPS[1]:
+                    _stop_profile(prof, state.model, profile_dir)
+                    prof = None
                 n_samples += a * b
                 if step_i % log_every == 0:
                     loss = float(metrics["loss"])
@@ -130,6 +163,8 @@ def run_training(
                     print(f"saved checkpoint {saved}", flush=True)
         return state
     finally:
+        if prof is not None:  # fewer steps than the traced window
+            _stop_profile(prof, state.model, profile_dir)
         tb.close()
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)

@@ -25,9 +25,10 @@ unprofiled steps, then:
 
 ``--parent DIR`` (another checkout of the port, e.g. the parent commit
 unpacked by ``git archive``) then profiles three more steps, with DIR's
-flash, K10 and K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's again
+flash, K9-K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's again
 and this checkout's, and prints each step's device kernel time and its
-flash and int8 groups: a comparison that the host's noise does not reach.
+flash, LoCa and int8 groups: a comparison that the host's noise does not
+reach.
 
 ``--determinism`` asks instead whether the step is bit-reproducible on one
 card: ``--steps`` steps from a fresh student of the same seed, twice in this
@@ -91,11 +92,13 @@ GROUPS = (
     ("flash backward D=72 (K2)", ("kdss_bwd72", "flash_bwd_dq_kernel<72", "flash_bwd_dkv_kernel<72")),
     # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
     ("flash backward D=64 (K4)", ("kdss_bwd90",)),
-    # the shared backward kernels are named by their loss's Rows policy
-    ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows")),
+    # K11/K9: csrc/fused_loca_ce.cu's sweeps (named by their epilogue
+    # policy), combines and products on csrc/kdss_vocab_sm90.cuh (the
+    # kdss_vocab.cuh backward kernels named by LocaRows before)
+    ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows", "kdss_vocab90")),
     ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
     ("fused CE (K5, K6)", ("ce_fwd", "CERows")),
-    ("dh split reductions (K6, K8, K11)", ("reduce_dh",)),
+    ("dh split reductions (K6, K8; K11 before its redesign)", ("reduce_dh",)),
     # K12's quantize pass and GEMM (the int8 teacher), before cuBLAS's "gemm"
     ("w8a8 GEMM K12 (int8 teacher)", ("kdss_int8",)),
     ("int8-head teacher logits K10", ("kdss_tmat",)),
@@ -302,8 +305,8 @@ def main() -> int:
     for name, ms in ranges.most_common(5):
         print(f"[profile] annotation range, not counted: {ms:.2f} ms  {name}", flush=True)
     if args.parent is not None:
-        # the same step's device kernel time with the parent's flash, K10 and
-        # K12 launchers, in turns with this checkout's: change (above),
+        # the same step's device kernel time with the parent's flash, K9-K12
+        # launchers, in turns with this checkout's: change (above),
         # parent, parent, change
         import chip_smoke
 
@@ -315,7 +318,7 @@ def main() -> int:
             runs.append((sum(g.values()), g))
         print("[parent] device kernel time of a step, change / parent / parent / change: "
               + " / ".join(f"{b:.1f}" for b, _ in runs) + " ms", flush=True)
-        for name in [g for g, _ in GROUPS if g.startswith(("flash", "w8a8", "int8"))]:
+        for name in [g for g, _ in GROUPS if g.startswith(("flash", "LoCa", "w8a8", "int8"))]:
             print(f"[parent] {name}: " + " / ".join(f"{g[name]:.2f}" for _, g in runs) + " ms", flush=True)
     return 0
 

@@ -10,6 +10,12 @@ flag off) against its plain PyTorch versions, and the tiny CLIs on the card.
   g_ce = 0;
 * the autograd route of ``fused_loca_loss`` against dense float32
   ``loca_loss``;
+* K11 and K9 on the wgmma/TMA core (``csrc/kdss_vocab_sm90.cuh``) at the
+  student's vocabulary V = 151936 (no multiple of 256) with N = 300 rows (no
+  multiple of the core's 128-row block), teacher maxima tied inside a vocab
+  tile, across two tiles, across vocab splits and at column V - 1, LoCa and
+  CE labels at column V - 1; two launches of each bit-identical; and the
+  refusal of a vocabulary that is not a multiple of 4;
 * the tiny ``--synthetic_data`` baseline and KD CLIs (``--loca_faithful_indexing``
   too) train on the card: their width and head dims are not the kernels',
   so the CLIs choose the plain routes from the config.
@@ -169,6 +175,77 @@ def test_fused_loca_loss_autograd_matches_dense(dev):
     for name, a, b in (("dh", gh, rh), ("dW", gw, rw)):
         ok, errs = _close(a, b)
         assert ok, (name, errs)
+
+
+def _path_vocab_inputs(dev, n=300, v=151936, seed=5):
+    """The student's vocabulary at a ragged row count: maxima tied inside one
+    vocab tile (rows 0-3), across two 128-column tiles (4-7), across vocab
+    splits (8-11) and at the last column (12-15); labels at the tied maxima
+    and at column V - 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hs = torch.randn(n, D, generator=g, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(v, D, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    tmat = torch.randn(n, v, generator=g, device=dev) * 3.0
+    top = tmat.max(dim=1).values + 2.0
+    for rows, (a, b) in ((slice(0, 4), (5, 7)), (slice(4, 8), (120, 130)), (slice(8, 12), (11, v - 3)),
+                         (slice(12, 16), (0, v - 1))):
+        tmat[rows, a] = tmat[rows, b] = top[rows]
+    lab = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab_ce = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    lab[0], lab[4], lab[8], lab[12], lab[20] = 5, 130, v - 3, v - 1, v - 1
+    lab_ce[21] = v - 1
+    lab[30:40] = -1
+    lab_ce[-10:] = -1
+    return hs, ws, tmat, lab, lab_ce
+
+
+def test_k11_and_k9_at_the_path_vocabulary_ragged_and_tied(dev):
+    hs, ws, tmat, lab, lab_ce = _path_vocab_inputs(dev)
+    kw = dict(inv_t=1.25, eps=1e-8)
+    kl, ce, stats = fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw)
+    torch.cuda.synchronize()
+    want = fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw)
+    for name, a, b in [("kl", kl, want[0]), ("ce", ce, want[1])] + list(zip(fl.ROW_STATS, stats, want[2])):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+    g = torch.rand(hs.shape[0], device=dev) + 0.5
+    dh, dw = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, want[2], g, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dh", "dW"), (dh, dw),
+                          fl.loca_ce_rows_bwd_ref(hs, ws, tmat, lab, lab_ce, want[2], g, g, **kw)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+    kl9, st9 = fl.loca_fwd(hs, ws, tmat, lab, alpha=0.8, **kw)
+    keep = [i for i, name in enumerate(fl.ROW_STATS) if name != "lse_s1"]
+    assert torch.equal(kl9, kl) and torch.equal(st9[keep], stats[keep])
+    dh9, dw9 = fl.loca_bwd(hs, ws, tmat, lab, want[2], g, **kw)
+    dh11, dw11 = fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, want[2], g, torch.zeros_like(g), **kw)
+    assert torch.equal(dh9, dh11) and torch.equal(dw9, dw11)
+
+
+def test_a_vocabulary_not_a_multiple_of_4_is_refused(dev):
+    hs, ws, tmat, lab = _inputs(dev, 8, 1002)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fl.loca_fwd(hs, ws, tmat, lab, inv_t=1.25, alpha=0.8, eps=1e-8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fl.loca_ce_fwd(hs, ws, tmat, lab, lab, inv_t=1.25, alpha=0.8, eps=1e-8)
+
+
+def test_two_launches_are_bit_identical(dev):
+    n, v = 200, 1000
+    hs, ws, tmat, lab = _inputs(dev, n, v, seed=6)
+    lab_ce = torch.randint(0, v, (n,), device=dev, dtype=torch.int32)
+    kw = dict(inv_t=1.25, eps=1e-8)
+    _, _, stats = fl.loca_ce_rows_ref(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw)
+    g = torch.rand(n, device=dev) + 0.5
+    runs = (lambda: fl.loca_ce_fwd(hs, ws, tmat, lab, lab_ce, alpha=0.8, **kw),
+            lambda: fl.loca_ce_bwd(hs, ws, tmat, lab, lab_ce, stats, g, g, **kw),
+            lambda: fl.loca_fwd(hs, ws, tmat, lab, alpha=0.8, **kw),
+            lambda: fl.loca_bwd(hs, ws, tmat, lab, stats, g, **kw))
+    for run in runs:
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _val_loss(out):
