@@ -90,13 +90,14 @@ bit-equal to its plain version, and logs the flash backwards' time by kernel (dq
 reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
 port, e.g. the parent commit unpacked by `git archive` under build/), the
 script also builds DIR's kernels and, with DIR's flash forward, flash
-backward, K10, K12, K13, K11 and K9 launchers in place of this checkout's,
-holds K1, K2, K4, K10 and K12 (at every shape of INT8_CASES) bit-equal to
-DIR's output and logs whether K3, each K13 arm and K11 are, logs K2/K4's
-split and each kernel's time in turns (parent, change, change, parent),
-runs the [train], [kd] and [kd8] steps twice more with DIR's kernels and
-once more with this checkout's (in turns; their peak memory beside each
-other), and [main] and the B=8 evaluator once more beside this checkout's.
+backward, K10, K12, K13, K11, K9, K6 and K8 launchers in place of this
+checkout's, holds K1, K2, K4, K9, K10, K11 and K12 (at every shape of
+INT8_CASES) bit-equal to DIR's output and logs whether K3, each K13 arm,
+K6 and K8 are, logs K2/K4's, K6's and K8's splits by kernel and each
+kernel's time in turns (parent, change, change, parent), runs the [train],
+[kd], [kd1], [kdfb] and [kd8] steps twice more with DIR's kernels and once
+more with this checkout's (in turns; their peak memory beside each other),
+and [main] and the B=8 evaluator once more beside this checkout's.
 
 Phase 3 also holds the K11 forward and backward (with g_ce = 0 as well;
 at the KD path's N = 3072 and at a ragged N = 3000, on teacher maxima tied
@@ -104,7 +105,8 @@ inside a vocab tile, across two tiles, across vocab splits and at the last
 column, with LoCa and CE labels at column V - 1; two launches
 bit-identical), K9 (LoCa without CE: forward, backward, two launches
 bit-identical, and bit-equal to K11's LoCa part),
-the temperature-KL K7 and K8 (with and without dW), the flash forward at
+the temperature-KL K7 and K8 (with and without dW; two launches of K6 and
+K8 bit-identical), the flash forward at
 the teacher's D = 128, the w8a8 GEMM K12 (both activation forms, ragged K,
 a decode row) and the int8-head teacher logits K10 against their plain
 versions, and shows that the bounds fail a K11 backward fed tsum = 0 and
@@ -427,67 +429,65 @@ def load_parent(root):
 
 
 PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8", "int8_quantize", "int8_gemm", "flash_phase_ablation",
-                    "loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd")
+                    "loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd", "ce_bwd", "kl_bwd")
+# K6's and K8's launchers: the place of the bf16 ds among their arguments
+# (followed by dh_part, dh, dw and the sweep's split), and the op module
+# whose ``_bwd_scratch`` sizes their scratch.  Before the two kernels moved
+# onto the Hopper vocab core, their launchers took no ds and no sweep split.
+_DS_AT = {"ce_bwd": (6, fc), "kl_bwd": (6, fkl)}
 
 
-def _parent_loca(parent) -> tuple:
-    """The parent's K11 / K9 launchers under this checkout's signatures, and
-    the backward scratch to use in place of ``fl._bwd_scratch``'s (None where
-    the signatures agree).  Before the Hopper redesign of K11 and K9 a
-    backward launcher took no bf16 ds and no sweep split, and both
-    directions sized their split partials as the fused CE's kernels still do
-    (``fused_ce._n_split``): the adapters drop the one and allocate the
-    others, so that the parent's kernels run on their own grids and a step
-    with them holds the parent's memory."""
+def _without_ds(fn, at):
+    def launch(*args):
+        fn(*args[:at], *args[at + 1:at + 4], *args[at + 5:])
+    return launch
+
+
+def _old_scratch(hs, ws):
+    """A backward's scratch before its kernel's redesign: no ds, and dh's
+    f32 partials split as the mma.sync backward kernels split them."""
+    nsplit = fc._n_split(32, hs.shape[0], hs.device, blocks_per_sm=2)
+    return None, torch.empty(nsplit, *hs.shape, dtype=torch.float32, device=hs.device), 0
+
+
+def _parent_launchers(parent) -> tuple:
+    """The parent's launchers under this checkout's signatures, and the op
+    modules whose backward scratch must be the parent's (``_old_scratch``),
+    so that the parent's kernels run on their own grids and a step with them
+    holds the parent's memory."""
     import inspect
 
-    names = ("loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd")
-    if "ds" in inspect.signature(parent.loca_ce_bwd).parameters:
-        return {name: getattr(parent, name) for name in names}, None
-
-    def fwd(fn, at):  # ``at``: the place of ``part`` among the arguments
-        def launch(*args):
-            args = list(args)
-            h = args[0]
-            args[at] = torch.empty(7, fc._n_split(64, h.shape[0], h.device, blocks_per_sm=4), h.shape[0],
-                                   dtype=torch.float32, device=h.device)
-            fn(*args)
-        return launch
-
-    def bwd(fn):
-        def launch(*args):
-            *head, _ds, dh_part, dh, dw, _nsplit_ds, inv_t, log_eps = args
-            fn(*head, dh_part, dh, dw, inv_t, log_eps)
-        return launch
-
-    def scratch(hs, ws):
-        nsplit = fc._n_split(32, hs.shape[0], hs.device, blocks_per_sm=2)
-        return None, torch.empty(nsplit, *hs.shape, dtype=torch.float32, device=hs.device), 0
-
-    return dict(loca_ce_fwd=fwd(parent.loca_ce_fwd, 5), loca_fwd=fwd(parent.loca_fwd, 4),
-                loca_ce_bwd=bwd(parent.loca_ce_bwd), loca_bwd=bwd(parent.loca_bwd)), scratch
+    launchers, old_scratch = {}, set()
+    for name in PARENT_LAUNCHERS:
+        fn = getattr(parent, name)
+        if name in _DS_AT and "ds" not in inspect.signature(fn).parameters:
+            at, module = _DS_AT[name]
+            fn = _without_ds(fn, at)
+            old_scratch.add(module)
+        launchers[name] = fn
+    return launchers, old_scratch
 
 
 @contextlib.contextmanager
 def parent_kernels(parent):
     """Route the flash forward (K1/K3), the flash backward (K2/K4), K10, K12
-    (its quantize pass and GEMM), K13, K11 and K9 through the parent's
-    launchers (the same signatures, or K11's and K9's through
-    :func:`_parent_loca`).  The wrappers, their checks and their counters
-    stay this checkout's."""
+    (its quantize pass and GEMM), K13, K11, K9, K6 and K8 through the
+    parent's launchers (:func:`_parent_launchers`).  The wrappers, their
+    checks and their counters stay this checkout's."""
     saved = {name: getattr(_build, name) for name in PARENT_LAUNCHERS}
-    saved_scratch = fl._bwd_scratch
-    loca, scratch = _parent_loca(parent)
-    for name in PARENT_LAUNCHERS:
-        setattr(_build, name, loca.get(name) or getattr(parent, name))
-    if scratch is not None:
-        fl._bwd_scratch = scratch
+    launchers, old_scratch = _parent_launchers(parent)
+    saved_scratch = {m: m._bwd_scratch for m in old_scratch}
+    for name, fn in launchers.items():
+        setattr(_build, name, fn)
+    for m in old_scratch:
+        m._bwd_scratch = _old_scratch
     try:
         yield
     finally:
         for name, fn in saved.items():
             setattr(_build, name, fn)
-        fl._bwd_scratch = saved_scratch
+        for m, fn in saved_scratch.items():
+            m._bwd_scratch = fn
 
 
 def steps_in_turns(parent, run, tag: str, first: dict) -> dict:
@@ -758,7 +758,7 @@ def flash_kernel_phase(dev, g, parent=None) -> list:
 
 def kernel_phase(dev, parent=None) -> list:
     """Each kernel against its plain version at the main paths' shapes; with
-    ``parent``, K1-K4 and K10 also against the parent's kernels."""
+    ``parent``, each also against the parent's kernel in turns."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, std=1.0):
@@ -778,11 +778,26 @@ def kernel_phase(dev, parent=None) -> list:
     results.append(_result("fused_ce_fwd", err, time_ms(lambda: fc.lse_gold_fwd(h, w, labels), iters=5),
                            time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1),
                            bound(2 * n * d * vocab, nbytes(h, w, labels, *got))))
+    results.append(ce_bwd_kernel_phase(h, w, labels, lse, parent))
+    del h, w
+    torch.cuda.empty_cache()
+    results += loca_kernel_phase(dev, g, parent)
+    results += kl_kernel_phase(dev, g, parent)
+    results += int8_kernel_phase(dev, g, parent)
+    return results
 
-    # Unit cotangents (the summed NLL).  With g_gold = -1 the gold term
-    # -w_label dominates dh and dW; with g_gold = 0 they are the softmax
-    # term sum_v p_v w_v alone, which a kernel must get right on its own.
-    ones = torch.ones(n, device=dev)
+
+def ce_bwd_kernel_phase(h, w, labels, lse, parent=None) -> dict:
+    """K6 (the fused CE backward on the Hopper vocab core) against its plain
+    version on ``kernel_phase``'s inputs, with unit cotangents (the summed
+    NLL): with g_gold = -1 the gold term -w_label dominates dh and dW; with
+    g_gold = 0 they are the softmax term sum_v p_v w_v alone, which a kernel
+    must get right on its own, and a backward without that term (g_lse = 0)
+    must fail the bounds.  Two launches bit-identical; its time, and with
+    ``parent`` the parent's K6 in turns (bits logged, not held: the kernel
+    is redesigned) and both splits by kernel."""
+    n, d, vocab = h.shape[0], h.shape[1], w.shape[0]
+    ones = torch.ones(n, device=h.device)
     err = 0.0
     for case, g_gold in (("g_gold=-1", -ones), ("g_gold=0", torch.zeros_like(ones))):
         dh, dw = fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold)
@@ -797,17 +812,29 @@ def kernel_phase(dev, parent=None) -> list:
     _must_fail("fused_ce_bwd g_gold=0", "g_lse = 0", list(zip(no_softmax, (want_dh, want_dw))))
     del no_softmax, want_dh, want_dw
     g_gold = -ones
-    results.append(_result("fused_ce_bwd", err,
-                           time_ms(lambda: fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold), iters=3),
-                           time_ms(lambda: fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold),
-                                   iters=2, warmup=1),
-                           bound(6 * n * d * vocab, 2 * nbytes(h, w) + nbytes(labels, lse, ones, g_gold))))
-    del h, w
-    torch.cuda.empty_cache()
-    results += loca_kernel_phase(dev, g, parent)
-    results += kl_kernel_phase(dev, g)
-    results += int8_kernel_phase(dev, g, parent)
-    return results
+
+    def bwd():
+        return fc.lse_gold_bwd(h, w, labels, lse, ones, g_gold)
+
+    _bit_identical("fused_ce_bwd", bwd)
+    _log_split("fused_ce_bwd", bwd, parent)
+    if parent is not None:
+        _same_as_parent(parent, "fused_ce_bwd", bwd, bwd(), must=False)
+        log_in_turns("fused_ce_bwd", _theirs(parent, bwd), bwd, iters=3)
+    return _result("fused_ce_bwd", err, time_ms(bwd, iters=3),
+                   time_ms(lambda: fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold), iters=2, warmup=1),
+                   bound(6 * n * d * vocab, 2 * nbytes(h, w) + nbytes(labels, lse, ones, g_gold)))
+
+
+def _log_split(name, fn, parent=None) -> None:
+    """Log ``fn``'s device ms a call by kernel, and with ``parent`` the
+    parent's split of the same call."""
+    log(f"[kernel] {name} by kernel (ms a call): "
+        + ", ".join(f"{k} {t:.4f}" for k, t in kernel_split(fn, iters=2).items()))
+    if parent is not None:
+        with parent_kernels(parent):
+            split = kernel_split(fn, iters=2)
+        log(f"[kernel] {name} parent split (ms a call): " + ", ".join(f"{k} {t:.4f}" for k, t in split.items()))
 
 
 # [k13]: (entry name, q heads, kv heads, head dim) at S = 3072: K3's shapes
@@ -983,8 +1010,8 @@ def loca_kernel_phase(dev, g, parent=None) -> list:
     rows) and at the ragged N = LOCA_RAGGED_N on ``_loca_inputs``: every
     output within KD_TOL, the negative controls failing, two launches
     bit-identical, K9 bit-equal to K11's LoCa part; then the times at the
-    main shape and, with ``parent``, the parent's kernels in turns (their
-    bits logged, not held: the kernels are redesigned)."""
+    main shape and, with ``parent``, the parent's kernels in turns, their
+    outputs held bit-equal to the parent's."""
     cfg = llava_onevision_0_5b()
     d, vocab = cfg.text.hidden_size, cfg.text.vocab_size
     lc = kd_loss_config_for("double_trouble")
@@ -1043,13 +1070,11 @@ def loca_kernel_phase(dev, g, parent=None) -> list:
             del hs, ws, tmat, stats
             torch.cuda.empty_cache()
             continue
-        log(f"[kernel] fused_loca_ce_bwd by kernel (ms a call): "
-            + ", ".join(f"{k} {t:.4f}" for k, t in kernel_split(bwd, iters=2).items()))
-        log(f"[kernel] fused_loca_ce_fwd by kernel (ms a call): "
-            + ", ".join(f"{k} {t:.4f}" for k, t in kernel_split(fwd, iters=2).items()))
+        _log_split("fused_loca_ce_bwd", bwd)
+        _log_split("fused_loca_ce_fwd", fwd)
         if parent is not None:
-            _same_as_parent(parent, "fused_loca_ce_fwd", fwd, fwd(), must=False)
-            _same_as_parent(parent, "fused_loca_ce_bwd", bwd, bwd(), must=False)
+            _same_as_parent(parent, "fused_loca_ce_fwd", fwd, fwd(), must=True)
+            _same_as_parent(parent, "fused_loca_ce_bwd", bwd, bwd(), must=True)
             log_in_turns("fused_loca_ce_fwd", _theirs(parent, fwd), fwd, iters=5)
             log_in_turns("fused_loca_ce_bwd", _theirs(parent, bwd), bwd, iters=3)
         got = fwd()
@@ -1074,7 +1099,8 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, stats, alpha, kw, tag="",
     the rows), two launches bit-identical, and K9 bit-equal to K11's LoCa
     part on the same inputs: its KL rows and statistics to K11's, its dh
     and dW to K11's backward with g_ce = 0.  Its times at the main shape
-    (``tag`` empty), with ``parent`` in turns with the parent's kernels."""
+    (``tag`` empty), with ``parent`` in turns with the parent's kernels,
+    its outputs held bit-equal to the parent's."""
     n, d, vocab = hs.shape[0], hs.shape[1], ws.shape[0]
 
     def fwd():
@@ -1139,6 +1165,8 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, stats, alpha, kw, tag="",
     if tag:
         return []
     if parent is not None:
+        _same_as_parent(parent, "fused_loca_fwd", fwd, fwd(), must=True)
+        _same_as_parent(parent, "fused_loca_bwd", bwd, bwd(), must=True)
         log_in_turns("fused_loca_fwd", _theirs(parent, fwd), fwd, iters=5)
         log_in_turns("fused_loca_bwd", _theirs(parent, bwd), bwd, iters=3)
     got = fwd()
@@ -1153,12 +1181,15 @@ def loca_alone_kernel_phase(hs, ws, tmat, lab, lab_ce, stats, alpha, kw, tag="",
     return results
 
 
-def kl_kernel_phase(dev, g) -> list:
+def kl_kernel_phase(dev, g, parent=None) -> list:
     """K7 and K8 against their plain versions at the phase-1 path's shapes:
     N = 3072 rows, the 896-wide student head of 151936 rows, and the f32
     teacher-logit matrix at 1/T made as the step makes it, one product of a
     random teacher hidden [N, 3584] with a random head [V, 3584] (bf16,
-    f32 out; logits of std ~3)."""
+    f32 out; logits of std ~3).  K8 with and without dW, its negative
+    controls, two launches bit-identical, its split by kernel; with
+    ``parent``, the parent's K8 in turns (with and without dW; bits logged,
+    not held: the kernel is redesigned)."""
     cfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
     n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
     inv_t = 1.0 / kd_loss_config_for("double_trouble").temperature
@@ -1210,15 +1241,26 @@ def kl_kernel_phase(dev, g) -> list:
     def bwd(need_dw=True):
         return fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t, need_dw=need_dw)
 
+    def bwd_dh():
+        return bwd(need_dw=False)[0]
+
     def bwd_plain():
         return fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g_kl, inv_t=inv_t)
 
+    _bit_identical("fused_kl_bwd", bwd)
+    _bit_identical("fused_kl_bwd without dW", bwd_dh)
+    _log_split("fused_kl_bwd", bwd, parent)
+    _log_split("fused_kl_bwd without dW", bwd_dh, parent)
+    if parent is not None:
+        _same_as_parent(parent, "fused_kl_bwd", bwd, bwd(), must=False)
+        log_in_turns("fused_kl_bwd", _theirs(parent, bwd), bwd, iters=3)
+        log_in_turns("fused_kl_bwd without dW", _theirs(parent, bwd_dh), bwd_dh, iters=3)
     # no single PyTorch call computes the KL rows or their gradient over a
     # streamed head
     results.append(_result("fused_kl_bwd", err, time_ms(bwd, iters=3), time_ms(bwd_plain, iters=2, warmup=1),
                            bound(6 * n * d * vocab,
                                  2 * nbytes(hs, ws) + nbytes(tmat, lse_s, lse_t, g_kl))))
-    dh_ms = time_ms(lambda: bwd(need_dw=False), iters=3)
+    dh_ms = time_ms(bwd_dh, iters=3)
     dh_bound = bound(4 * n * d * vocab, 2 * nbytes(hs) + nbytes(ws, tmat, lse_s, lse_t, g_kl))
     log(f"[kernel] fused_kl_bwd without dW (a frozen head, as in phase 1): {dh_ms:.4f} ms, "
         f"bound {dh_bound[0]:.4f} ms ({dh_bound[1]})")
@@ -1669,19 +1711,19 @@ def loca_op_path(student, teacher, tb) -> dict:
     return dict(launches=launches, ms=op_ms)
 
 
-def kd_phase1_phase(dev, teacher) -> dict:
+def kd_phase1_phase(dev, teacher, tag: str = "kd1") -> dict:
     """6 double-trouble phase-1 steps (the KD CLI's default): K7 and K8's dh
     for the temperature KL, no dW (the tied head is part of the frozen
     language model), and the flash backwards through the frozen LM into the
     projector and the vision tower."""
-    return kd_path(dev, teacher, "kd1", "double_trouble", 1, KD_STEPS,
+    return kd_path(dev, teacher, tag, "double_trouble", 1, KD_STEPS,
                    _kd_per_micro(fused_kl_fwd=1, fused_kl_bwd=1), vision_moves=True)
 
 
-def feature_based_phase(dev, teacher) -> dict:
+def feature_based_phase(dev, teacher, tag: str = "kdfb") -> dict:
     """4 feature_based steps: K7, K8 with dW (the head trains), and the fused
     CE K5/K6."""
-    return kd_path(dev, teacher, "kdfb", "feature_based", 0, FB_STEPS,
+    return kd_path(dev, teacher, tag, "feature_based", 0, FB_STEPS,
                    _kd_per_micro(fused_kl_fwd=1, fused_kl_bwd=1, fused_kl_bwd_dw=1, fused_ce_fwd=1,
                                  fused_ce_bwd=1))
 
@@ -2305,9 +2347,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                         "time K1-K4, K9-K13 and the [train], [main], [kd], [kd8] and [eval] runs "
-                         "with its kernels beside this checkout's, and hold K1, K2, K4, K10 and K12 bit-equal "
-                         "to its output")
+                         "time K1-K4, K6 and K8-K13 and the [train], [main], [kd], [kd1], [kdfb], [kd8] and "
+                         "[eval] runs with its kernels beside this checkout's, and hold K1, K2, K4 and K9-K12 "
+                         "bit-equal to its output")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
@@ -2355,7 +2397,12 @@ def main() -> int:
         steps_parent["kd"] = steps_in_turns(parent, lambda tag: kd_training_phase(dev, teacher, tag=tag), "kd", kd)
     kdf = kd_faithful_phase(dev, teacher)
     kd1 = kd_phase1_phase(dev, teacher)
+    if parent is not None:
+        steps_parent["kd1"] = steps_in_turns(parent, lambda tag: kd_phase1_phase(dev, teacher, tag=tag), "kd1", kd1)
     kdfb = feature_based_phase(dev, teacher)
+    if parent is not None:
+        steps_parent["kdfb"] = steps_in_turns(parent, lambda tag: feature_based_phase(dev, teacher, tag=tag), "kdfb",
+                                              kdfb)
     kd8 = kd8_phase(dev, teacher)
     if parent is not None:
         steps_parent["kd8"] = steps_in_turns(parent, lambda tag: kd8_steps(dev, teacher, tag=tag), "kd8", kd8)
@@ -2379,7 +2426,7 @@ def main() -> int:
                     ("feature_based", kdfb), ("KD phase 3, int8 teacher", kd8)):
         log(f"[summary] {card}: {name} step {r['step_ms']:.1f} ms "
             f"({ACCUM / (r['step_ms'] / 1e3):.3f} samples/s), peak {r['peak'] / 2**30:.2f} GiB")
-    for name, r in (("train", train), ("kd", kd), ("kd8", kd8)):
+    for name, r in (("train", train), ("kd", kd), ("kd1", kd1), ("kdfb", kdfb), ("kd8", kd8)):
         if name in steps_parent:
             log(f"[summary] {card}: [{name}] step {steps_parent[name]['change_ms']:.1f} ms, with the parent's "
                 f"kernels {steps_parent[name]['step_ms']:.1f} ms (means of two runs each, in turns, same "

@@ -1,6 +1,6 @@
 // Vocab-streaming fused cross-entropy for Hopper (sm_90a): per-row
 // logsumexp and gold logit over the tied head, and their backward, without
-// ever writing a [N, V] logits tensor to device memory.
+// ever writing the [N, V] logits to device memory.
 //
 // Replaces the Pallas TPU kernels of the JAX package's ops/fused_ce.py
 // (knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu/):
@@ -11,40 +11,38 @@
 // are bf16; labels int32 [N] (the wrapper maps ignored rows to label 0 and
 // zeroes their cotangents); lse, gold, g_lse, g_gold f32 [N].
 //
-// Every kernel recomputes its logits tile h w^T itself with mma.sync
-// m16n8k16 (bf16 x bf16 -> f32); no tile is read from a stored logits
-// tensor.  The vocab is not padded: columns v >= V of the last tile read
-// zero-filled head rows and are masked out of the softmax and the
-// gradients (the JAX `_masked_w` / `cols < v_real` masks).
+//   K5  `ce_fwd_kernel`, on the mma.sync tiling of csrc/kdss_vocab.cuh: one
+//       block of 4 warps per (64 rows, vocab split); each warp owns 16 rows
+//       and walks 128-column vocab tiles, keeping an online (max, sum) and
+//       the gold logit per row in registers; a 128-thread `ce_fwd_combine`
+//       merges the splits.  The vocab is split across blocks because 48 row
+//       tiles alone would leave most of the 132 SMs idle (the JAX grid runs
+//       its vocab axis in sequence).  Columns v >= V of the last tile read
+//       zero-filled head rows and are masked out (the JAX `_masked_w` /
+//       `cols < v_real` masks).
+//   K6  on the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed by
+//       TMA under mbarriers): one sweep recomputes the logits and writes
+//       d_logits = g_lse * p + g_gold * onehot(label), rounded to bf16 as
+//       the JAX kernels round them, into ds [N, V] once (`DsEpi`: one
+//       exponential and one compare a logit; no teacher tile is loaded);
+//       then the core's two products dh = ds w (split over the vocab, f32
+//       partials summed in split order) and dW = ds^T h.  Columns v >= V of
+//       a ragged last tile are never written (the products' tensor maps
+//       read zeros there); rows past N are never written.
 //
-//   K5  `ce_fwd_kernel`: one block of 4 warps per (64 rows, vocab split);
-//       each warp owns 16 rows and walks 128-column vocab tiles, keeping an
-//       online (max, sum) and the gold logit per row in registers; a
-//       128-thread `ce_fwd_combine` merges the splits.  The vocab is split
-//       across blocks because 48 row tiles alone would leave most of the
-//       132 SMs idle (the JAX grid runs its vocab axis in sequence).
-//   K6  the shared `dh_kernel` (one block of 8 warps per (32 rows, vocab
-//       split), the [32, 896] f32 dh accumulator spread over the warps by
-//       columns, h and one 64-row head tile in ~179 KB of dynamic shared
-//       memory, dlogits = g_lse * p + g_gold * onehot rounded to bf16 as
-//       the JAX kernel rounds them, the splits summed in a fixed order by
-//       `reduce_dh`) and `dw_kernel` (8 warps per 32 head rows, all N rows
-//       in chunks of 64).
-//
-// The tiling, the helpers and the K6 kernels are shared with the other
-// vocab-streaming losses (csrc/kdss_vocab.cuh); K6 supplies its d_logits
-// (`CERows`).
-//
-// What bounds it on the H100: at N = 3072, DM = 896, V = 151936 each of the
-// three sweeps is 0.84 TFLOP of logits (the backward sweeps another 0.84
-// each for dh and dW), so they are tensor-core bound on paper; this first
-// version feeds mma.sync from synchronous shared-memory loads (no cp.async
-// ring, no wgmma), and re-reads h (5.5 MB, L2-resident) once per head tile.
+// What bounds it on the H100, at N = 3072, DM = 896, V = 151936: the forward
+// is one logits product (0.84 TFLOP, 0.85 ms at 989 TFLOP/s), the backward
+// three (2.51 TFLOP, 2.54 ms) against 0.93 GB of bf16 ds written and read
+// back (~0.56 ms at 3.35 TB/s): tensor-core bound.  K5 still feeds mma.sync
+// from synchronous shared-memory loads.
 
 #include "kdss_vocab.cuh"
+#include "kdss_vocab_sm90.cuh"
 
-// A named namespace: the shared kernels are instantiated with this file's
-// Rows policy, and nvcc's host stubs cannot name a type of an unnamed one.
+// Named namespaces: the core's kernels are instantiated with this file's
+// epilogue policy, and nvcc's host stubs cannot name a type of an unnamed
+// one.  The forward (on kdss_vocab.cuh) and the backward (on
+// kdss_vocab_sm90.cuh) live apart: the two headers name their helpers alike.
 namespace kdss_ce {
 
 using namespace kdss;
@@ -138,33 +136,6 @@ __global__ void ce_fwd_combine(const float* __restrict__ lse_part, const float* 
   gold[n] = g;
 }
 
-// ---- K6: backward -------------------------------------------------------
-
-// d_logits = g_lse * p + g_gold * onehot(label) from lse and the cotangents.
-struct CERows {
-  static constexpr int NSTAT = 4;  // lse (log2 domain), g_lse, g_gold, (int) label
-  const float *lse, *g_lse, *g_gold;
-  const int* labels;
-
-  __device__ void stage(float* f, int rows, int n0, int N) const {
-    int* lab = reinterpret_cast<int*>(f + 3 * rows);
-    for (int i = threadIdx.x; i < rows; i += B_THREADS) {
-      const int n = n0 + i;
-      const bool in = n < N;
-      f[i] = in ? lse[n] * LOG2E : INFINITY;  // padding rows: p = 0
-      f[rows + i] = in ? g_lse[n] : 0.f;
-      f[2 * rows + i] = in ? g_gold[n] : 0.f;
-      lab[i] = in ? labels[n] : -1;
-    }
-  }
-
-  __device__ float dlogit(const float* f, int rows, int r, long, int col, int V, float x) const {
-    if (col >= V) return 0.f;
-    const float p = exp2f(x * LOG2E - f[r]);
-    return f[rows + r] * p + (col == reinterpret_cast<const int*>(f + 3 * rows)[r] ? f[2 * rows + r] : 0.f);
-  }
-};
-
 template <int DM>
 cudaError_t fwd(const void* h, const void* w, const void* labels, float* lse_part,
                 float* gold_part, float* lse, float* gold, int N, int V, int nsplit,
@@ -183,7 +154,72 @@ cudaError_t fwd(const void* h, const void* w, const void* labels, float* lse_par
 
 }  // namespace kdss_ce
 
-using namespace kdss_ce;
+// ---- K6: backward ---------------------------------------------------------
+
+namespace kdss_ce90 {
+
+using namespace kdss_vocab90;
+
+// ds = g_lse * exp(s - lse) + (col == label ? g_gold : 0), rounded to bf16
+// and stored into ds [N, ld] (columns < V); per row, lse * log2(e) is folded
+// into one constant, so a logit costs one FMA, one exponential and a compare.
+struct DsEpi {
+  static constexpr bool TEACHER = false;
+  const float *lse, *g_lse, *g_gold;
+  const int* labels;
+  bf* ds;
+  long ld;
+
+  struct State {
+    float b[2], gl[2], gg[2];
+    int lab[2];
+  };
+
+  __device__ void begin(State& q, const int rows[2], int N) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = rows[r];
+      const bool in = n < N;
+      q.b[r] = in ? lse[n] * LOG2E : 0.f;
+      q.gl[r] = in ? g_lse[n] : 0.f;
+      q.gg[r] = in ? g_gold[n] : 0.f;
+      q.lab[r] = in ? labels[n] : -1;
+    }
+  }
+
+  __device__ __forceinline__ float dlogit(const State& q, int r, int col, float x) const {
+    return fast_exp2(fmaf(x, LOG2E, -q.b[r])) * q.gl[r] + (col == q.lab[r] ? q.gg[r] : 0.f);
+  }
+
+  template <class View>
+  __device__ void tile(State& q, const float (&acc)[64], const View& view, const int rows[2], int N) const {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // col is even and ld a multiple of 8 >= V, so the pair stays in the row
+        const int col = view.col(j, 2 * r);
+        if (rows[r] >= N || !view.in(j, 2 * r)) continue;
+        const float d0 = dlogit(q, r, col, acc[4 * j + 2 * r]);
+        const float d1 = dlogit(q, r, col + 1, acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(ds + rows[r] * ld + col) = kdss::pack_bf16(d0, d1);
+      }
+    }
+  }
+
+  __device__ void end(State&, const int*, int, int, int, int) const {}
+};
+
+// The ds sweep (no teacher), then dh and dW.
+template <int DM>
+cudaError_t bwd(const void* h, const void* w, const DsEpi& epi, float* dh_part, bf* dh, bf* dw, int N, int V,
+                int nsplit_ds, int nsplit_dh, cudaStream_t st) {
+  cudaError_t err = kdss_vocab90_host::sweep<DM>(h, w, nullptr, epi, N, V, nsplit_ds, st);
+  if (err != cudaSuccess) return err;
+  return kdss_vocab90_host::ds_products<DM, DsEpi>(h, w, epi.ds, epi.ld, dh_part, dh, dw, N, V, nsplit_dh, st);
+}
+
+}  // namespace kdss_ce90
 
 extern "C" {
 
@@ -192,25 +228,28 @@ extern "C" {
 int kdss_ce_fwd(const void* h, const void* w, const void* labels, void* lse_part, void* gold_part,
                 void* lse, void* gold, int N, int V, int DM, int nsplit, void* stream) {
   if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float *lp = static_cast<float*>(lse_part), *gp = static_cast<float*>(gold_part);
-  float *l = static_cast<float*>(lse), *g = static_cast<float*>(gold);
   if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);  // the 0.5B student's width
-  return static_cast<int>(fwd<896>(h, w, labels, lp, gp, l, g, N, V, nsplit, st));
+  return static_cast<int>(kdss_ce::fwd<896>(h, w, labels, static_cast<float*>(lse_part),
+                                            static_cast<float*>(gold_part), static_cast<float*>(lse),
+                                            static_cast<float*>(gold), N, V, nsplit,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
-// K6.  dh_part: f32 scratch [nsplit, N, DM]; dh [N, DM] and dw [V, DM] bf16.
-int kdss_ce_bwd(const void* h, const void* w, const void* labels, const void* lse,
-                const void* g_lse, const void* g_gold, void* dh_part, void* dh, void* dw, int N,
-                int V, int DM, int nsplit, void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);
-  const CERows rows{static_cast<const float*>(lse), static_cast<const float*>(g_lse),
-                    static_cast<const float*>(g_gold), static_cast<const int*>(labels)};
-  return static_cast<int>(launch_bwd<896>(static_cast<const bf*>(h), static_cast<const bf*>(w), rows,
-                                          static_cast<float*>(dh_part), static_cast<bf*>(dh),
-                                          static_cast<bf*>(dw), N, V, nsplit,
-                                          static_cast<cudaStream_t>(stream)));
+// K6.  ds: bf16 scratch [N, ld_ds] (ld_ds >= V, a multiple of 8); dh_part: f32
+// scratch [nsplit_dh, N, DM]; dh [N, DM] and dw [V, DM] bf16; nsplit_ds vocab
+// splits of the ds sweep.
+int kdss_ce_bwd(const void* h, const void* w, const void* labels, const void* lse, const void* g_lse,
+                const void* g_gold, void* ds, void* dh_part, void* dh, void* dw, int N, int V, int DM,
+                long ld_ds, int nsplit_ds, int nsplit_dh, void* stream) {
+  if (N <= 0 || V <= 0 || DM != 896 || nsplit_ds <= 0 || nsplit_ds > 65535 || nsplit_dh <= 0 ||
+      nsplit_dh > 65535 || ld_ds < V || ld_ds % 8 != 0 || dw == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const kdss_ce90::DsEpi epi{static_cast<const float*>(lse), static_cast<const float*>(g_lse),
+                             static_cast<const float*>(g_gold), static_cast<const int*>(labels),
+                             static_cast<__nv_bfloat16*>(ds), ld_ds};
+  return static_cast<int>(kdss_ce90::bwd<896>(h, w, epi, static_cast<float*>(dh_part),
+                                               static_cast<__nv_bfloat16*>(dh), static_cast<__nv_bfloat16*>(dw),
+                                               N, V, nsplit_ds, nsplit_dh, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

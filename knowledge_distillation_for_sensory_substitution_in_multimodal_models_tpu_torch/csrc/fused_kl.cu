@@ -28,27 +28,34 @@
 // p t and p sT included (e^-inf * -inf is NaN); rows past N are never read
 // from tmat and are never written.
 //
-// Layout: the shared vocab-streaming tiling of csrc/kdss_vocab.cuh.  The
-// forward reads the f32 tmat entries of each logits tile straight from
-// device memory into registers; each thread keeps six accumulators per row
-// over its own columns; the four threads of a row merge at the end, and a
-// per-row combine kernel rescales the splits' partials to a common max and
-// sums them in a fixed order.  The backward is the shared dh and dW
-// kernels with this loss's d_logit (`KLRows`); the dW kernel is skipped
-// when the head needs no gradient (dw == nullptr).
+// Layout.  The forward (K7) runs on the mma.sync tiling of
+// csrc/kdss_vocab.cuh: it reads the f32 tmat entries of each logits tile
+// straight from device memory into registers; each thread keeps six
+// accumulators per row over its own columns; the four threads of a row
+// merge at the end, and a per-row combine kernel rescales the splits'
+// partials to a common max and sums them in a fixed order.  The backward
+// (K8) runs on the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed
+// by TMA under mbarriers): one sweep recomputes the logits, reads the
+// teacher tile into registers while its products run and writes ds [N, V]
+// in bf16 once (`DsEpi`: two exponentials and a subtract a logit, the
+// scales folded into per-row constants); then the core's products dh = ds w
+// (split over the vocab, f32 partials summed in split order) and, unless
+// the head needs no gradient (dw == nullptr), dW = ds^T h.  The backward
+// takes V a multiple of 4 (tmat read in 8-byte pairs).
 //
 // What bounds it on the H100, at N = 3072, DM = 896, V = 151936: the least
 // work is one logits product (0.84 TFLOP, 0.85 ms at 989 TFLOP/s) in the
-// forward and three (2.51 TFLOP, 2.54 ms) in the backward, against 1.87 GB
-// of tmat (0.56 ms at 3.35 TB/s): tensor-core bound.  This first version
-// computes the logits once in the forward and once in each backward
-// kernel, feeds mma.sync from synchronous shared-memory loads, and reads
-// tmat once per kernel (three times with dW).
+// forward and three (2.51 TFLOP, 2.54 ms; two without dW) in the backward,
+// against 1.87 GB of tmat (0.56 ms at 3.35 TB/s): tensor-core bound.  The
+// backward also writes and reads back 0.93 GB of ds.
 
 #include "kdss_vocab.cuh"
+#include "kdss_vocab_sm90.cuh"
 
-// A named namespace: the shared kernels are instantiated with this file's
-// Rows policy, and nvcc's host stubs cannot name a type of an unnamed one.
+// Named namespaces: the core's kernels are instantiated with this file's
+// epilogue policy, and nvcc's host stubs cannot name a type of an unnamed
+// one.  The forward (on kdss_vocab.cuh) and the backward (on
+// kdss_vocab_sm90.cuh) live apart: the two headers name their helpers alike.
 namespace kdss_kl {
 
 using namespace kdss;
@@ -178,35 +185,6 @@ __global__ void kl_fwd_combine(const float* __restrict__ part, float* __restrict
   kl[n] = (u - w) / zt - lt + ls;
 }
 
-// ---- backward -----------------------------------------------------------
-
-// d_logit = (p_sT - p_t) g / T (the JAX `_kl_dhs_kernel`'s ds), from the
-// forward's lse_s, lse_t and the cotangent g of the KL rows.
-struct KLRows {
-  static constexpr int NSTAT = 4;  // lse_s, lse_t, g / T, live (the row is < N)
-  const float *tmat, *lse_s, *lse_t, *g;
-  float inv_t;
-
-  __device__ void stage(float* f, int rows, int n0, int N) const {
-    int* live = reinterpret_cast<int*>(f + 3 * rows);
-    for (int i = threadIdx.x; i < rows; i += B_THREADS) {
-      const int n = n0 + i;
-      const bool in = n < N;
-      f[i] = in ? lse_s[n] : 0.f;
-      f[rows + i] = in ? lse_t[n] : 0.f;
-      f[2 * rows + i] = in ? g[n] * inv_t : 0.f;
-      live[i] = in;
-    }
-  }
-
-  __device__ float dlogit(const float* f, int rows, int r, long n, int col, int V, float x) const {
-    if (col >= V || !reinterpret_cast<const int*>(f + 3 * rows)[r]) return 0.f;
-    const float p_s = exp_(x * inv_t - f[r]);
-    const float p_t = exp_(tmat[n * V + col] - f[rows + r]);
-    return (p_s - p_t) * f[2 * rows + r];
-  }
-};
-
 template <int DM>
 cudaError_t fwd(const bf* h, const bf* w, const float* tmat, float* part, float* kl, float* lse_s,
                 float* lse_t, int N, int V, int nsplit, float inv_t, cudaStream_t st) {
@@ -222,7 +200,72 @@ cudaError_t fwd(const bf* h, const bf* w, const float* tmat, float* part, float*
 
 }  // namespace kdss_kl
 
-using namespace kdss_kl;
+// ---- K8: backward ---------------------------------------------------------
+
+namespace kdss_kl90 {
+
+using namespace kdss_vocab90;
+
+// ds = (exp(s / T - lse_s) - exp(t - lse_t)) g / T (the JAX
+// `_kl_dhs_kernel`'s ds) from the forward's lse_s, lse_t and the cotangent g
+// of the KL rows, rounded to bf16 and stored into ds [N, ld] (columns < V).
+// Per row, lse_s log2(e), lse_t log2(e) and g / T are folded into constants.
+struct DsEpi {
+  static constexpr bool TEACHER = true;
+  const float *lse_s, *lse_t, *g;
+  bf* ds;
+  long ld;
+  float inv_t;
+
+  struct State {
+    float bs[2], bt[2], gt[2];
+  };
+
+  __device__ void begin(State& q, const int rows[2], int N) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = rows[r];
+      const bool in = n < N;
+      q.bs[r] = in ? lse_s[n] * LOG2E : 0.f;
+      q.bt[r] = in ? lse_t[n] * LOG2E : 0.f;
+      q.gt[r] = in ? g[n] * inv_t : 0.f;
+    }
+  }
+
+  template <class View>
+  __device__ void tile(State& q, const float (&acc)[64], const View& view, const int rows[2], int N) const {
+    const float cs = inv_t * LOG2E;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = view.col(j, 2 * r);  // even; V % 4 == 0, so col < V covers col + 1
+        if (rows[r] >= N || !view.in(j, 2 * r)) continue;
+        float d[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * r + c;
+          d[c] = (fast_exp2(fmaf(acc[4 * j + e], cs, -q.bs[r])) -
+                  fast_exp2(fmaf(view.teacher(j, e), LOG2E, -q.bt[r]))) * q.gt[r];
+        }
+        *reinterpret_cast<uint32_t*>(ds + rows[r] * ld + col) = kdss::pack_bf16(d[0], d[1]);
+      }
+    }
+  }
+
+  __device__ void end(State&, const int*, int, int, int, int) const {}
+};
+
+// The ds sweep, then dh and (unless dw is null) dW.
+template <int DM>
+cudaError_t bwd(const void* h, const void* w, const float* tmat, const DsEpi& epi, float* dh_part, bf* dh, bf* dw,
+                int N, int V, int nsplit_ds, int nsplit_dh, cudaStream_t st) {
+  cudaError_t err = kdss_vocab90_host::sweep<DM>(h, w, tmat, epi, N, V, nsplit_ds, st);
+  if (err != cudaSuccess) return err;
+  return kdss_vocab90_host::ds_products<DM, DsEpi>(h, w, epi.ds, epi.ld, dh_part, dh, dw, N, V, nsplit_dh, st);
+}
+
+}  // namespace kdss_kl90
 
 extern "C" {
 
@@ -233,26 +276,28 @@ int kdss_kl_fwd(const void* h, const void* w, const void* tmat, void* part, void
   if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);  // the 0.5B student's width
-  return static_cast<int>(fwd<896>(
-      static_cast<const bf*>(h), static_cast<const bf*>(w), static_cast<const float*>(tmat),
+  return static_cast<int>(kdss_kl::fwd<896>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(tmat),
       static_cast<float*>(part), static_cast<float*>(kl), static_cast<float*>(lse_s),
       static_cast<float*>(lse_t), N, V, nsplit, inv_t, static_cast<cudaStream_t>(stream)));
 }
 
-// K8.  dh_part: f32 scratch [nsplit, N, DM]; dh [N, DM] bf16; dw [V, DM]
-// bf16, or null to skip the dW kernel; lse_s, lse_t, g f32 [N].
+// K8.  ds: bf16 scratch [N, ld_ds] (ld_ds >= V, a multiple of 8); dh_part:
+// f32 scratch [nsplit_dh, N, DM]; dh [N, DM] bf16; dw [V, DM] bf16, or null
+// to skip dW; lse_s, lse_t, g f32 [N]; nsplit_ds vocab splits of the ds
+// sweep; V a multiple of 4.
 int kdss_kl_bwd(const void* h, const void* w, const void* tmat, const void* lse_s, const void* lse_t,
-                const void* g, void* dh_part, void* dh, void* dw, int N, int V, int DM, int nsplit,
-                float inv_t, void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f))
+                const void* g, void* ds, void* dh_part, void* dh, void* dw, int N, int V, int DM, long ld_ds,
+                int nsplit_ds, int nsplit_dh, float inv_t, void* stream) {
+  if (N <= 0 || V <= 0 || V % 4 != 0 || DM != 896 || nsplit_ds <= 0 || nsplit_ds > 65535 || nsplit_dh <= 0 ||
+      nsplit_dh > 65535 || ld_ds < V || ld_ds % 8 != 0 || !(inv_t > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);
-  const KLRows rows{static_cast<const float*>(tmat), static_cast<const float*>(lse_s),
-                    static_cast<const float*>(lse_t), static_cast<const float*>(g), inv_t};
-  return static_cast<int>(launch_bwd<896>(static_cast<const bf*>(h), static_cast<const bf*>(w), rows,
-                                          static_cast<float*>(dh_part), static_cast<bf*>(dh),
-                                          static_cast<bf*>(dw), N, V, nsplit,
-                                          static_cast<cudaStream_t>(stream)));
+  const kdss_kl90::DsEpi epi{static_cast<const float*>(lse_s), static_cast<const float*>(lse_t),
+                             static_cast<const float*>(g), static_cast<__nv_bfloat16*>(ds), ld_ds, inv_t};
+  return static_cast<int>(kdss_kl90::bwd<896>(h, w, static_cast<const float*>(tmat), epi,
+                                               static_cast<float*>(dh_part), static_cast<__nv_bfloat16*>(dh),
+                                               static_cast<__nv_bfloat16*>(dw), N, V, nsplit_ds, nsplit_dh,
+                                               static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

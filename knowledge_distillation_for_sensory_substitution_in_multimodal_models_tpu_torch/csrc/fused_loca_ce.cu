@@ -100,6 +100,7 @@ __device__ __forceinline__ void top2_merge(float& m1, float& m2, float b1, float
 // sum with base m1, and the two gold logits.
 template <bool CE>
 struct StatsEpi {
+  static constexpr bool TEACHER = true;
   const int *lab, *lab_ce;
   float* part;
   float inv_t;
@@ -266,6 +267,7 @@ __device__ __forceinline__ float calibrated(const LocaRow& q, int col, float t, 
 
 // Pass 2: the calibrated-KL row sums and tsum.
 struct KlEpi {
+  static constexpr bool TEACHER = true;
   const int* lab;
   const float* rowstats;
   float* part;
@@ -338,6 +340,7 @@ __global__ void loca_kl_combine(const float* __restrict__ part, float* __restric
 // neither lab_ce nor g_ce is read.
 template <bool CE>
 struct DsEpi {
+  static constexpr bool TEACHER = true;
   const float *rowstats, *g_kl, *g_ce;
   const int *lab, *lab_ce;
   bf* ds;
@@ -425,7 +428,7 @@ cudaError_t bwd(const void* h, const void* w, const float* tmat, const DsEpi<CE>
                 bf* dw, int N, int V, int nsplit_ds, int nsplit_dh, cudaStream_t st) {
   cudaError_t err = kdss_vocab90_host::sweep<DM>(h, w, tmat, epi, N, V, nsplit_ds, st);
   if (err != cudaSuccess) return err;
-  return kdss_vocab90_host::ds_products<DM>(h, w, epi.ds, epi.ld, dh_part, dh, dw, N, V, nsplit_dh, st);
+  return kdss_vocab90_host::ds_products<DM, DsEpi<CE>>(h, w, epi.ds, epi.ld, dh_part, dh, dw, N, V, nsplit_dh, st);
 }
 
 inline bool bad_args(int N, int V, int DM, int nsplit, float inv_t) {

@@ -1,8 +1,10 @@
 // The vocab-streaming core of the fused losses on Hopper (sm_90a): rows of
 // hidden states h [N, DM] against a head w [V, DM] (bf16, "vd") whose
 // logits S = h w^T are never written to device memory, computed on wgmma
-// fed by TMA under mbarriers.  K11 and K9 (csrc/fused_loca_ce.cu) run on it;
-// K5-K8 still run csrc/kdss_vocab.cuh.
+// fed by TMA under mbarriers.  K11 and K9 (csrc/fused_loca_ce.cu) run on it,
+// and so do the backwards of the fused CE (K6, csrc/fused_ce.cu) and of the
+// temperature KL (K8, csrc/fused_kl.cu); their forwards K5 and K7 still run
+// csrc/kdss_vocab.cuh.
 //
 // `sweep_kernel<DM, Epi>`: one block per (64 rows, vocab split), three
 // warpgroups.  The block's h rows [64, DM] stay in shared memory for the
@@ -29,17 +31,20 @@
 // (the head or h, [K rows, Nn] row-major), A stored K-major ([M, K]
 // row-major) or, with A_MN, M-major ([K, M] row-major: ds read as ds^T);
 // split over K by blockIdx.z into f32 partials, or one bf16 output.  The
-// backward's products dh = ds w and dW = ds^T h run on it.
+// backward's products dh = ds w and dW = ds^T h run on it.  Its `Tag` (the
+// loss's ds policy) only names the kernels after the loss whose ds they
+// read, so a profile can tell the losses' products apart.
 //
 // An `Epi` policy (passed by value) has
+//   static constexpr bool TEACHER;      // false: no teacher tile is loaded (tmat may be null)
 //   struct State;                       // per-thread, two rows
 //   __device__ void begin(State&, const int rows[2], int N) const;
 //   template <class View>               // TileView<FULL>
 //   __device__ void tile(State&, const float (&acc)[64], const View&, const int rows[2],
 //                        int N) const;  // acc[4 j + 2 h + c]: row rows[h], column v0 + 8 j + 2 ti + c
 //   __device__ void end(State&, const int rows[2], int split, int nsplit, int N, int ti) const;
-// View::teacher(j, e) is the teacher logit of acc[4 j + e] (-inf past V),
-// View::in(j, e) whether its column is < V.
+// View::teacher(j, e) is the teacher logit of acc[4 j + e] (-inf past V;
+// read only when TEACHER), View::in(j, e) whether its column is < V.
 
 #pragma once
 
@@ -210,10 +215,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = wg; t0 + i < t1; i += CONSUMERS) {
       const int v0 = (t0 + i) * BN;
       const bool full_tile = v0 + BN <= V;
-      if (full_tile)
-        load_teacher<true>(tv, tmat, rows, v0, N, V, ti);
-      else
-        load_teacher<false>(tv, tmat, rows, v0, N, V, ti);
+      if constexpr (Epi::TEACHER) {
+        if (full_tile)
+          load_teacher<true>(tv, tmat, rows, v0, N, V, ti);
+        else
+          load_teacher<false>(tv, tmat, rows, v0, N, V, ti);
+      }
       // The products of the split's tiles are issued in tile order, the two
       // consumers in turns: a stage's full barrier is then never more than
       // one phase ahead of its waiter (parity tells only adjacent phases).
@@ -247,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <bool A_MN, bool OUT_F32>
+template <bool A_MN, bool OUT_F32, class Tag>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
                 void* __restrict__ out, int M, int Nn, int K, int ksteps_per_split) {
@@ -345,6 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // dh = the sum of the K splits' f32 partials [nsplit, count], in split order.
+template <class Tag>
 __global__ void reduce_splits(const float* __restrict__ part, bf* __restrict__ out, long count, int nsplit) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count) return;
@@ -393,37 +401,38 @@ cudaError_t sweep(const void* h, const void* w, const float* tmat, const Epi& ep
 
 // out [M, Nn] (f32 partials [nsplit, M, Nn], or bf16 with nsplit = 1) =
 // A B over K, from the maps' boxes (see gemm_kernel).
-template <bool A_MN, bool OUT_F32>
+template <bool A_MN, bool OUT_F32, class Tag>
 cudaError_t gemm(const CUtensorMap& a_map, const CUtensorMap& b_map, void* out, int M, int Nn, int K, int nsplit,
                  cudaStream_t st) {
   cudaError_t err =
-      cudaFuncSetAttribute(gemm_kernel<A_MN, OUT_F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+      cudaFuncSetAttribute(gemm_kernel<A_MN, OUT_F32, Tag>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const int nk = (K + BK - 1) / BK;
   const int per = (nk + nsplit - 1) / nsplit;
-  gemm_kernel<A_MN, OUT_F32><<<dim3((Nn + BN - 1) / BN, (M + BM - 1) / BM, nsplit), THREADS, GEMM_SMEM, st>>>(
+  gemm_kernel<A_MN, OUT_F32, Tag><<<dim3((Nn + BN - 1) / BN, (M + BM - 1) / BM, nsplit), THREADS, GEMM_SMEM, st>>>(
       a_map, b_map, out, M, Nn, K, per);
   return cudaGetLastError();
 }
 
 // The backward's two products from the bf16 d_logits ds [N, V] (row stride
 // ld_ds): dh [N, DM] = ds w through f32 partials [nsplit, N, DM] summed in
-// split order, and, unless dw is null, dW [V, DM] = ds^T h.
-template <int DM>
+// split order, and, unless dw is null, dW [V, DM] = ds^T h; `Tag` names the
+// kernels (see gemm_kernel).
+template <int DM, class Tag>
 cudaError_t ds_products(const void* h, const void* w, const void* ds, long ld_ds, float* dh_part, bf* dh, bf* dw,
                         int N, int V, int nsplit, cudaStream_t st) {
   CUtensorMap a_map, b_map;
   cudaError_t err = bf16_map(&a_map, ds, N, V, ld_ds, BM);  // [128 rows x 64 vocab] boxes, K-major
   if (err == cudaSuccess) err = bf16_map(&b_map, w, V, DM, DM, 64);
-  if (err == cudaSuccess) err = gemm<false, true>(a_map, b_map, dh_part, N, DM, V, nsplit, st);
+  if (err == cudaSuccess) err = gemm<false, true, Tag>(a_map, b_map, dh_part, N, DM, V, nsplit, st);
   if (err != cudaSuccess) return err;
   const long count = static_cast<long>(N) * DM;
-  reduce_splits<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(dh_part, dh, count, nsplit);
+  reduce_splits<Tag><<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(dh_part, dh, count, nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess || dw == nullptr) return err;
   err = bf16_map(&a_map, ds, N, V, ld_ds, 64);  // [64 rows x 64 vocab] boxes, read M-major
   if (err == cudaSuccess) err = bf16_map(&b_map, h, N, DM, DM, 64);
-  if (err == cudaSuccess) err = gemm<true, false>(a_map, b_map, dw, V, DM, N, 1, st);
+  if (err == cudaSuccess) err = gemm<true, false, Tag>(a_map, b_map, dw, V, DM, N, 1, st);
   return err;
 }
 

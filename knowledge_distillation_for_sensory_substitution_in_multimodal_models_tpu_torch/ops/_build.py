@@ -111,8 +111,9 @@ def load_library() -> ctypes.CDLL:
         "kdss_flash_bwd": [vp] * 11 + [ci] * 7 + [cf, vp],
         # h, w, labels, lse_part, gold_part, lse, gold, N, V, DM, nsplit, stream
         "kdss_ce_fwd": [vp] * 7 + [ci] * 4 + [vp],
-        # h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw, N, V, DM, nsplit, stream
-        "kdss_ce_bwd": [vp] * 9 + [ci] * 4 + [vp],
+        # h, w, labels, lse, g_lse, g_gold, ds, dh_part, dh, dw, N, V, DM, ld_ds, nsplit_ds,
+        # nsplit_dh, stream
+        "kdss_ce_bwd": [vp] * 10 + [ci] * 3 + [cl] + [ci] * 2 + [vp],
         # h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, N, V, DM, nsplit,
         # inv_t, alpha, log_eps, stream
         "kdss_loca_ce_fwd": [vp] * 9 + [ci] * 4 + [cf] * 3 + [vp],
@@ -127,9 +128,9 @@ def load_library() -> ctypes.CDLL:
         "kdss_loca_bwd": [vp] * 10 + [ci] * 3 + [cl] + [ci] * 2 + [cf] * 2 + [vp],
         # h, w, tmat, part, kl, lse_s, lse_t, N, V, DM, nsplit, inv_t, stream
         "kdss_kl_fwd": [vp] * 7 + [ci] * 4 + [cf, vp],
-        # h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw (or null), N, V, DM, nsplit,
-        # inv_t, stream
-        "kdss_kl_bwd": [vp] * 9 + [ci] * 4 + [cf, vp],
+        # h, w, tmat, lse_s, lse_t, g, ds, dh_part, dh, dw (or null), N, V, DM, ld_ds,
+        # nsplit_ds, nsplit_dh, inv_t, stream
+        "kdss_kl_bwd": [vp] * 10 + [ci] * 3 + [cl] + [ci] * 2 + [cf, vp],
         # x, xq, xs, N, K, k_block, div_scale, stream
         "kdss_int8_quantize": [vp] * 3 + [ci] * 4 + [vp],
         # xq, xs, wq, ws, out, N, K, M, k_block, out_f32, stream
@@ -217,13 +218,15 @@ def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
             n, w.shape[0], dm, lse_part.shape[0])
 
 
-def ce_bwd(h, w, labels, lse, g_lse, g_gold, dh_part, dh, dw) -> None:
-    """Fused CE backward (K6): dh and dW over a [V, DM] head."""
+def ce_bwd(h, w, labels, lse, g_lse, g_gold, ds, dh_part, dh, dw, nsplit_ds: int) -> None:
+    """Fused CE backward (K6) over a [V, DM] head: the bf16 d_logits into
+    ``ds`` [N, ld_ds] (a sweep of ``nsplit_ds`` vocab splits), then dh
+    through the f32 partials ``dh_part`` [nsplit_dh, N, DM], and dW."""
     n, dm = h.shape
-    _aligned(h, w, dh, dw)
+    _aligned(h, w, ds, dh, dw)
     _launch("kdss_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), g_lse.data_ptr(), g_gold.data_ptr(), dh_part.data_ptr(),
-            dh.data_ptr(), dw.data_ptr(), n, w.shape[0], dm, dh_part.shape[0])
+            lse.data_ptr(), g_lse.data_ptr(), g_gold.data_ptr(), ds.data_ptr(), dh_part.data_ptr(),
+            dh.data_ptr(), dw.data_ptr(), n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0])
 
 
 def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, log_eps) -> None:
@@ -281,13 +284,14 @@ def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
             float(inv_t))
 
 
-def kl_bwd(h, w, tmat, lse_s, lse_t, g, dh_part, dh, dw, inv_t) -> None:
-    """Temperature KL backward (K8): dh, and dW unless ``dw`` is None."""
+def kl_bwd(h, w, tmat, lse_s, lse_t, g, ds, dh_part, dh, dw, nsplit_ds: int, inv_t) -> None:
+    """Temperature KL backward (K8): as :func:`ce_bwd` with the f32 [N, V]
+    teacher-logit matrix at 1/T, dW unless ``dw`` is None."""
     n, dm = h.shape
-    _aligned(h, w, dh, dw)
+    _aligned(h, w, tmat, ds, dh, dw)
     _launch("kdss_kl_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lse_s.data_ptr(),
-            lse_t.data_ptr(), g.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
-            w.shape[0], dm, dh_part.shape[0], float(inv_t))
+            lse_t.data_ptr(), g.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
+            w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t))
 
 
 def int8_quantize(x, xq, xs, k_block: int, xla_form: bool) -> None:

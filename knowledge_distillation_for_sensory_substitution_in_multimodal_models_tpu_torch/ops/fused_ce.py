@@ -12,20 +12,26 @@ through a ``torch.autograd.Function``:
 
 * on a CUDA tensor, the hand-written kernels of ``csrc/fused_ce.cu``: K5
   (the forward, JAX ``_lse_gold_impl``) and K6 (the backward, JAX
-  ``_lse_gold_bwd``: d_hidden and d_W).  The kernels take the [V, D]
-  layout; a "dv" head is transposed into it (a copy the tied 0.5B head
-  never needs).  The wrapper launches them or raises; nothing falls back;
+  ``_lse_gold_bwd``: d_hidden and d_W, on the Hopper vocab core of
+  ``csrc/kdss_vocab_sm90.cuh``: a sweep that writes the bf16 d_logits ds
+  [N, V] once, then dh = ds w and dW = ds^T h, with the grid and scratch of
+  ``vocab_core.vocab_plan``).  The kernels take the [V, D] layout; a "dv"
+  head is transposed into it (a copy the tied 0.5B head never needs).  The
+  wrapper launches them or raises; nothing falls back;
 * on a CPU tensor, the plain versions :func:`lse_gold_ref` and
   :func:`lse_gold_bwd_ref`, which compute logits per row chunk in float32
   and never hold more than one chunk's [rows, V] block.
 
 Counters: ``lse_gold_fwd.launches`` (K5) and ``lse_gold_bwd.launches`` (K6,
-one per backward: the dh and dW kernels together).  CPU calls never count.
+one per backward: the ds sweep and the dh and dW products together).  CPU
+calls never count.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .vocab_core import bwd_scratch as _bwd_scratch
 
 IGNORE = -100
 # Rows per chunk of the plain versions: [512, 151936] f32 is 311 MB.
@@ -112,15 +118,16 @@ def lse_gold_bwd(h, w, labels, lse, g_lse, g_gold):
     """K6 on CUDA, the plain version on the CPU."""
     if h.device.type == "cpu":
         return lse_gold_bwd_ref(h, w, labels, lse, g_lse, g_gold)
+    for name, t in (("lse", lse), ("g_lse", g_lse), ("g_gold", g_gold)):
+        if t.shape != h.shape[:1] or t.device != h.device:
+            raise ValueError(f"{name} must be [N] on {h.device}")
     kernel_args(h, w, labels)
     from ._build import ce_bwd
 
-    n, dev = h.shape[0], h.device
-    nsplit = _n_split(32, n, dev, blocks_per_sm=2)
-    part = torch.empty(nsplit, n, h.shape[1], dtype=torch.float32, device=dev)
+    ds, part, nsplit = _bwd_scratch(h, w)
     dh, dw = torch.empty_like(h), torch.empty_like(w)
     f32 = lambda t: t.float().contiguous()  # noqa: E731
-    ce_bwd(h, w, labels, f32(lse), f32(g_lse), f32(g_gold), part, dh, dw)
+    ce_bwd(h, w, labels, f32(lse), f32(g_lse), f32(g_gold), ds, part, dh, dw, nsplit)
     lse_gold_bwd.launches += 1
     return dh, dw
 

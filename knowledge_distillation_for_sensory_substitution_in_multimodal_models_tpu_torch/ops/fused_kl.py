@@ -16,15 +16,20 @@ Underneath, a ``torch.autograd.Function`` computes the per-row KL:
 * on a CUDA tensor, the hand-written kernels of ``csrc/fused_kl.cu``: K7
   (the forward, JAX ``_kl_rows_impl``: one sweep that also gives the
   student's and the teacher's lse at 1/T) and K8 (the backward, JAX
-  ``_kl_rows_bwd``: d_hidden, and d_head only where the head needs a
-  gradient).  The wrappers launch them or raise; nothing falls back;
+  ``_kl_rows_bwd``, on the Hopper vocab core of
+  ``csrc/kdss_vocab_sm90.cuh``: a sweep that writes the bf16 d_logits ds
+  [N, V] once, then d_hidden = ds w and, only where the head needs a
+  gradient, d_head = ds^T h, with the grid and scratch of
+  ``vocab_core.vocab_plan``).  The kernels take V a multiple of 4 (tmat
+  read in 8-byte pairs).  The wrappers launch them or raise; nothing falls
+  back;
 * on a CPU tensor, the plain versions :func:`kl_rows_ref` and
   :func:`kl_rows_bwd_ref`, which compute logits per row chunk in float32 and
   never hold more than one chunk's [rows, V] block.
 
 Counters: ``kl_fwd.launches`` (K7, its sweep and combine kernels),
-``kl_bwd.launches`` (K8's dh kernel and its reduction) and
-``kl_bwd.dw_launches`` (K8's dW kernel, skipped for a head that needs no
+``kl_bwd.launches`` (K8's ds sweep, dh product and its reduction) and
+``kl_bwd.dw_launches`` (K8's dW product, skipped for a head that needs no
 gradient, such as phase 1's frozen tied embedding).  CPU calls never count.
 """
 
@@ -33,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .fused_ce import REF_CHUNK, KERNEL_DIMS, _n_split
+from .vocab_core import bwd_scratch as _bwd_scratch
 
 # Planes of the forward's per-split scratch: the student's (max, sum) at 1/T
 # and the teacher's (max, Zt, U, W).
@@ -94,6 +100,8 @@ def kernel_args(hs, ws, tmat):
             raise ValueError(f"operands on {t.device} and {hs.device}")
     if hs.device.type != "cuda":
         raise ValueError(f"the fused loss kernels run on CUDA tensors, got {hs.device}")
+    if v % 4:
+        raise ValueError(f"the kernels take V a multiple of 4 (tmat read in 8-byte pairs), got V={v}")
 
 
 def kl_fwd(hs, ws, tmat, *, inv_t: float):
@@ -117,20 +125,19 @@ def kl_bwd(hs, ws, tmat, lse_s, lse_t, g, *, inv_t: float, need_dw: bool = True)
     ``need_dw``."""
     if hs.device.type == "cpu":
         return kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g, inv_t=inv_t, need_dw=need_dw)
-    kernel_args(hs, ws, tmat)
-    n = hs.shape[0]
     for name, t in (("lse_s", lse_s), ("lse_t", lse_t)):
-        if t.shape != (n,) or t.dtype != torch.float32:
+        if t.shape != hs.shape[:1] or t.dtype != torch.float32:
             raise ValueError(f"{name} must be the forward's float32 [N]")
+    if g.shape != hs.shape[:1] or g.device != hs.device:
+        raise ValueError(f"g must be [N] on {hs.device}")
+    kernel_args(hs, ws, tmat)
     from ._build import kl_bwd as launch
 
-    dev = hs.device
-    nsplit = _n_split(32, n, dev, blocks_per_sm=2)
-    part = torch.empty(nsplit, n, hs.shape[1], dtype=torch.float32, device=dev)
+    ds, part, nsplit = _bwd_scratch(hs, ws)
     dh = torch.empty_like(hs)
     dw = torch.empty_like(ws) if need_dw else None
-    launch(hs, ws, tmat, lse_s.contiguous(), lse_t.contiguous(), g.float().contiguous(), part, dh, dw,
-           inv_t)
+    launch(hs, ws, tmat, lse_s.contiguous(), lse_t.contiguous(), g.float().contiguous(), ds, part, dh, dw,
+           nsplit, inv_t)
     kl_bwd.launches += 1
     kl_bwd.dw_launches += int(need_dw)
     return dh, dw

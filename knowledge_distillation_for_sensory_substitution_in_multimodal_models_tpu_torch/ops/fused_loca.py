@@ -24,9 +24,9 @@ terms:
   ``_klts_fwd_kernel``), two sweeps over the head, and the backward (JAX
   ``_loca_ce_rows_bwd``: ``_dhs_ce_kernel`` and ``_dws_ce_kernel``), a sweep
   that writes the bf16 d_logits ds [N, V] once, then dh = ds w and
-  dW = ds^T h.  :func:`vocab_plan` states their grid and scratch, and
-  :func:`vocab_maps` their tensor maps.  The wrapper launches them or
-  raises; nothing falls back;
+  dW = ds^T h.  ``vocab_core.vocab_plan`` states their grid and scratch,
+  and ``vocab_core.vocab_maps`` their tensor maps.  The wrapper launches
+  them or raises; nothing falls back;
 * on a CPU tensor, the plain versions :func:`loca_ce_rows_ref` and
   :func:`loca_ce_rows_bwd_ref`, which compute logits per row chunk in
   float32 and never hold more than one chunk's [rows, V] block.
@@ -59,79 +59,12 @@ import torch
 
 from . import fused_kl
 from .fused_ce import REF_CHUNK
+from .vocab_core import bwd_scratch as _bwd_scratch
+from .vocab_core import plan_for as _plan
 
 # Per-row statistics the forward hands to the backward, the rows of an f32
 # [6, N] tensor (the order of the kernels' `Row` enum).
 ROW_STATS = ("lse_sT", "lse_t", "scale", "tval", "lse_s1", "tsum")
-# Planes of the forward's per-split scratch.
-_NPART = 7
-# The Hopper core (``csrc/kdss_vocab_sm90.cuh``): the products' tile (rows a
-# block, two consumer warpgroups of 64; columns; the k step), the sweep's
-# rows a block (one consumer warpgroup's, its h kept in shared memory) and
-# its consumer warpgroups, each writing its own forward partials; the ring
-# stages of the sweep and of the products.
-VOCAB_TILE = (128, 128, 64)
-SWEEP_ROWS = 64
-SWEEP_CONSUMERS = 2
-VOCAB_STAGES = (7, 5)
-# The grids aim at this many waves of blocks (the sweep) and at least this
-# many blocks an SM (dh's split over the vocab).
-SWEEP_WAVES = 4
-DH_BLOCKS_PER_SM = 8
-
-
-def _even_split(units: int, want: int) -> int:
-    """``want`` splits of ``units`` (clamped to [1, units]), cut back so that
-    none is empty: the kernels give split s units [s * per, (s + 1) * per)."""
-    per = -(-units // max(1, min(want, units)))
-    return -(-units // per)
-
-
-def vocab_plan(n: int, v: int, d: int, sms: int) -> dict:
-    """The grids and scratch of K11/K9 at N = ``n``, V = ``v``, D = ``d`` on a
-    card of ``sms`` SMs: the sweeps' row blocks and vocab tiles, their vocab
-    splits (``nsplit``, about SWEEP_WAVES waves of blocks), the forward's
-    partials [7, SWEEP_CONSUMERS * nsplit, N], the backward's bf16 ds [N,
-    ld_ds] (rows padded to 8 columns, 16 bytes), dh's split over the vocab
-    k steps and its f32 partials, and the products' grids (d tiles, row or
-    vocab tiles, splits)."""
-    bm, bn, bk = VOCAB_TILE
-    row_blocks, vocab_tiles = -(-n // SWEEP_ROWS), -(-v // bn)
-    nsplit = _even_split(vocab_tiles, -(-SWEEP_WAVES * sms // row_blocks))
-    d_tiles, ksteps, gemm_rows = -(-d // bn), -(-v // bk), -(-n // bm)
-    dh_split = _even_split(ksteps, -(-DH_BLOCKS_PER_SM * sms // (gemm_rows * d_tiles)))
-    ld_ds = -(-v // 8) * 8
-    return dict(row_blocks=row_blocks, vocab_tiles=vocab_tiles, nsplit=nsplit,
-                part=(_NPART, SWEEP_CONSUMERS * nsplit, n), ds=(n, ld_ds), ld_ds=ld_ds, dh_split=dh_split,
-                dh_part=(dh_split, n, d), dh_grid=(d_tiles, gemm_rows, dh_split),
-                dw_grid=(d_tiles, -(-v // bm), 1))
-
-
-def _map(rows: int, cols: int, ld: int, box_rows: int) -> dict:
-    """``bf16_map`` of ``csrc/kdss_vocab_sm90.cuh``: a row-major bf16 [rows,
-    cols] tensor of row stride ``ld`` in boxes of 64 columns x ``box_rows``."""
-    if (ld * 2) % 16 or not 0 < box_rows <= 256:
-        raise ValueError(f"TMA cannot map [{rows}, {cols}] (row stride {ld * 2} bytes) in boxes of 64 x {box_rows}")
-    return dict(dims=(cols, rows), strides=(ld * 2,), box=(64, box_rows), zero_fill=-(-cols // 64) * 64 - cols)
-
-
-def vocab_maps(n: int, v: int, d: int, ld_ds: int) -> dict:
-    """The tensor maps of ``csrc/kdss_vocab_sm90.cuh`` (dims innermost first,
-    the row stride in bytes, the box in elements, 128-byte swizzle; TMA
-    zero-fills ``zero_fill`` columns of the last box): the sweeps' h (a block's
-    rows, K-major) and head (K-major, 128-row boxes); dh's ds (K-major) and
-    head (N-major); dW's ds (read M-major) and h (N-major).  The sweeps read
-    tmat [N, V] f32 in 8-byte pairs, and every ds row must start 16-byte
-    aligned.  Raises ValueError for what the kernels cannot take (V % 4 != 0,
-    ld_ds % 8 != 0)."""
-    bm, bn, bk = VOCAB_TILE
-    if v % 4 or ld_ds % 8 or ld_ds < v:
-        raise ValueError(f"the kernels take V a multiple of 4 and ds rows of a multiple of 8 >= V: "
-                         f"V={v}, ld_ds={ld_ds}")
-    return dict(
-        h=_map(n, d, d, SWEEP_ROWS), w=_map(v, d, d, bn),
-        ds_k=_map(n, v, ld_ds, bm), w_n=_map(v, d, d, bk),
-        ds_m=_map(n, v, ld_ds, bk), h_n=_map(n, d, d, bk))
 
 
 def _chunk_stats(s, t, lab, inv_t, alpha):
@@ -254,28 +187,13 @@ def loca_rows_bwd_ref(hs, ws, tmat, lab, stats, g, *, inv_t: float, eps: float,
 
 
 def kernel_args(hs, ws, tmat, *labels):
-    """Check what the kernels take (the fused KL's operands, plus the label
-    vectors and a vocabulary that is a multiple of 4); raise ValueError on
-    anything else."""
+    """Check what the kernels take (the fused KL's operands, a vocabulary
+    that is a multiple of 4 among them, plus the label vectors); raise
+    ValueError on anything else."""
     for t in labels:
         if t.shape != (hs.shape[0],) or t.dtype != torch.int32 or t.device != hs.device:
             raise ValueError(f"labels must be int32 [N] on {hs.device}")
     fused_kl.kernel_args(hs, ws, tmat)
-    if ws.shape[0] % 4:
-        raise ValueError(f"the kernels take V a multiple of 4 (tmat read in 8-byte pairs), got V={ws.shape[0]}")
-
-
-def _plan(hs, ws):
-    sms = torch.cuda.get_device_properties(hs.device).multi_processor_count
-    return vocab_plan(hs.shape[0], ws.shape[0], hs.shape[1], sms)
-
-
-def _bwd_scratch(hs, ws):
-    """The backward's scratch: (bf16 ds [N, ld_ds], dh's f32 partials, the ds
-    sweep's vocab splits)."""
-    plan = _plan(hs, ws)
-    return (torch.empty(plan["ds"], dtype=torch.bfloat16, device=hs.device),
-            torch.empty(plan["dh_part"], dtype=torch.float32, device=hs.device), plan["nsplit"])
 
 
 def _check_stats(stats, n):

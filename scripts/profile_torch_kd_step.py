@@ -7,7 +7,9 @@ Builds a KD step that ``chip_smoke.py`` drives (``--kd_mode`` and
 ``--phase``, by default double_trouble phase 3; double_trouble phase 1, the
 KD CLI's default, feature_based and, with ``--loca_faithful_indexing``, the
 faithful LoCa also run there; the vocabulary losses on the fused kernels),
-the 0.5B student
+or with ``--kd_mode baseline`` the baseline_depth step of ``cli/train.py``
+(the student alone, masked CE through K5/K6, lr 2e-5, no teacher), the
+0.5B student
 against the frozen bf16 LLaVA-OneVision-7B teacher (with ``--int8_teacher``
 quantized in place as ``chip_smoke.py``'s ``[kd8]`` quantizes it:
 int8_full, the int8 embedding and the vocab-major int8 head, so its
@@ -17,7 +19,8 @@ the SUNRGBD 530x730 frame, with the mode's freeze mask; runs ``--steps``
 unprofiled steps, then:
 
 * times the teacher's part of one micro-batch with CUDA events: its forward
-  under ``no_grad`` and the float32 teacher-logit product;
+  under ``no_grad`` and the float32 teacher-logit product (not for the
+  baseline);
 * profiles one whole step with ``torch.profiler`` and sums the device time
   of every kernel by group (the port's kernels by name, cuBLAS GEMMs,
   AdamW, the rest), against the mean wall time of the unprofiled steps
@@ -25,10 +28,10 @@ unprofiled steps, then:
 
 ``--parent DIR`` (another checkout of the port, e.g. the parent commit
 unpacked by ``git archive``) then profiles three more steps, with DIR's
-flash, K9-K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's again
-and this checkout's, and prints each step's device kernel time and its
-flash, LoCa and int8 groups: a comparison that the host's noise does not
-reach.
+flash, K6 and K8-K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's
+again and this checkout's, and prints each step's device kernel time and
+its kernel groups (flash, the vocabulary losses K5-K11, int8) and peak
+memory: a comparison that the host's noise does not reach.
 
 ``--determinism`` asks instead whether the step is bit-reproducible on one
 card: ``--steps`` steps from a fresh student of the same seed, twice in this
@@ -92,13 +95,20 @@ GROUPS = (
     ("flash backward D=72 (K2)", ("kdss_bwd72", "flash_bwd_dq_kernel<72", "flash_bwd_dkv_kernel<72")),
     # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
     ("flash backward D=64 (K4)", ("kdss_bwd90",)),
-    # K11/K9: csrc/fused_loca_ce.cu's sweeps (named by their epilogue
-    # policy), combines and products on csrc/kdss_vocab_sm90.cuh (the
-    # kdss_vocab.cuh backward kernels named by LocaRows before)
+    # K5 and K7: the mma.sync forwards of csrc/fused_ce.cu and
+    # csrc/fused_kl.cu (their sweeps and combines)
+    ("fused CE forward (K5)", ("ce_fwd",)),
+    ("temperature KL forward (K7)", ("kl_fwd",)),
+    # K6 and K8 on csrc/kdss_vocab_sm90.cuh: the ds sweep and the products
+    # are named by the loss's ds policy (kdss_ce90::DsEpi, kdss_kl90::DsEpi);
+    # a parent's mma.sync dh and dW kernels by CERows / KLRows
+    ("fused CE backward (K6)", ("kdss_ce90", "CERows")),
+    ("temperature KL backward (K8)", ("kdss_kl90", "KLRows")),
+    ("dh split reductions of a parent's mma.sync K6 and K8", ("reduce_dh",)),
+    # K11/K9: csrc/fused_loca_ce.cu's sweeps, combines and products on
+    # csrc/kdss_vocab_sm90.cuh (named by its epilogue policies in
+    # kdss_loca_ce; a parent's products may bear no policy's name)
     ("LoCa + CE (K11), LoCa (K9)", ("loca_", "LocaRows", "kdss_vocab90")),
-    ("temperature KL (K7, K8)", ("kl_fwd", "KLRows")),
-    ("fused CE (K5, K6)", ("ce_fwd", "CERows")),
-    ("dh split reductions (K6, K8; K11 before its redesign)", ("reduce_dh",)),
     # K12's quantize pass and GEMM (the int8 teacher), before cuBLAS's "gemm"
     ("w8a8 GEMM K12 (int8 teacher)", ("kdss_int8",)),
     ("int8-head teacher logits K10", ("kdss_tmat",)),
@@ -187,7 +197,8 @@ def main() -> int:
                    help="unprofiled steps before the profiled one (at least 3)")
     p.add_argument("--layers", type=int, default=None, help="cut both models to this many layers")
     p.add_argument("--kd_mode", type=str, default="double_trouble",
-                   choices=["logit_based", "feature_based", "double_trouble"])
+                   choices=["logit_based", "feature_based", "double_trouble", "baseline"],
+                   help="baseline: cli/train.py's baseline_depth step (the student alone, no teacher)")
     p.add_argument("--phase", type=int, default=3, choices=[1, 2, 3])
     p.add_argument("--loca_faithful_indexing", action="store_true")
     p.add_argument("--int8_teacher", action="store_true",
@@ -196,7 +207,7 @@ def main() -> int:
                    help="compare the bits of two runs, then run under deterministic mode")
     p.add_argument("--parent", default=None,
                    help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                        "profile the step again with its flash, K10 and K12 kernels, in turns with this one's")
+                        "profile the step again with its kernels, in turns with this one's")
     args = p.parse_args()
     if args.steps < 3:
         p.error("--steps must be at least 3")
@@ -209,19 +220,29 @@ def main() -> int:
     print(card, flush=True)
     dev = common.setup_device(argparse.Namespace(cpu=False))
 
+    baseline = args.kd_mode == "baseline"
+    if baseline and (args.int8_teacher or args.loca_faithful_indexing):
+        p.error("--kd_mode baseline has no teacher and no LoCa")
     scfg, tcfg = cut(llava_onevision_0_5b(), args.layers), cut(llava_onevision_7b(), args.layers)
-    teacher = common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
-                                         dtype=torch.bfloat16)
+    teacher = None if baseline else common.init_or_load_params(tcfg, None, seed=1, attn_impl="flash", device=dev,
+                                                               dtype=torch.bfloat16)
     if args.int8_teacher:
         from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import int8
 
         int8.quantize_model_int8(teacher, include_vision=True, include_embed_head=True)
     batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
-    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    loss_cfg = dataclasses.replace(kd_loss_config_for(args.kd_mode),
-                                   loca_faithful_indexing=args.loca_faithful_indexing)
-    cfg = TrainConfig(kd_mode=args.kd_mode, phase=args.phase, loss=loss_cfg, ce_impl="fused",
-                      accumulate_grad_batches=ACCUM, learning_rate=1e-5, cosine_t_max=0)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+          if not (baseline and k.startswith("teacher_"))}
+    if baseline:  # cli/train.py's step and learning rate
+        lr, phase = 2e-5, 0
+        cfg = TrainConfig(kd_mode="baseline", ce_impl="fused", accumulate_grad_batches=ACCUM, learning_rate=lr,
+                          cosine_t_max=0)
+    else:
+        lr, phase = 1e-5, args.phase
+        loss_cfg = dataclasses.replace(kd_loss_config_for(args.kd_mode),
+                                       loca_faithful_indexing=args.loca_faithful_indexing)
+        cfg = TrainConfig(kd_mode=args.kd_mode, phase=phase, loss=loss_cfg, ce_impl="fused",
+                          accumulate_grad_batches=ACCUM, learning_rate=lr, cosine_t_max=0)
     lc = cfg.loss
 
     def fresh():
@@ -229,7 +250,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         student = common.init_or_load_params(scfg, None, seed=0, attn_impl="flash", device=dev,
                                              dtype=torch.bfloat16, trainable=True)
-        state = TrainState(student, make_optimizer(student, 1e-5, kd_mode=args.kd_mode, phase=args.phase))
+        state = TrainState(student, make_optimizer(student, lr, kd_mode=args.kd_mode, phase=phase))
         return state, make_train_step(KDModels(student, teacher), cfg)
 
     if args.determinism:
@@ -249,11 +270,12 @@ def main() -> int:
 
     micro = {k: v[0] for k, v in tb.items()}
     vocab = student.language_model.embed_tokens.weight.shape[0]
-    t_logits_ms = event_ms(lambda: kd_step._teacher_logits(teacher, micro, vocab, lc.temperature))
+    if not baseline:
+        t_logits_ms = event_ms(lambda: kd_step._teacher_logits(teacher, micro, vocab, lc.temperature))
     if args.int8_teacher:  # the logits are K10's, inside the profile's K10 group
         print(f"[teacher] int8 teacher per micro-batch: forward + logits {t_logits_ms:.3f} ms (CUDA events)",
               flush=True)
-    else:
+    elif not baseline:
         with torch.no_grad():
             hidden = kd_step._forward_hidden(teacher, micro, "teacher")[0]
             th = hidden.reshape(-1, hidden.shape[-1])
@@ -265,8 +287,10 @@ def main() -> int:
 
     def profiled_step(state):
         """One step under torch.profiler: (state, metrics, device ms by group,
-        kernels by group, the "other" kernels by name, annotation ranges)."""
+        kernels by group, the "other" kernels by name, annotation ranges,
+        peak memory in bytes)."""
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.reset_peak_memory_stats(dev)
         with torch.profiler.profile(activities=acts) as prof:
             state, metrics = step(state, None, tb)
             torch.cuda.synchronize()
@@ -286,14 +310,16 @@ def main() -> int:
             count[g] += 1
             if g.startswith("other"):
                 other[e.name[:90]] += ms
-        return state, metrics, groups, count, other, ranges
+        return state, metrics, groups, count, other, ranges, torch.cuda.max_memory_allocated(dev)
 
-    state, metrics, groups, count, other, ranges = profiled_step(state)
+    state, metrics, groups, count, other, ranges, peak = profiled_step(state)
     busy = sum(groups.values())
+    what = "baseline_depth" if baseline else f"{args.kd_mode} phase {args.phase}"
     teacher_tag = ", int8 teacher" if args.int8_teacher else ""
-    print(f"[profile] {args.kd_mode} phase {args.phase}{teacher_tag}: one step (A={ACCUM} x B=1), "
+    print(f"[profile] {what}{teacher_tag}: one step (A={ACCUM} x B=1), "
           f"loss {metrics['loss'].item():.6f}: device kernel time "
-          f"{busy:.1f} ms, {100 * busy / step_ms:.1f}% of the unprofiled step", flush=True)
+          f"{busy:.1f} ms, {100 * busy / step_ms:.1f}% of the unprofiled step; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
     if busy == 0:
         print("[profile] the profiler saw no device kernels", flush=True)
         return 1
@@ -305,21 +331,24 @@ def main() -> int:
     for name, ms in ranges.most_common(5):
         print(f"[profile] annotation range, not counted: {ms:.2f} ms  {name}", flush=True)
     if args.parent is not None:
-        # the same step's device kernel time with the parent's flash, K9-K12
-        # launchers, in turns with this checkout's: change (above),
-        # parent, parent, change
+        # the same step's device kernel time with the parent's launchers
+        # (chip_smoke.PARENT_LAUNCHERS), in turns with this checkout's:
+        # change (above), parent, parent, change
         import chip_smoke
 
         parent = chip_smoke.load_parent(args.parent)
-        runs = [(busy, groups)]
+        runs = [(busy, groups, peak)]
         for use_parent in (True, True, False):
             with chip_smoke.parent_kernels(parent) if use_parent else contextlib.nullcontext():
-                state, _, g, _, _, _ = profiled_step(state)
-            runs.append((sum(g.values()), g))
+                state, _, g, _, _, _, pk = profiled_step(state)
+            runs.append((sum(g.values()), g, pk))
         print("[parent] device kernel time of a step, change / parent / parent / change: "
-              + " / ".join(f"{b:.1f}" for b, _ in runs) + " ms", flush=True)
-        for name in [g for g, _ in GROUPS if g.startswith(("flash", "LoCa", "w8a8", "int8"))]:
-            print(f"[parent] {name}: " + " / ".join(f"{g[name]:.2f}" for _, g in runs) + " ms", flush=True)
+              + " / ".join(f"{b:.1f}" for b, _, _ in runs) + " ms; peak memory "
+              + " / ".join(f"{pk / 2**30:.2f}" for _, _, pk in runs) + " GiB", flush=True)
+        for name, _ in GROUPS:
+            if name.startswith(("GEMMs", "AdamW")) or not any(g[name] for _, g, _ in runs):
+                continue
+            print(f"[parent] {name}: " + " / ".join(f"{g[name]:.2f}" for _, g, _ in runs) + " ms", flush=True)
     return 0
 
 

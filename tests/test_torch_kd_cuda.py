@@ -190,12 +190,15 @@ def test_kl_forward_matches_plain_at_any_split(dev, nsplit):
 
 @pytest.mark.parametrize("nsplit", [1, 3, 7])
 def test_kl_backward_matches_plain_at_any_split(dev, nsplit):
+    """K8's ds sweep cut into 1, 3 or 7 vocab splits, and dh's product into
+    as many splits of its f32 partials."""
     n, v, inv_t = 200, 1000, 1.25
     hs, ws, tmat = _kl_inputs(dev, n, v, seed=1)
     _, lse_s, lse_t = fkl.kl_rows_ref(hs, ws, tmat, inv_t=inv_t)
     g = torch.rand(n, device=dev) + 0.5
     dh, dw = torch.empty_like(hs), torch.empty_like(ws)
-    _build.kl_bwd(hs, ws, tmat, lse_s, lse_t, g, torch.empty(nsplit, n, D, device=dev), dh, dw, inv_t)
+    ds = torch.empty(n, v, dtype=torch.bfloat16, device=dev)
+    _build.kl_bwd(hs, ws, tmat, lse_s, lse_t, g, ds, torch.empty(nsplit, n, D, device=dev), dh, dw, nsplit, inv_t)
     torch.cuda.synchronize()
     want_dh, want_dw = fkl.kl_rows_bwd_ref(hs, ws, tmat, lse_s, lse_t, g, inv_t=inv_t)
     for name, a, b in (("dh", dh, want_dh), ("dW", dw, want_dw)):
