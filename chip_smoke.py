@@ -90,10 +90,10 @@ bit-equal to its plain version, and logs the flash backwards' time by kernel (dq
 reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
 port, e.g. the parent commit unpacked by `git archive` under build/), the
 script also builds DIR's kernels and, with DIR's flash forward, flash
-backward, K10, K12, K13, K11, K9, K6 and K8 launchers in place of this
-checkout's, holds K1, K2, K4, K9, K10, K11 and K12 (at every shape of
-INT8_CASES) bit-equal to DIR's output and logs whether K3, each K13 arm,
-K6 and K8 are, logs K2/K4's, K6's and K8's splits by kernel and each
+backward, K10, K12, K13, K11, K9 and K5-K8 launchers in place of this
+checkout's, holds K1, K2, K4, K6, K8, K9, K10, K11 and K12 (at every shape
+of INT8_CASES) bit-equal to DIR's output and logs whether K3, each K13 arm,
+K5 and K7 are, logs K2/K4's and K5-K8's splits by kernel and each
 kernel's time in turns (parent, change, change, parent), runs the [train],
 [kd], [kd1], [kdfb] and [kd8] steps twice more with DIR's kernels and once
 more with this checkout's (in turns; their peak memory beside each other),
@@ -105,13 +105,14 @@ inside a vocab tile, across two tiles, across vocab splits and at the last
 column, with LoCa and CE labels at column V - 1; two launches
 bit-identical), K9 (LoCa without CE: forward, backward, two launches
 bit-identical, and bit-equal to K11's LoCa part),
-the temperature-KL K7 and K8 (with and without dW; two launches of K6 and
-K8 bit-identical), the flash forward at
+the temperature-KL K7 and K8 (with and without dW; two launches of K5, K6,
+K7 and K8 bit-identical), the flash forward at
 the teacher's D = 128, the w8a8 GEMM K12 (both activation forms, ragged K,
 a decode row) and the int8-head teacher logits K10 against their plain
 versions, and shows that the bounds fail a K11 backward fed tsum = 0 and
 one fed g_kl = 0, a K9 backward fed tsum = 0 and one fed g = 0 for half
-the rows, a K8 fed a mis-normalised teacher (lse_t + 1) and one fed
+the rows, a K5 fed labels shifted by one column, a K7 that drops the
+student's 1/T, a K8 fed a mis-normalised teacher (lse_t + 1) and one fed
 g = 0 for half the rows, and K12 fed weight scales of 1 in half the columns
 and one that scales every row by the first row's amax.
 
@@ -429,7 +430,7 @@ def load_parent(root):
 
 
 PARENT_LAUNCHERS = ("flash_fwd", "flash_bwd", "tmat_int8", "int8_quantize", "int8_gemm", "flash_phase_ablation",
-                    "loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd", "ce_bwd", "kl_bwd")
+                    "loca_ce_fwd", "loca_ce_bwd", "loca_fwd", "loca_bwd", "ce_fwd", "ce_bwd", "kl_fwd", "kl_bwd")
 # K6's and K8's launchers: the place of the bf16 ds among their arguments
 # (followed by dh_part, dh, dw and the sweep's split), and the op module
 # whose ``_bwd_scratch`` sizes their scratch.  Before the two kernels moved
@@ -443,19 +444,38 @@ def _without_ds(fn, at):
     return launch
 
 
+def _n_split(rows_per_block: int, n: int, device, blocks_per_sm: int) -> int:
+    """The vocab splits of the mma.sync fused-loss kernels: about
+    ``blocks_per_sm`` blocks on every SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_tiles = -(-n // rows_per_block)
+    return max(1, -(-blocks_per_sm * sms // row_tiles))
+
+
 def _old_scratch(hs, ws):
     """A backward's scratch before its kernel's redesign: no ds, and dh's
     f32 partials split as the mma.sync backward kernels split them."""
-    nsplit = fc._n_split(32, hs.shape[0], hs.device, blocks_per_sm=2)
+    nsplit = _n_split(32, hs.shape[0], hs.device, blocks_per_sm=2)
     return None, torch.empty(nsplit, *hs.shape, dtype=torch.float32, device=hs.device), 0
 
 
+def _old_fwd_scratch(hs, ws, planes):
+    """K5's and K7's forward partials before their redesign: one per vocab
+    split of the mma.sync forward kernels (whose launchers read the split
+    count from the scratch)."""
+    nsplit = _n_split(64, hs.shape[0], hs.device, blocks_per_sm=4)
+    return torch.empty(planes, nsplit, hs.shape[0], dtype=torch.float32, device=hs.device)
+
+
 def _parent_launchers(parent) -> tuple:
-    """The parent's launchers under this checkout's signatures, and the op
+    """The parent's launchers under this checkout's signatures, the op
     modules whose backward scratch must be the parent's (``_old_scratch``),
-    so that the parent's kernels run on their own grids and a step with them
-    holds the parent's memory."""
+    and those whose forward scratch must be (``_old_fwd_scratch``: a parent
+    whose sources still hold the mma.sync forwards of K5 and K7,
+    ``csrc/kdss_vocab.cuh``), so that the parent's kernels run on their own
+    grids and a step with them holds the parent's memory."""
     import inspect
+    import pathlib
 
     launchers, old_scratch = {}, set()
     for name in PARENT_LAUNCHERS:
@@ -465,22 +485,26 @@ def _parent_launchers(parent) -> tuple:
             fn = _without_ds(fn, at)
             old_scratch.add(module)
         launchers[name] = fn
-    return launchers, old_scratch
+    mma_forwards = (pathlib.Path(parent.CSRC_DIR) / "kdss_vocab.cuh").exists()
+    return launchers, old_scratch, {fc, fkl} if mma_forwards else set()
 
 
 @contextlib.contextmanager
 def parent_kernels(parent):
     """Route the flash forward (K1/K3), the flash backward (K2/K4), K10, K12
-    (its quantize pass and GEMM), K13, K11, K9, K6 and K8 through the
+    (its quantize pass and GEMM), K13, K11, K9 and K5-K8 through the
     parent's launchers (:func:`_parent_launchers`).  The wrappers, their
     checks and their counters stay this checkout's."""
     saved = {name: getattr(_build, name) for name in PARENT_LAUNCHERS}
-    launchers, old_scratch = _parent_launchers(parent)
+    launchers, old_scratch, old_fwd = _parent_launchers(parent)
     saved_scratch = {m: m._bwd_scratch for m in old_scratch}
+    saved_fwd = {m: m._fwd_scratch for m in old_fwd}
     for name, fn in launchers.items():
         setattr(_build, name, fn)
     for m in old_scratch:
         m._bwd_scratch = _old_scratch
+    for m in old_fwd:
+        m._fwd_scratch = _old_fwd_scratch
     try:
         yield
     finally:
@@ -488,6 +512,8 @@ def parent_kernels(parent):
             setattr(_build, name, fn)
         for m, fn in saved_scratch.items():
             m._bwd_scratch = fn
+        for m, fn in saved_fwd.items():
+            m._fwd_scratch = fn
 
 
 def steps_in_turns(parent, run, tag: str, first: dict) -> dict:
@@ -770,14 +796,9 @@ def kernel_phase(dev, parent=None) -> list:
     n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
     h, w = randn(n, d), randn(vocab, d, std=0.02)
     labels = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
-    got = fc.lse_gold_fwd(h, w, labels)
-    torch.cuda.synchronize()
-    lse, gold = fc.lse_gold_ref(h, w, labels)
-    err = _hold("fused_ce_fwd", [("lse", got[0], lse, KERNEL_TOL), ("gold", got[1], gold, KERNEL_TOL)])
-    # no single PyTorch call computes (lse, gold) over a streamed head
-    results.append(_result("fused_ce_fwd", err, time_ms(lambda: fc.lse_gold_fwd(h, w, labels), iters=5),
-                           time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1),
-                           bound(2 * n * d * vocab, nbytes(h, w, labels, *got))))
+    labels[1] = vocab - 1
+    results.append(ce_fwd_kernel_phase(h, w, labels, parent))
+    lse, _ = fc.lse_gold_ref(h, w, labels)
     results.append(ce_bwd_kernel_phase(h, w, labels, lse, parent))
     del h, w
     torch.cuda.empty_cache()
@@ -787,6 +808,35 @@ def kernel_phase(dev, parent=None) -> list:
     return results
 
 
+def ce_fwd_kernel_phase(h, w, labels, parent=None) -> dict:
+    """K5 (the fused CE forward on the Hopper vocab core) against its plain
+    version on ``kernel_phase``'s inputs (a label at column V - 1), a
+    negative control (labels shifted by one column: the gold logit of
+    another column must fail the bounds), two launches bit-identical, its
+    split by kernel and its time; with ``parent``, the parent's K5 in turns
+    (bits logged, not held: the kernel is redesigned)."""
+    n, d, vocab = h.shape[0], h.shape[1], w.shape[0]
+
+    def fwd():
+        return fc.lse_gold_fwd(h, w, labels)
+
+    got = fwd()
+    torch.cuda.synchronize()
+    want = fc.lse_gold_ref(h, w, labels)
+    err = _hold("fused_ce_fwd", [("lse", got[0], want[0], KERNEL_TOL), ("gold", got[1], want[1], KERNEL_TOL)])
+    _must_fail("fused_ce_fwd", "labels shifted by one column",
+               list(zip(fc.lse_gold_fwd(h, w, (labels + 1) % vocab), want)))
+    _bit_identical("fused_ce_fwd", fwd)
+    _log_split("fused_ce_fwd", fwd, parent)
+    if parent is not None:
+        _same_as_parent(parent, "fused_ce_fwd", fwd, got, must=False)
+        log_in_turns("fused_ce_fwd", _theirs(parent, fwd), fwd, iters=5)
+    # no single PyTorch call computes (lse, gold) over a streamed head
+    return _result("fused_ce_fwd", err, time_ms(fwd, iters=5),
+                   time_ms(lambda: fc.lse_gold_ref(h, w, labels), iters=3, warmup=1),
+                   bound(2 * n * d * vocab, nbytes(h, w, labels, *got)))
+
+
 def ce_bwd_kernel_phase(h, w, labels, lse, parent=None) -> dict:
     """K6 (the fused CE backward on the Hopper vocab core) against its plain
     version on ``kernel_phase``'s inputs, with unit cotangents (the summed
@@ -794,8 +844,8 @@ def ce_bwd_kernel_phase(h, w, labels, lse, parent=None) -> dict:
     g_gold = 0 they are the softmax term sum_v p_v w_v alone, which a kernel
     must get right on its own, and a backward without that term (g_lse = 0)
     must fail the bounds.  Two launches bit-identical; its time, and with
-    ``parent`` the parent's K6 in turns (bits logged, not held: the kernel
-    is redesigned) and both splits by kernel."""
+    ``parent`` the parent's K6 in turns (held bit-equal to it) and both
+    splits by kernel."""
     n, d, vocab = h.shape[0], h.shape[1], w.shape[0]
     ones = torch.ones(n, device=h.device)
     err = 0.0
@@ -819,7 +869,7 @@ def ce_bwd_kernel_phase(h, w, labels, lse, parent=None) -> dict:
     _bit_identical("fused_ce_bwd", bwd)
     _log_split("fused_ce_bwd", bwd, parent)
     if parent is not None:
-        _same_as_parent(parent, "fused_ce_bwd", bwd, bwd(), must=False)
+        _same_as_parent(parent, "fused_ce_bwd", bwd, bwd(), must=True)
         log_in_turns("fused_ce_bwd", _theirs(parent, bwd), bwd, iters=3)
     return _result("fused_ce_bwd", err, time_ms(bwd, iters=3),
                    time_ms(lambda: fc.lse_gold_bwd_ref(h, w, labels, lse, ones, g_gold), iters=2, warmup=1),
@@ -1186,10 +1236,12 @@ def kl_kernel_phase(dev, g, parent=None) -> list:
     N = 3072 rows, the 896-wide student head of 151936 rows, and the f32
     teacher-logit matrix at 1/T made as the step makes it, one product of a
     random teacher hidden [N, 3584] with a random head [V, 3584] (bf16,
-    f32 out; logits of std ~3).  K8 with and without dW, its negative
-    controls, two launches bit-identical, its split by kernel; with
-    ``parent``, the parent's K8 in turns (with and without dW; bits logged,
-    not held: the kernel is redesigned)."""
+    f32 out; logits of std ~3).  K7 with a negative control (the student's
+    1/T dropped: a kernel run at T = 1 against the plain version at T),
+    K8 with and without dW and its negative controls; two launches of each
+    bit-identical, their splits by kernel; with ``parent``, the parent's
+    K7 (bits logged, not held: the kernel is redesigned) and K8 (held
+    bit-equal to it, with and without dW) in turns."""
     cfg, tcfg = llava_onevision_0_5b(), llava_onevision_7b()
     n, d, vocab = 3072, cfg.text.hidden_size, cfg.text.vocab_size
     inv_t = 1.0 / kd_loss_config_for("double_trouble").temperature
@@ -1213,6 +1265,12 @@ def kl_kernel_phase(dev, g, parent=None) -> list:
     torch.cuda.synchronize()
     want = fwd_plain()
     err = _hold("fused_kl_fwd", [(lbl, a, b, bounds(b)) for lbl, a, b in zip(("kl", "lse_s", "lse_t"), got, want)])
+    _must_fail("fused_kl_fwd", "the student's 1/T dropped", list(zip(fkl.kl_fwd(hs, ws, tmat, inv_t=1.0), want)))
+    _bit_identical("fused_kl_fwd", fwd)
+    _log_split("fused_kl_fwd", fwd, parent)
+    if parent is not None:
+        _same_as_parent(parent, "fused_kl_fwd", fwd, got, must=False)
+        log_in_turns("fused_kl_fwd", _theirs(parent, fwd), fwd, iters=5)
     results = [_result("fused_kl_fwd", err, time_ms(fwd, iters=5), time_ms(fwd_plain, iters=2, warmup=1),
                        bound(2 * n * d * vocab, nbytes(hs, ws, tmat, *got)))]
     _, lse_s, lse_t = want
@@ -1252,7 +1310,7 @@ def kl_kernel_phase(dev, g, parent=None) -> list:
     _log_split("fused_kl_bwd", bwd, parent)
     _log_split("fused_kl_bwd without dW", bwd_dh, parent)
     if parent is not None:
-        _same_as_parent(parent, "fused_kl_bwd", bwd, bwd(), must=False)
+        _same_as_parent(parent, "fused_kl_bwd", bwd, bwd(), must=True)
         log_in_turns("fused_kl_bwd", _theirs(parent, bwd), bwd, iters=3)
         log_in_turns("fused_kl_bwd without dW", _theirs(parent, bwd_dh), bwd_dh, iters=3)
     # no single PyTorch call computes the KL rows or their gradient over a
@@ -2347,8 +2405,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port (e.g. the parent commit unpacked by git archive): "
-                         "time K1-K4, K6 and K8-K13 and the [train], [main], [kd], [kd1], [kdfb], [kd8] and "
-                         "[eval] runs with its kernels beside this checkout's, and hold K1, K2, K4 and K9-K12 "
+                         "time K1-K13 and the [train], [main], [kd], [kd1], [kdfb], [kd8] and [eval] runs "
+                         "with its kernels beside this checkout's, and hold K1, K2, K4, K6 and K8-K12 "
                          "bit-equal to its output")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -11,113 +11,120 @@
 // are bf16; labels int32 [N] (the wrapper maps ignored rows to label 0 and
 // zeroes their cotangents); lse, gold, g_lse, g_gold f32 [N].
 //
-//   K5  `ce_fwd_kernel`, on the mma.sync tiling of csrc/kdss_vocab.cuh: one
-//       block of 4 warps per (64 rows, vocab split); each warp owns 16 rows
-//       and walks 128-column vocab tiles, keeping an online (max, sum) and
-//       the gold logit per row in registers; a 128-thread `ce_fwd_combine`
-//       merges the splits.  The vocab is split across blocks because 48 row
-//       tiles alone would leave most of the 132 SMs idle (the JAX grid runs
-//       its vocab axis in sequence).  Columns v >= V of the last tile read
-//       zero-filled head rows and are masked out (the JAX `_masked_w` /
-//       `cols < v_real` masks).
-//   K6  on the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed by
-//       TMA under mbarriers): one sweep recomputes the logits and writes
-//       d_logits = g_lse * p + g_gold * onehot(label), rounded to bf16 as
-//       the JAX kernels round them, into ds [N, V] once (`DsEpi`: one
-//       exponential and one compare a logit; no teacher tile is loaded);
-//       then the core's two products dh = ds w (split over the vocab, f32
-//       partials summed in split order) and dW = ds^T h.  Columns v >= V of
-//       a ragged last tile are never written (the products' tensor maps
-//       read zeros there); rows past N are never written.
+// Both run on the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed
+// by TMA under mbarriers: 64 rows a block, their h in shared memory, two
+// consumer warpgroups taking 128-wide vocab tiles in turns); neither loads
+// a teacher tile (`TEACHER = false`), so V may be any size.
+//   K5  one sweep (`kdss_ce_fwd90::LseGoldEpi`): each thread keeps an
+//       online (max, sum) over its own columns of its two rows (one FMA and
+//       one ex2 a logit) and the gold logit, read only in the tile that
+//       holds the label (each column belongs to one thread, so the sum has
+//       one nonzero addend); the four threads of a row merge at the end and
+//       each (vocab split, warpgroup) writes its partial lse and gold;
+//       `ce_fwd_combine` merges them in a fixed order.  The vocab is split
+//       across blocks because 48 row blocks alone would leave most of the
+//       132 SMs idle (the JAX grid runs its vocab axis in sequence).
+//   K6  one sweep recomputes the logits and writes d_logits = g_lse * p +
+//       g_gold * onehot(label), rounded to bf16 as the JAX kernels round
+//       them, into ds [N, V] once (`kdss_ce90::DsEpi`: one exponential and
+//       one compare a logit); then the core's two products dh = ds w (split
+//       over the vocab, f32 partials summed in split order) and dW = ds^T h.
+// Columns v >= V of a ragged last tile read zero-filled head rows and are
+// masked out (the JAX `_masked_w` / `cols < v_real` masks); ds is never
+// written there, and rows past N are never written.
 //
 // What bounds it on the H100, at N = 3072, DM = 896, V = 151936: the forward
 // is one logits product (0.84 TFLOP, 0.85 ms at 989 TFLOP/s), the backward
 // three (2.51 TFLOP, 2.54 ms) against 0.93 GB of bf16 ds written and read
-// back (~0.56 ms at 3.35 TB/s): tensor-core bound.  K5 still feeds mma.sync
-// from synchronous shared-memory loads.
+// back (~0.56 ms at 3.35 TB/s): tensor-core bound.
 
-#include "kdss_vocab.cuh"
 #include "kdss_vocab_sm90.cuh"
 
 // Named namespaces: the core's kernels are instantiated with this file's
-// epilogue policy, and nvcc's host stubs cannot name a type of an unnamed
-// one.  The forward (on kdss_vocab.cuh) and the backward (on
-// kdss_vocab_sm90.cuh) live apart: the two headers name their helpers alike.
-namespace kdss_ce {
+// epilogue policies, and nvcc's host stubs cannot name a type of an unnamed
+// one.  The forward's and the backward's policies live apart, so that a
+// profile tells their kernels apart by name.
+namespace kdss_ce_fwd90 {
 
-using namespace kdss;
+using namespace kdss_vocab90;
 
 // ---- K5: forward --------------------------------------------------------
 
-template <int DM>
-__global__ void __launch_bounds__(F_THREADS)
-    ce_fwd_kernel(const bf* __restrict__ h, const bf* __restrict__ w,
-                  const int* __restrict__ labels, float* __restrict__ lse_part,
-                  float* __restrict__ gold_part, int N, int V, int tiles_per_split) {
-  __shared__ __align__(16) bf Hs[F_BM * F_LD];
-  __shared__ __align__(16) bf Ws[F_BV * F_LD];
+// Over this thread's columns of its two rows: the online max and sum of
+// e^s, and the gold logit.
+struct LseGoldEpi {
+  static constexpr bool TEACHER = false;
+  const int* labels;
+  float *lse_part, *gold_part;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane >> 2, ti = lane & 3;
-  const int n0 = blockIdx.x * F_BM, split = blockIdx.y;
-  const int n_vt = (V + F_BV - 1) / F_BV;
-  const int t0 = split * tiles_per_split, t1 = min(t0 + tiles_per_split, n_vt);
+  struct State {
+    float m[2], l[2], gold[2];
+    int lab[2];
+  };
 
-  const int rows[2] = {n0 + warp * 16 + gi, n0 + warp * 16 + gi + 8};
-  int lab[2];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+  __device__ void begin(State& q, const int rows[2], int N) const {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) lab[i] = rows[i] < N ? labels[rows[i]] : -1;
+    for (int r = 0; r < 2; ++r) {
+      q.m[r] = -INFINITY;
+      q.l[r] = q.gold[r] = 0.f;
+      q.lab[r] = rows[r] < N ? labels[rows[r]] : -1;
+    }
+  }
 
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * F_BV;
-    float acc[NT][4];
-    logits_tile<DM>(acc, Hs, Ws, h, w, n0, v0, N, V, warp, gi, ti);
-
-    // Online logsumexp in the log2 domain; the gold logit in natural units.
-    float mx[2] = {m[0], m[1]};
+  template <class View>
+  __device__ void tile(State& q, const float (&acc)[64], const View& view, const int*, int) const {
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = v0 + nt * 8 + ti * 2 + (e & 1);
-        if (col == lab[r]) gold[r] += acc[nt][e];
-        const float x = col < V ? acc[nt][e] * LOG2E : -INFINITY;
-        acc[nt][e] = x;
-        mx[r] = fmaxf(mx[r], x);
+      for (int e = 0; e < 4; ++e)
+        if (view.in(j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], acc[4 * j + e]);
+    }
+    float b[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float nm = fmaxf(q.m[r], mx[r]);
+      q.l[r] *= exp2f((q.m[r] - base_of(nm)) * LOG2E);
+      q.m[r] = nm;
+      b[r] = base_of(nm) * LOG2E;
+      // the gold logit: only in the one tile of the split that holds the label
+      if (static_cast<unsigned>(q.lab[r] - view.v0) < static_cast<unsigned>(BN)) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (view.col(j, 2 * r + c) == q.lab[r]) q.gold[r] += acc[4 * j + 2 * r + c];
+        }
       }
     }
-    float base[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      base[i] = (mx[i] == -INFINITY) ? 0.f : mx[i];
-      l[i] *= exp2f(m[i] - base[i]);
-      m[i] = mx[i];
-    }
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      l[0] += exp2f(acc[nt][0] - base[0]) + exp2f(acc[nt][1] - base[0]);
-      l[1] += exp2f(acc[nt][2] - base[1]) + exp2f(acc[nt][3] - base[1]);
+      for (int e = 0; e < 4; ++e) {
+        if (!view.in(j, e)) continue;
+        q.l[e >> 1] += fast_exp2(fmaf(acc[4 * j + e], LOG2E, -b[e >> 1]));
+      }
     }
   }
 
+  // Merge the four threads of each row, then write this split's partials.
+  __device__ void end(State& q, const int rows[2], int split, int, int N, int ti) const {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i], gt = gold[i];
-    lt += __shfl_xor_sync(FULL, lt, 1);
-    lt += __shfl_xor_sync(FULL, lt, 2);
-    gt += __shfl_xor_sync(FULL, gt, 1);
-    gt += __shfl_xor_sync(FULL, gt, 2);
-    if (ti == 0 && rows[i] < N) {
-      lse_part[(long)split * N + rows[i]] = lt > 0.f ? (m[i] + log2f(lt)) * LN2 : -INFINITY;
-      gold_part[(long)split * N + rows[i]] = gt;
+    for (int r = 0; r < 2; ++r) {
+      const float M = quad_max(q.m[r]);
+      const float s = quad_sum(q.l[r] * exp2f((q.m[r] - base_of(M)) * LOG2E));
+      const float g = quad_sum(q.gold[r]);
+      if (ti == 0 && rows[r] < N) {
+        const long o = static_cast<long>(split) * N + rows[r];
+        lse_part[o] = s > 0.f ? M + log2f(s) * LN2 : -INFINITY;
+        gold_part[o] = g;
+      }
     }
   }
-}
+};
 
+// lse = the logsumexp of the partial lse of every (split, warpgroup) (-inf
+// where one saw nothing), gold = the sum of theirs, both in that order.
 __global__ void ce_fwd_combine(const float* __restrict__ lse_part, const float* __restrict__ gold_part,
                                float* __restrict__ lse, float* __restrict__ gold, int N, int nsplit) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -136,23 +143,19 @@ __global__ void ce_fwd_combine(const float* __restrict__ lse_part, const float* 
   gold[n] = g;
 }
 
+// The sweep (no teacher), then the combine; nsplit partials a row (two per
+// vocab split of the sweep, one per consumer warpgroup).
 template <int DM>
-cudaError_t fwd(const void* h, const void* w, const void* labels, float* lse_part,
-                float* gold_part, float* lse, float* gold, int N, int V, int nsplit,
-                cudaStream_t st) {
-  const int n_vt = (V + F_BV - 1) / F_BV;
-  const int per = (n_vt + nsplit - 1) / nsplit;
-  const dim3 grid((N + F_BM - 1) / F_BM, nsplit);
-  ce_fwd_kernel<DM><<<grid, F_THREADS, 0, st>>>(static_cast<const bf*>(h), static_cast<const bf*>(w),
-                                                static_cast<const int*>(labels), lse_part, gold_part,
-                                                N, V, per);
-  cudaError_t err = cudaGetLastError();
+cudaError_t fwd(const void* h, const void* w, const int* labels, float* lse_part, float* gold_part, float* lse,
+                float* gold, int N, int V, int nsplit, cudaStream_t st) {
+  cudaError_t err = kdss_vocab90_host::sweep<DM>(h, w, nullptr, LseGoldEpi{labels, lse_part, gold_part}, N, V,
+                                                 nsplit / CONSUMERS, st);
   if (err != cudaSuccess) return err;
   ce_fwd_combine<<<(N + 127) / 128, 128, 0, st>>>(lse_part, gold_part, lse, gold, N, nsplit);
   return cudaGetLastError();
 }
 
-}  // namespace kdss_ce
+}  // namespace kdss_ce_fwd90
 
 // ---- K6: backward ---------------------------------------------------------
 
@@ -223,16 +226,19 @@ cudaError_t bwd(const void* h, const void* w, const DsEpi& epi, float* dh_part, 
 
 extern "C" {
 
-// K5.  lse_part / gold_part: f32 scratch [nsplit, N]; lse / gold: f32 [N].
-// Returns a cudaError_t (cudaErrorInvalidValue for shapes not compiled).
+// K5.  lse_part / gold_part: f32 scratch [nsplit, N] (nsplit: twice the
+// sweep's vocab splits, one partial per consumer warpgroup); lse / gold:
+// f32 [N].  Returns a cudaError_t (cudaErrorInvalidValue for shapes not
+// compiled or a tensor map the driver refuses).
 int kdss_ce_fwd(const void* h, const void* w, const void* labels, void* lse_part, void* gold_part,
                 void* lse, void* gold, int N, int V, int DM, int nsplit, void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);  // the 0.5B student's width
-  return static_cast<int>(kdss_ce::fwd<896>(h, w, labels, static_cast<float*>(lse_part),
-                                            static_cast<float*>(gold_part), static_cast<float*>(lse),
-                                            static_cast<float*>(gold), N, V, nsplit,
-                                            static_cast<cudaStream_t>(stream)));
+  if (N <= 0 || V <= 0 || DM != 896 || nsplit <= 0 || nsplit % kdss_vocab90::CONSUMERS ||
+      nsplit / kdss_vocab90::CONSUMERS > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kdss_ce_fwd90::fwd<896>(h, w, static_cast<const int*>(labels), static_cast<float*>(lse_part),
+                                                   static_cast<float*>(gold_part), static_cast<float*>(lse),
+                                                   static_cast<float*>(gold), N, V, nsplit,
+                                                   static_cast<cudaStream_t>(stream)));
 }
 
 // K6.  ds: bf16 scratch [N, ld_ds] (ld_ds >= V, a multiple of 8); dh_part: f32

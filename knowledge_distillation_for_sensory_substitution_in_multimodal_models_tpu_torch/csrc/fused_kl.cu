@@ -28,20 +28,25 @@
 // p t and p sT included (e^-inf * -inf is NaN); rows past N are never read
 // from tmat and are never written.
 //
-// Layout.  The forward (K7) runs on the mma.sync tiling of
-// csrc/kdss_vocab.cuh: it reads the f32 tmat entries of each logits tile
-// straight from device memory into registers; each thread keeps six
-// accumulators per row over its own columns; the four threads of a row
-// merge at the end, and a per-row combine kernel rescales the splits'
-// partials to a common max and sums them in a fixed order.  The backward
-// (K8) runs on the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed
-// by TMA under mbarriers): one sweep recomputes the logits, reads the
-// teacher tile into registers while its products run and writes ds [N, V]
-// in bf16 once (`DsEpi`: two exponentials and a subtract a logit, the
-// scales folded into per-row constants); then the core's products dh = ds w
-// (split over the vocab, f32 partials summed in split order) and, unless
-// the head needs no gradient (dw == nullptr), dW = ds^T h.  The backward
-// takes V a multiple of 4 (tmat read in 8-byte pairs).
+// Layout: the Hopper vocab core of csrc/kdss_vocab_sm90.cuh (wgmma fed by
+// TMA under mbarriers; 64 rows a block, their h in shared memory, two
+// consumer warpgroups taking 128-wide vocab tiles in turns, the teacher
+// tile loaded into registers while its products run).
+//   K7  one sweep (`kdss_kl_fwd90::StatsEpi`): each thread keeps the six
+//       statistics over its own columns of its two rows, the scales folded
+//       into per-row constants (e^(x/T - ms) as one FMA and one ex2, U and
+//       W as FMAs on the teacher's weight); the four threads of a row merge
+//       at the end and each (vocab split, warpgroup) writes its partials;
+//       `kl_fwd_combine` rescales them to the row's common maxima and sums
+//       them in a fixed order.  Its teacher statistics are the step's own,
+//       not calibrated, so one sweep suffices.
+//   K8  one sweep that recomputes the logits, reads the teacher tile and
+//       writes ds [N, V] in bf16 once (`kdss_kl90::DsEpi`: two exponentials
+//       and a subtract a logit, the scales folded into per-row constants);
+//       then the core's products dh = ds w (split over the vocab, f32
+//       partials summed in split order) and, unless the head needs no
+//       gradient (dw == nullptr), dW = ds^T h.
+// Both take V a multiple of 4 (tmat read in 8-byte pairs).
 //
 // What bounds it on the H100, at N = 3072, DM = 896, V = 151936: the least
 // work is one logits product (0.84 TFLOP, 0.85 ms at 989 TFLOP/s) in the
@@ -49,113 +54,113 @@
 // against 1.87 GB of tmat (0.56 ms at 3.35 TB/s): tensor-core bound.  The
 // backward also writes and reads back 0.93 GB of ds.
 
-#include "kdss_vocab.cuh"
 #include "kdss_vocab_sm90.cuh"
 
 // Named namespaces: the core's kernels are instantiated with this file's
-// epilogue policy, and nvcc's host stubs cannot name a type of an unnamed
-// one.  The forward (on kdss_vocab.cuh) and the backward (on
-// kdss_vocab_sm90.cuh) live apart: the two headers name their helpers alike.
-namespace kdss_kl {
+// epilogue policies, and nvcc's host stubs cannot name a type of an unnamed
+// one.  The forward's and the backward's policies live apart, so that a
+// profile tells their kernels apart by name.
+namespace kdss_kl_fwd90 {
 
-using namespace kdss;
+using namespace kdss_vocab90;
 
-// ---- forward ------------------------------------------------------------
+// ---- K7: forward --------------------------------------------------------
 
-// Forward partials per (split, row), the planes of `part`.
+// Forward partials per (split, row), the planes of `part`: the student's
+// max and sum at 1/T (natural units), and the teacher's max with Zt, U, W
+// under it.
 enum Part { P_MS = 0, P_ZS, P_MT, P_ZT, P_U, P_W, NPART };
 
-__device__ __forceinline__ float exp_(float x) { return exp2f(x * LOG2E); }
+// The six statistics over this thread's columns, the student's kept at the
+// raw logit x (its max; W sums p x): at the end the max is scaled by 1/T
+// and W multiplied by it, exact algebra on the same sums.
+struct StatsEpi {
+  static constexpr bool TEACHER = true;
+  float* part;
+  float inv_t;
 
-template <int DM>
-__global__ void __launch_bounds__(F_THREADS)
-    kl_fwd_kernel(const bf* __restrict__ h, const bf* __restrict__ w,
-                  const float* __restrict__ tmat, float* __restrict__ part, int N, int V,
-                  int tiles_per_split, float inv_t) {
-  __shared__ __align__(16) bf Hs[F_BM * F_LD];
-  __shared__ __align__(16) bf Ws[F_BV * F_LD];
+  struct State {
+    float ms[2], zs[2], mt[2], zt[2], u[2], w[2];
+  };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gi = lane >> 2, ti = lane & 3;
-  const int n0 = blockIdx.x * F_BM, split = blockIdx.y, nsplit = gridDim.y;
-  const int n_vt = (V + F_BV - 1) / F_BV;
-  const int t0 = split * tiles_per_split, t1 = min(t0 + tiles_per_split, n_vt);
+  __device__ void begin(State& q, const int*, int) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      q.ms[r] = q.mt[r] = -INFINITY;
+      q.zs[r] = q.zt[r] = q.u[r] = q.w[r] = 0.f;
+    }
+  }
 
-  const int rows[2] = {n0 + warp * 16 + gi, n0 + warp * 16 + gi + 8};
-  const bool in[2] = {rows[0] < N, rows[1] < N};
-  // Over this thread's columns: the student's max and sum at 1/T, and the
-  // teacher's max with Zt, U, W under it.
-  float ms[2] = {-INFINITY, -INFINITY}, zs[2] = {0.f, 0.f};
-  float mt[2] = {-INFINITY, -INFINITY}, zt[2] = {0.f, 0.f}, u[2] = {0.f, 0.f}, ws[2] = {0.f, 0.f};
-
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * F_BV;
-    float acc[NT][4], tv[NT][4];
-    logits_tile<DM>(acc, Hs, Ws, h, w, n0, v0, N, V, warp, gi, ti);
+  template <class View>
+  __device__ void tile(State& q, const float (&acc)[64], const View& view, const int*, int) const {
+    const float cs = inv_t * LOG2E;
     float smax[2] = {-INFINITY, -INFINITY}, tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = v0 + nt * 8 + ti * 2 + (e & 1);
-        const bool ok = col < V && in[r];
-        acc[nt][e] = ok ? acc[nt][e] * inv_t : -INFINITY;
-        tv[nt][e] = ok ? tmat[(long)rows[r] * V + col] : -INFINITY;
-        smax[r] = fmaxf(smax[r], acc[nt][e]);
-        tmax[r] = fmaxf(tmax[r], tv[nt][e]);
+        if (!view.in(j, e)) continue;
+        smax[e >> 1] = fmaxf(smax[e >> 1], acc[4 * j + e]);
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], view.teacher(j, e));
       }
     }
     float bs[2], bt[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float ns = fmaxf(ms[r], smax[r]), nm = fmaxf(mt[r], tmax[r]);
-      bs[r] = base_of(ns);
-      bt[r] = base_of(nm);
-      zs[r] *= exp_(ms[r] - bs[r]);
-      const float a = exp_(mt[r] - bt[r]);
-      zt[r] *= a;
-      u[r] *= a;
-      ws[r] *= a;
-      ms[r] = ns;
-      mt[r] = nm;
+      const float ns = fmaxf(q.ms[r], smax[r]), nt = fmaxf(q.mt[r], tmax[r]);
+      q.zs[r] *= exp2f((q.ms[r] - base_of(ns)) * cs);
+      const float a = exp2f((q.mt[r] - base_of(nt)) * LOG2E);
+      q.zt[r] *= a;
+      q.u[r] *= a;
+      q.w[r] *= a;
+      q.ms[r] = ns;
+      q.mt[r] = nt;
+      bs[r] = base_of(ns) * cs;
+      bt[r] = base_of(nt) * LOG2E;
     }
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        // a masked column adds nothing: its -inf teacher logit would make
+        // p t and p x NaN (e^-inf * -inf)
+        if (!view.in(j, e)) continue;
         const int r = e >> 1;
-        const float s = acc[nt][e], tt = tv[nt][e];
-        if (tt == -INFINITY) continue;  // a masked column (or row): no products
-        const float p = exp_(tt - bt[r]);
-        zs[r] += exp_(s - bs[r]);
-        zt[r] += p;
-        u[r] += p * tt;
-        ws[r] += p * s;
+        const float x = acc[4 * j + e], t = view.teacher(j, e);
+        const float p = fast_exp2(fmaf(t, LOG2E, -bt[r]));
+        q.zs[r] += fast_exp2(fmaf(x, cs, -bs[r]));
+        q.zt[r] += p;
+        q.u[r] = fmaf(p, t, q.u[r]);
+        q.w[r] = fmaf(p, x, q.w[r]);
       }
     }
   }
 
-  // Merge the four threads of each row, then write this split's partials.
+  // Merge the four threads of each row, then write this split's partials
+  // (rows past N, whose teacher logits read -inf, are never written).
+  __device__ void end(State& q, const int rows[2], int split, int nsplit, int N, int ti) const {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float MS = quad_max(ms[r]), MT = quad_max(mt[r]);
-    const float cs = exp_(ms[r] - base_of(MS)), ct = exp_(mt[r] - base_of(MT));
-    const float zs_r = quad_sum(zs[r] * cs), zt_r = quad_sum(zt[r] * ct);
-    const float u_r = quad_sum(u[r] * ct), w_r = quad_sum(ws[r] * ct);
-    if (ti == 0 && in[r]) {
-      const long o = (long)split * N + rows[r], plane = (long)nsplit * N;
-      part[P_MS * plane + o] = MS;
-      part[P_ZS * plane + o] = zs_r;
-      part[P_MT * plane + o] = MT;
-      part[P_ZT * plane + o] = zt_r;
-      part[P_U * plane + o] = u_r;
-      part[P_W * plane + o] = w_r;
+    for (int r = 0; r < 2; ++r) {
+      const float MS = quad_max(q.ms[r]), MT = quad_max(q.mt[r]);
+      const float cs = exp2f((q.ms[r] - base_of(MS)) * (inv_t * LOG2E));
+      const float ct = exp2f((q.mt[r] - base_of(MT)) * LOG2E);
+      const float zs = quad_sum(q.zs[r] * cs), zt = quad_sum(q.zt[r] * ct);
+      const float u = quad_sum(q.u[r] * ct), w = quad_sum(q.w[r] * ct);
+      if (ti == 0 && rows[r] < N) {
+        const long o = static_cast<long>(split) * N + rows[r], plane = static_cast<long>(nsplit) * N;
+        part[P_MS * plane + o] = MS * inv_t;
+        part[P_ZS * plane + o] = zs;
+        part[P_MT * plane + o] = MT;
+        part[P_ZT * plane + o] = zt;
+        part[P_U * plane + o] = u;
+        part[P_W * plane + o] = w * inv_t;
+      }
     }
   }
-}
+};
 
-// Rescale the splits' partials to the row's common maxima and sum them in
-// split order: lse_s, lse_t and the KL row.
+// Rescale the partials of every (split, warpgroup) to the row's common
+// maxima and sum them in that order: lse_s, lse_t and the KL row.
 __global__ void kl_fwd_combine(const float* __restrict__ part, float* __restrict__ kl,
                                float* __restrict__ lse_s, float* __restrict__ lse_t, int N,
                                int nsplit) {
@@ -185,20 +190,19 @@ __global__ void kl_fwd_combine(const float* __restrict__ part, float* __restrict
   kl[n] = (u - w) / zt - lt + ls;
 }
 
+// The sweep, then the combine; nsplit partials a row (two per vocab split
+// of the sweep, one per consumer warpgroup).
 template <int DM>
-cudaError_t fwd(const bf* h, const bf* w, const float* tmat, float* part, float* kl, float* lse_s,
+cudaError_t fwd(const void* h, const void* w, const float* tmat, float* part, float* kl, float* lse_s,
                 float* lse_t, int N, int V, int nsplit, float inv_t, cudaStream_t st) {
-  const int n_vt = (V + F_BV - 1) / F_BV;
-  const int per = (n_vt + nsplit - 1) / nsplit;
-  kl_fwd_kernel<DM><<<dim3((N + F_BM - 1) / F_BM, nsplit), F_THREADS, 0, st>>>(h, w, tmat, part, N, V,
-                                                                               per, inv_t);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      kdss_vocab90_host::sweep<DM>(h, w, tmat, StatsEpi{part, inv_t}, N, V, nsplit / CONSUMERS, st);
   if (err != cudaSuccess) return err;
   kl_fwd_combine<<<(N + 127) / 128, 128, 0, st>>>(part, kl, lse_s, lse_t, N, nsplit);
   return cudaGetLastError();
 }
 
-}  // namespace kdss_kl
+}  // namespace kdss_kl_fwd90
 
 // ---- K8: backward ---------------------------------------------------------
 
@@ -269,17 +273,19 @@ cudaError_t bwd(const void* h, const void* w, const float* tmat, const DsEpi& ep
 
 extern "C" {
 
-// K7.  part: f32 scratch [6, nsplit, N]; kl, lse_s, lse_t: f32 [N].
-// Returns a cudaError_t (cudaErrorInvalidValue for shapes not compiled).
+// K7.  part: f32 scratch [6, nsplit, N] (nsplit: twice the sweep's vocab
+// splits, one partial per consumer warpgroup); kl, lse_s, lse_t: f32 [N];
+// V a multiple of 4.  Returns a cudaError_t (cudaErrorInvalidValue for
+// shapes not compiled or a tensor map the driver refuses).
 int kdss_kl_fwd(const void* h, const void* w, const void* tmat, void* part, void* kl, void* lse_s,
                 void* lse_t, int N, int V, int DM, int nsplit, float inv_t, void* stream) {
-  if (N <= 0 || V <= 0 || nsplit <= 0 || nsplit > 65535 || !(inv_t > 0.f))
+  if (N <= 0 || V <= 0 || V % 4 != 0 || DM != 896 || nsplit <= 0 || nsplit % kdss_vocab90::CONSUMERS ||
+      nsplit / kdss_vocab90::CONSUMERS > 65535 || !(inv_t > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (DM != 896) return static_cast<int>(cudaErrorInvalidValue);  // the 0.5B student's width
-  return static_cast<int>(kdss_kl::fwd<896>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(tmat),
-      static_cast<float*>(part), static_cast<float*>(kl), static_cast<float*>(lse_s),
-      static_cast<float*>(lse_t), N, V, nsplit, inv_t, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(kdss_kl_fwd90::fwd<896>(h, w, static_cast<const float*>(tmat), static_cast<float*>(part),
+                                                   static_cast<float*>(kl), static_cast<float*>(lse_s),
+                                                   static_cast<float*>(lse_t), N, V, nsplit, inv_t,
+                                                   static_cast<cudaStream_t>(stream)));
 }
 
 // K8.  ds: bf16 scratch [N, ld_ds] (ld_ds >= V, a multiple of 8); dh_part:

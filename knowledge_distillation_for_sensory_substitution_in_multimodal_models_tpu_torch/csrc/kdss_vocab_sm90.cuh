@@ -1,10 +1,10 @@
 // The vocab-streaming core of the fused losses on Hopper (sm_90a): rows of
 // hidden states h [N, DM] against a head w [V, DM] (bf16, "vd") whose
 // logits S = h w^T are never written to device memory, computed on wgmma
-// fed by TMA under mbarriers.  K11 and K9 (csrc/fused_loca_ce.cu) run on it,
-// and so do the backwards of the fused CE (K6, csrc/fused_ce.cu) and of the
-// temperature KL (K8, csrc/fused_kl.cu); their forwards K5 and K7 still run
-// csrc/kdss_vocab.cuh.
+// fed by TMA under mbarriers.  Every fused vocabulary loss runs on it: K11
+// and K9 (csrc/fused_loca_ce.cu), the fused CE forward and backward (K5, K6,
+// csrc/fused_ce.cu) and the temperature KL forward and backward (K7, K8,
+// csrc/fused_kl.cu).
 //
 // `sweep_kernel<DM, Epi>`: one block per (64 rows, vocab split), three
 // warpgroups.  The block's h rows [64, DM] stay in shared memory for the

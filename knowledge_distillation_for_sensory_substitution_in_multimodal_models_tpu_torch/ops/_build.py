@@ -210,7 +210,9 @@ def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
 
 
 def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
-    """Fused CE forward (K5) over a [V, DM] head."""
+    """Fused CE forward (K5) over a [V, DM] head: a sweep whose partials
+    ``lse_part`` and ``gold_part`` [nsplit, N] (two per vocab split of the
+    sweep) are combined into ``lse`` and ``gold``."""
     n, dm = h.shape
     _aligned(h, w)
     _launch("kdss_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
@@ -276,9 +278,11 @@ def loca_bwd(h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw, nsplit_ds: int, 
 
 def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
     """Temperature KL forward (K7) over a [V, DM] head and an f32 [N, V]
-    teacher-logit matrix at 1/T."""
+    teacher-logit matrix at 1/T: a sweep whose partials ``part`` [6,
+    nsplit, N] (two per vocab split of the sweep) are combined into ``kl``,
+    ``lse_s`` and ``lse_t``."""
     n, dm = h.shape
-    _aligned(h, w)
+    _aligned(h, w, tmat)
     _launch("kdss_kl_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), part.data_ptr(),
             kl.data_ptr(), lse_s.data_ptr(), lse_t.data_ptr(), n, w.shape[0], dm, part.shape[1],
             float(inv_t))

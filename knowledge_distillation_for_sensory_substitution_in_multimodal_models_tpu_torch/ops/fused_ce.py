@@ -10,14 +10,16 @@ embedding's own layout, whose gradient comes back in the same layout.
 Underneath, :func:`lse_gold` gives each row's logsumexp and gold logit
 through a ``torch.autograd.Function``:
 
-* on a CUDA tensor, the hand-written kernels of ``csrc/fused_ce.cu``: K5
-  (the forward, JAX ``_lse_gold_impl``) and K6 (the backward, JAX
-  ``_lse_gold_bwd``: d_hidden and d_W, on the Hopper vocab core of
-  ``csrc/kdss_vocab_sm90.cuh``: a sweep that writes the bf16 d_logits ds
-  [N, V] once, then dh = ds w and dW = ds^T h, with the grid and scratch of
-  ``vocab_core.vocab_plan``).  The kernels take the [V, D] layout; a "dv"
-  head is transposed into it (a copy the tied 0.5B head never needs).  The
-  wrapper launches them or raises; nothing falls back;
+* on a CUDA tensor, the hand-written kernels of ``csrc/fused_ce.cu`` on the
+  Hopper vocab core of ``csrc/kdss_vocab_sm90.cuh``, with the grid and
+  scratch of ``vocab_core.vocab_plan``: K5 (the forward, JAX
+  ``_lse_gold_impl``: a sweep that keeps each row's online logsumexp and
+  gold logit, then a combine of its partials) and K6 (the backward, JAX
+  ``_lse_gold_bwd``: d_hidden and d_W, a sweep that writes the bf16
+  d_logits ds [N, V] once, then dh = ds w and dW = ds^T h).  Neither reads
+  a teacher, so V may be any size.  The kernels take the [V, D] layout; a
+  "dv" head is transposed into it (a copy the tied 0.5B head never needs).
+  The wrapper launches them or raises; nothing falls back;
 * on a CPU tensor, the plain versions :func:`lse_gold_ref` and
   :func:`lse_gold_bwd_ref`, which compute logits per row chunk in float32
   and never hold more than one chunk's [rows, V] block.
@@ -32,12 +34,15 @@ from __future__ import annotations
 import torch
 
 from .vocab_core import bwd_scratch as _bwd_scratch
+from .vocab_core import fwd_scratch as _fwd_scratch
 
 IGNORE = -100
 # Rows per chunk of the plain versions: [512, 151936] f32 is 311 MB.
 REF_CHUNK = 512
 # Model dims the kernels are instantiated for: the 0.5B student's.
 KERNEL_DIMS = (896,)
+# Planes of K5's per-split partials: the partial logsumexp and gold logit.
+_NPART = 2
 
 
 def lse_gold_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, chunk: int = REF_CHUNK):
@@ -89,14 +94,6 @@ def kernel_args(h, w, labels):
         raise ValueError(f"the fused CE kernels run on CUDA tensors, got {h.device}")
 
 
-def _n_split(rows_per_block: int, n: int, device, blocks_per_sm: int) -> int:
-    """Vocab splits so that the grid has about ``blocks_per_sm`` blocks on
-    every SM (the row tiles alone are too few at N = 3072)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-n // rows_per_block)
-    return max(1, -(-blocks_per_sm * sms // row_tiles))
-
-
 def lse_gold_fwd(h, w, labels):
     """K5 on CUDA, the plain version on the CPU."""
     if h.device.type == "cpu":
@@ -105,8 +102,7 @@ def lse_gold_fwd(h, w, labels):
     from ._build import ce_fwd
 
     n, dev = h.shape[0], h.device
-    nsplit = _n_split(64, n, dev, blocks_per_sm=4)
-    part = torch.empty(2, nsplit, n, dtype=torch.float32, device=dev)
+    part = _fwd_scratch(h, w, _NPART)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     gold = torch.empty(n, dtype=torch.float32, device=dev)
     ce_fwd(h, w, labels, part[0], part[1], lse, gold)

@@ -13,16 +13,16 @@ matrix product outside any kernel (``train/step.py::_teacher_logits``).
 
 Underneath, a ``torch.autograd.Function`` computes the per-row KL:
 
-* on a CUDA tensor, the hand-written kernels of ``csrc/fused_kl.cu``: K7
-  (the forward, JAX ``_kl_rows_impl``: one sweep that also gives the
+* on a CUDA tensor, the hand-written kernels of ``csrc/fused_kl.cu`` on the
+  Hopper vocab core of ``csrc/kdss_vocab_sm90.cuh``, with the grid and
+  scratch of ``vocab_core.vocab_plan``: K7 (the forward, JAX
+  ``_kl_rows_impl``: one sweep that keeps each row's student and teacher
+  statistics, then a combine of its partials into the KL rows and the
   student's and the teacher's lse at 1/T) and K8 (the backward, JAX
-  ``_kl_rows_bwd``, on the Hopper vocab core of
-  ``csrc/kdss_vocab_sm90.cuh``: a sweep that writes the bf16 d_logits ds
-  [N, V] once, then d_hidden = ds w and, only where the head needs a
-  gradient, d_head = ds^T h, with the grid and scratch of
-  ``vocab_core.vocab_plan``).  The kernels take V a multiple of 4 (tmat
-  read in 8-byte pairs).  The wrappers launch them or raise; nothing falls
-  back;
+  ``_kl_rows_bwd``: a sweep that writes the bf16 d_logits ds [N, V] once,
+  then d_hidden = ds w and, only where the head needs a gradient, d_head =
+  ds^T h).  The kernels take V a multiple of 4 (tmat read in 8-byte
+  pairs).  The wrappers launch them or raise; nothing falls back;
 * on a CPU tensor, the plain versions :func:`kl_rows_ref` and
   :func:`kl_rows_bwd_ref`, which compute logits per row chunk in float32 and
   never hold more than one chunk's [rows, V] block.
@@ -37,8 +37,9 @@ from __future__ import annotations
 
 import torch
 
-from .fused_ce import REF_CHUNK, KERNEL_DIMS, _n_split
+from .fused_ce import REF_CHUNK, KERNEL_DIMS
 from .vocab_core import bwd_scratch as _bwd_scratch
+from .vocab_core import fwd_scratch as _fwd_scratch
 
 # Planes of the forward's per-split scratch: the student's (max, sum) at 1/T
 # and the teacher's (max, Zt, U, W).
@@ -112,8 +113,7 @@ def kl_fwd(hs, ws, tmat, *, inv_t: float):
     from ._build import kl_fwd as launch
 
     n, dev = hs.shape[0], hs.device
-    nsplit = _n_split(64, n, dev, blocks_per_sm=4)
-    part = torch.empty(_NPART, nsplit, n, dtype=torch.float32, device=dev)
+    part = _fwd_scratch(hs, ws, _NPART)
     kl, lse_s, lse_t = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
     launch(hs, ws, tmat, part, kl, lse_s, lse_t, inv_t)
     kl_fwd.launches += 1

@@ -59,8 +59,9 @@ import torch
 
 from . import fused_kl
 from .fused_ce import REF_CHUNK
+from .vocab_core import LOCA_PARTS
 from .vocab_core import bwd_scratch as _bwd_scratch
-from .vocab_core import plan_for as _plan
+from .vocab_core import fwd_scratch as _fwd_scratch
 
 # Per-row statistics the forward hands to the backward, the rows of an f32
 # [6, N] tensor (the order of the kernels' `Row` enum).
@@ -209,7 +210,7 @@ def loca_ce_fwd(hs, ws, tmat, lab, lab_ce, *, inv_t: float, alpha: float, eps: f
     from ._build import loca_ce_fwd as launch
 
     n, dev = hs.shape[0], hs.device
-    part = torch.empty(_plan(hs, ws)["part"], dtype=torch.float32, device=dev)
+    part = _fwd_scratch(hs, ws, LOCA_PARTS)
     stats = torch.empty(len(ROW_STATS), n, dtype=torch.float32, device=dev)
     kl = torch.empty(n, dtype=torch.float32, device=dev)
     ce = torch.empty(n, dtype=torch.float32, device=dev)
@@ -244,7 +245,7 @@ def loca_fwd(hs, ws, tmat, lab, *, inv_t: float, alpha: float, eps: float):
     from ._build import loca_fwd as launch
 
     n, dev = hs.shape[0], hs.device
-    part = torch.empty(_plan(hs, ws)["part"], dtype=torch.float32, device=dev)
+    part = _fwd_scratch(hs, ws, LOCA_PARTS)
     stats = torch.empty(len(ROW_STATS), n, dtype=torch.float32, device=dev)
     kl = torch.empty(n, dtype=torch.float32, device=dev)
     launch(hs, ws, tmat, lab, part, stats, kl, inv_t, alpha, math.log(eps))

@@ -1,13 +1,17 @@
 """The host plan of the Hopper vocab core (``csrc/kdss_vocab_sm90.cuh``):
 the grids, scratch and tensor maps of the kernels that run on it, K11 and
-K9 (``fused_loca``), the fused CE backward K6 (``fused_ce``) and the
-temperature-KL backward K8 (``fused_kl``).
+K9 (``fused_loca``), the fused CE forward and backward K5 and K6
+(``fused_ce``) and the temperature-KL forward and backward K7 and K8
+(``fused_kl``).
 
-A backward on the core is one sweep that writes the bf16 d_logits ds [N,
-V] once, then the products dh = ds w (split over the vocab, f32 partials
-summed in split order) and dW = ds^T h.  :func:`vocab_plan` states the
-grids and scratch, :func:`vocab_maps` the tensor maps, and
-:func:`bwd_scratch` allocates a backward's scratch on the card.
+A forward on the core is one sweep (two for K11 and K9) whose consumer
+warpgroups each write per-row partials, then a combine in a fixed order.
+A backward is one sweep that writes the bf16 d_logits ds [N, V] once, then
+the products dh = ds w (split over the vocab, f32 partials summed in split
+order) and dW = ds^T h.  :func:`vocab_plan` states the grids and scratch,
+:func:`vocab_maps` the tensor maps, and :func:`fwd_scratch` and
+:func:`bwd_scratch` allocate a forward's and a backward's scratch on the
+card.
 """
 
 from __future__ import annotations
@@ -90,6 +94,14 @@ def plan_for(hs, ws) -> dict:
     [V, D] on their card."""
     sms = torch.cuda.get_device_properties(hs.device).multi_processor_count
     return vocab_plan(hs.shape[0], ws.shape[0], hs.shape[1], sms)
+
+
+def fwd_scratch(hs, ws, planes: int):
+    """A forward's partials, f32 [planes, SWEEP_CONSUMERS * nsplit, N]: a
+    plane of each statistic the loss's epilogue writes, for every vocab
+    split and consumer warpgroup of the sweep and every row."""
+    _, parts, n = plan_for(hs, ws)["part"]
+    return torch.empty(planes, parts, n, dtype=torch.float32, device=hs.device)
 
 
 def bwd_scratch(hs, ws):

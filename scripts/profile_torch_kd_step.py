@@ -28,7 +28,7 @@ unprofiled steps, then:
 
 ``--parent DIR`` (another checkout of the port, e.g. the parent commit
 unpacked by ``git archive``) then profiles three more steps, with DIR's
-flash, K6 and K8-K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's
+flash and K5-K12 kernels (``chip_smoke.PARENT_LAUNCHERS``), DIR's
 again and this checkout's, and prints each step's device kernel time and
 its kernel groups (flash, the vocabulary losses K5-K11, int8) and peak
 memory: a comparison that the host's noise does not reach.
@@ -95,8 +95,11 @@ GROUPS = (
     ("flash backward D=72 (K2)", ("kdss_bwd72", "flash_bwd_dq_kernel<72", "flash_bwd_dkv_kernel<72")),
     # K4 at D = 64: csrc/flash_bwd_sm90.cu's dq, dk/dv and reduce kernels
     ("flash backward D=64 (K4)", ("kdss_bwd90",)),
-    # K5 and K7: the mma.sync forwards of csrc/fused_ce.cu and
-    # csrc/fused_kl.cu (their sweeps and combines)
+    # K5 and K7: csrc/fused_ce.cu's and csrc/fused_kl.cu's forward sweeps on
+    # csrc/kdss_vocab_sm90.cuh, named by their epilogue policies
+    # (kdss_ce_fwd90::LseGoldEpi, kdss_kl_fwd90::StatsEpi), and their
+    # combines; a parent's mma.sync ce_fwd_kernel and kl_fwd_kernel.  Before
+    # K6, K8 and K11: a sweep's name holds kdss_vocab90 too.
     ("fused CE forward (K5)", ("ce_fwd",)),
     ("temperature KL forward (K7)", ("kl_fwd",)),
     # K6 and K8 on csrc/kdss_vocab_sm90.cuh: the ds sweep and the products

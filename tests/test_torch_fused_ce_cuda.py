@@ -1,9 +1,15 @@
-"""The fused CE backward on the card (K6, ``csrc/fused_ce.cu`` on the Hopper
-vocab core ``csrc/kdss_vocab_sm90.cuh``: one sweep that writes the bf16
-d_logits ds, then dh = ds w and dW = ds^T h) against its plain PyTorch
-version ``lse_gold_bwd_ref``.
+"""The fused CE on the card (``csrc/fused_ce.cu`` on the Hopper vocab core
+``csrc/kdss_vocab_sm90.cuh``) against its plain PyTorch versions: the
+forward K5 (one sweep that keeps each row's online logsumexp and gold
+logit, then a combine of its partials) against ``lse_gold_ref``, and the
+backward K6 (one sweep that writes the bf16 d_logits ds, then dh = ds w and
+dW = ds^T h) against ``lse_gold_bwd_ref``.
 
-* at the training path's shape (N = 3072 rows over the 151936 x 896 tied
+* K5 at N = 3072, 300 and 130 rows over V = 151936, 2052, 1004 and 1001
+  (more than one vocab split at each), a label at column V - 1, lse and
+  gold within 2e-3 (both sides sum exact bf16 products in f32); labels
+  shifted by one column failing that bound; two launches bit-identical;
+* K6 at the training path's shape (N = 3072 rows over the 151936 x 896 tied
   head) and at ragged ones: N a multiple of neither the sweep's 64-row block
   nor the products' 128-row tile, V a multiple of neither the 128-column
   vocab tile nor 4 (K6 reads no teacher, so it takes any V), a label at
@@ -29,11 +35,13 @@ import torch
 
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
     fused_ce as fc,
+    vocab_core as vc,
 )
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
 FRO_TOL = 1e-2
+ROW_TOL = 2e-3  # K5's lse and gold, as in test_torch_train_cuda.py
 D = 896  # the 0.5B student's width, the one the kernels are compiled for
 
 
@@ -70,6 +78,48 @@ def _close(dh, dw, want_dh, want_dw):
           and err_w <= TOL * want_dw.float().abs().max().item()
           and _fro(dh, want_dh) <= FRO_TOL and _fro(dw, want_dw) <= FRO_TOL)
     return ok, (err_h, err_w, _fro(dh, want_dh), _fro(dw, want_dw))
+
+
+def _fwd_inputs(dev, n, v, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, D, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(v, D, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    labels[5] = v - 1
+    return h, w, labels
+
+
+def _err(a, want):
+    return (a.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("v", [151936, 2052, 1004, 1001])
+@pytest.mark.parametrize("n", [3072, 300, 130])
+def test_ce_forward_matches_plain(dev, n, v):
+    h, w, labels = _fwd_inputs(dev, n, v)
+    assert vc.plan_for(h, w)["nsplit"] > 1
+    fc.reset_launch_counts()
+    lse, gold = fc.lse_gold_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert fc.lse_gold_fwd.launches == 1
+    want_lse, want_gold = fc.lse_gold_ref(h, w, labels)
+    assert _err(lse, want_lse) <= ROW_TOL and _err(gold, want_gold) <= ROW_TOL, (
+        _err(lse, want_lse), _err(gold, want_gold))
+
+
+def test_ce_forward_bound_sees_a_shifted_label(dev):
+    h, w, labels = _fwd_inputs(dev, 300, 1001, seed=5)
+    _, want_gold = fc.lse_gold_ref(h, w, labels)
+    _, gold = fc.lse_gold_fwd(h, w, (labels + 1) % w.shape[0])
+    assert _err(gold, want_gold) > ROW_TOL
+
+
+@pytest.mark.parametrize("n,v", [(3072, 151936), (130, 1001)])
+def test_ce_forward_two_launches_are_bit_identical(dev, n, v):
+    h, w, labels = _fwd_inputs(dev, n, v, seed=6)
+    a, b = fc.lse_gold_fwd(h, w, labels), fc.lse_gold_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("n,v", [(3072, 151936), (300, 1001), (130, 2050), (3000, 151936)],

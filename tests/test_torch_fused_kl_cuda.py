@@ -1,10 +1,15 @@
-"""The temperature-KL backward on the card (K8, ``csrc/fused_kl.cu`` on the
-Hopper vocab core ``csrc/kdss_vocab_sm90.cuh``: one sweep that reads the
-teacher tile and writes the bf16 d_logits ds, then dh = ds w and, where the
-head trains, dW = ds^T h) against its plain PyTorch version
-``kl_rows_bwd_ref``.
+"""The temperature KL on the card (``csrc/fused_kl.cu`` on the Hopper vocab
+core ``csrc/kdss_vocab_sm90.cuh``) against its plain PyTorch versions: the
+forward K7 (one sweep that reads the teacher tile and keeps each row's
+student and teacher statistics, then a combine of its partials) against
+``kl_rows_ref``, and the backward K8 (one sweep that reads the teacher tile
+and writes the bf16 d_logits ds, then dh = ds w and, where the head trains,
+dW = ds^T h) against ``kl_rows_bwd_ref``.
 
-* at the phase-1 path's shape (N = 3072 rows over the 151936-row student
+* K7 at N = 3072, 300 and 130 rows over V = 151936, 2052 and 1004 (more
+  than one vocab split at each); a forward that drops the student's 1/T
+  failing the bounds; two launches bit-identical;
+* K8 at the phase-1 path's shape (N = 3072 rows over the 151936-row student
   head) and at ragged ones (N a multiple of neither the sweep's 64-row
   block nor the products' 128-row tile, V no multiple of the 128-column
   vocab tile), with and without dW: without it the same dh, no dW and no dW
@@ -33,6 +38,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import (
     fused_kl as fkl,
+    vocab_core as vc,
 )
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +71,35 @@ def _close(got, want):
     err = (got - want).abs().max().item()
     fro = ((got - want).norm() / want.norm()).item()
     return err <= TOL * max(1.0, want.abs().max().item()) and fro <= FRO_TOL, (err, fro)
+
+
+@pytest.mark.parametrize("v", [151936, 2052, 1004])
+@pytest.mark.parametrize("n", [3072, 300, 130])
+def test_kl_forward_matches_plain(dev, n, v):
+    hs, ws, tmat, _, _, _ = _inputs(dev, n, v)
+    assert vc.plan_for(hs, ws)["nsplit"] > 1
+    fkl.reset_launch_counts()
+    got = fkl.kl_fwd(hs, ws, tmat, inv_t=INV_T)
+    torch.cuda.synchronize()
+    assert fkl.kl_fwd.launches == 1
+    for name, a, b in zip(("kl", "lse_s", "lse_t"), got, fkl.kl_rows_ref(hs, ws, tmat, inv_t=INV_T)):
+        ok, errs = _close(a, b)
+        assert ok, (name, errs)
+
+
+def test_kl_forward_bounds_see_a_dropped_temperature(dev):
+    hs, ws, tmat, _, _, _ = _inputs(dev, 300, 1004, seed=5)
+    want = fkl.kl_rows_ref(hs, ws, tmat, inv_t=INV_T)
+    got = fkl.kl_fwd(hs, ws, tmat, inv_t=1.0)
+    assert not all(_close(a, b)[0] for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n,v", [(3072, 151936), (130, 1004)])
+def test_kl_forward_two_launches_are_bit_identical(dev, n, v):
+    hs, ws, tmat, _, _, _ = _inputs(dev, n, v, seed=6)
+    a, b = fkl.kl_fwd(hs, ws, tmat, inv_t=INV_T), fkl.kl_fwd(hs, ws, tmat, inv_t=INV_T)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("n,v", [(3072, 151936), (300, 1004), (130, 2052), (3000, 151936)],
@@ -132,3 +167,5 @@ def test_a_vocabulary_not_a_multiple_of_4_is_refused(dev):
     hs, ws, tmat, lse_s, lse_t, g = _inputs(dev, 64, 1002, seed=4)
     with pytest.raises(ValueError, match="multiple of 4"):
         fkl.kl_bwd(hs, ws, tmat, lse_s, lse_t, g, inv_t=INV_T)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fkl.kl_fwd(hs, ws, tmat, inv_t=INV_T)

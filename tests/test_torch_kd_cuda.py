@@ -175,10 +175,11 @@ def _kl_inputs(dev, n, v, seed=0):
 @pytest.mark.parametrize("nsplit", [1, 3, 7])
 def test_kl_forward_matches_plain_at_any_split(dev, nsplit):
     """K7's sweep and combine at a ragged row count and vocab, the vocab cut
-    into 1, 3 or 7 splits (the cross-split rescale of Zt, U and W)."""
+    into 1, 3 or 7 splits of the sweep (the cross-split rescale of Zt, U and
+    W), each writing a partial per consumer warpgroup."""
     n, v, inv_t = 200, 1000, 1.25
     hs, ws, tmat = _kl_inputs(dev, n, v)
-    part = torch.empty(6, nsplit, n, device=dev)
+    part = torch.empty(6, 2 * nsplit, n, device=dev)
     got = [torch.empty(n, device=dev) for _ in range(3)]
     _build.kl_fwd(hs, ws, tmat, part, *got, inv_t)
     torch.cuda.synchronize()

@@ -1,8 +1,9 @@
 """The host side of the kernels on the wgmma/TMA vocab core on the CPU
 (``csrc/kdss_vocab_sm90.cuh``: K11 and K9 in ``csrc/fused_loca_ce.cu``, the
-fused CE backward K6 in ``csrc/fused_ce.cu``, the temperature-KL backward
-K8 in ``csrc/fused_kl.cu``): the plan that ``ops/vocab_core.py`` states in
-Python, held to the kernel sources and to what TMA and the kernels take.
+fused CE forward and backward K5 and K6 in ``csrc/fused_ce.cu``, the
+temperature-KL forward and backward K7 and K8 in ``csrc/fused_kl.cu``): the
+plan that ``ops/vocab_core.py`` states in Python, held to the kernel sources
+and to what TMA and the kernels take.
 
 * ``VOCAB_TILE``, ``SWEEP_ROWS``, ``SWEEP_CONSUMERS`` and ``VOCAB_STAGES``
   are the source's constants, and both kernels' shared memory (the sweep's
@@ -10,23 +11,31 @@ Python, held to the kernel sources and to what TMA and the kernels take.
 * ``vocab_plan`` at the KD path's shape (N = 3072, V = 151936, D = 896 on
   132 SMs) and at ragged ones: row blocks, vocab tiles, splits that are
   never empty, the forward's partials, the backward's bf16 ds and dh's
-  split and partials, the products' grids; ``bwd_scratch`` allocates
-  exactly the plan's scratch;
+  split and partials, the products' grids; ``fwd_scratch`` (K5's, K7's,
+  K11's and K9's partials, planes x two per vocab split x N) and
+  ``bwd_scratch`` allocate exactly the plan's scratch;
 * ``vocab_maps``: dims innermost first, 16-byte row strides, 128-byte box
   rows, and the refusal of a vocabulary that is not a multiple of 4 where
   the sweep reads the teacher (tmat read in 8-byte pairs; K6 reads none)
   or of ds rows that are not 16-byte aligned (the wrappers' own refusal of
   such a V on the card is in ``test_torch_fused_loca_cuda.py`` and
   ``test_torch_fused_kl_cuda.py``);
-* the sources: K6's and K8's backward entries run on the core (a ds sweep,
-  then ``ds_products``), and ``csrc/kdss_vocab.cuh`` keeps only the
-  mma.sync forward of K5 and K7;
-* ``lse_gold_bwd`` (K6) and ``kl_bwd`` (K8) refuse, with ValueError and
-  before any launch, what the kernels cannot take (checked on ``meta``
-  tensors, which are not on the CPU and so take the kernels' route; K8's
-  refusal of a V that is no multiple of 4 comes after the device check and
-  is held on the card, ``test_torch_fused_kl_cuda.py``)."""
+* the sources: K5's, K6's, K7's and K8's entries run on the core (K6 and
+  K8 a ds sweep, then ``ds_products``; K5 and K7 a statistics sweep, then
+  a combine; K5 and K6 load no teacher tile), each in a namespace of its
+  own; no source includes the deleted mma.sync tiling
+  ``csrc/kdss_vocab.cuh`` or issues an ``mma.sync``, and ``kdss_mma.cuh``
+  no longer defines its product or fragment loads;
+* ``scripts/profile_torch_kd_step.py`` files each kernel of K5-K8 and K11,
+  and a parent's mma.sync K5 and K7, under its own group;
+* ``lse_gold_fwd`` (K5), ``lse_gold_bwd`` (K6), ``kl_fwd`` (K7) and
+  ``kl_bwd`` (K8) refuse, with ValueError and before any launch, what the
+  kernels cannot take (checked on ``meta`` tensors, which are not on the
+  CPU and so take the kernels' route; K7's and K8's refusal of a V that is
+  no multiple of 4 comes after the device check and is held on the card,
+  ``test_torch_fused_kl_cuda.py``)."""
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -40,6 +49,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 )
 
 CSRC = Path(vc.__file__).resolve().parent.parent / "csrc"
+PROFILE = Path(__file__).resolve().parent.parent / "scripts" / "profile_torch_kd_step.py"
 SMEM_PER_BLOCK = 232448  # the H100's shared memory a block can take (227 KB)
 D = 896
 
@@ -158,6 +168,24 @@ def test_bwd_scratch_is_the_plan(monkeypatch, n, v):
     assert part.shape == p["dh_part"] and part.dtype == torch.float32 and nsplit == p["nsplit"]
 
 
+@pytest.mark.parametrize("n,v", [(3072, 151936), (3000, 151936), (300, 1001), (130, 2052), (1, 8)])
+@pytest.mark.parametrize("planes", [2, 6, 7])
+def test_fwd_scratch_is_the_plan(monkeypatch, n, v, planes):
+    """A forward's partials: ``planes`` (K5 2, K7 6, K11 and K9 7) x one per
+    consumer warpgroup of every vocab split x N, the splits never empty."""
+    monkeypatch.setattr(vc.torch.cuda, "get_device_properties", lambda device: _Props())
+    hs = torch.empty(n, D, dtype=torch.bfloat16, device="meta")
+    ws = torch.empty(v, D, dtype=torch.bfloat16, device="meta")
+    part = vc.fwd_scratch(hs, ws, planes)
+    p = vc.vocab_plan(n, v, D, 132)
+    assert part.shape == (planes, vc.SWEEP_CONSUMERS * p["nsplit"], n) and part.dtype == torch.float32
+    assert part.shape[1:] == p["part"][1:]
+    per = -(-p["vocab_tiles"] // p["nsplit"])
+    assert (p["nsplit"] - 1) * per < p["vocab_tiles"]
+    if (n, v) == (3072, 151936):
+        assert part.shape == (planes, 22, 3072)
+
+
 def _body(text, signature):
     """The brace-balanced body that follows ``signature`` in ``text``."""
     i = text.index("{", text.index(signature))
@@ -170,27 +198,69 @@ def _body(text, signature):
 
 
 @pytest.mark.parametrize("src,entry,ns", [("fused_ce.cu", "int kdss_ce_bwd(", "kdss_ce90"),
-                                          ("fused_kl.cu", "int kdss_kl_bwd(", "kdss_kl90")])
+                                          ("fused_kl.cu", "int kdss_kl_bwd(", "kdss_kl90"),
+                                          ("fused_ce.cu", "int kdss_ce_fwd(", "kdss_ce_fwd90"),
+                                          ("fused_kl.cu", "int kdss_kl_fwd(", "kdss_kl_fwd90")])
 def test_ce_and_kl_backwards_run_on_the_vocab_core(src, entry, ns):
+    """Each entry of K5-K8 runs a sweep of its own namespace's epilogue
+    policy on the core: the backwards (K6, K8) a ds sweep, then the core's
+    products; the forwards (K5, K7) a sweep that keeps per-row statistics,
+    then a combine.  The CE kernels (K5, K6) load no teacher tile."""
     text = (CSRC / src).read_text()
     assert '#include "kdss_vocab_sm90.cuh"' in text
-    assert f"{ns}::bwd<896>(" in _body(text, entry)
-    bwd = _body(text, "cudaError_t bwd(")
-    assert "kdss_vocab90_host::sweep<DM>(" in bwd and "kdss_vocab90_host::ds_products<DM, DsEpi>(" in bwd
-    epi = _body(text, "struct DsEpi")
-    assert "fast_exp2" in epi and "pack_bf16" in epi
-    assert ("TEACHER = false" in epi) == (src == "fused_ce.cu")  # K6 loads no teacher tile
+    fn = "fwd" if "_fwd(" in entry else "bwd"
+    assert f"{ns}::{fn}<896>(" in _body(text, entry)
+    space = _body(text, f"namespace {ns} {{")
+    policies = re.findall(r"struct (\w+Epi) \{", space)
+    assert len(policies) == 1, policies
+    body, epi = _body(space, f"cudaError_t {fn}("), _body(space, f"struct {policies[0]}")
+    assert "kdss_vocab90_host::sweep<DM>(" in body and "fast_exp2" in epi
+    if fn == "bwd":
+        assert "kdss_vocab90_host::ds_products<DM, DsEpi>(" in body and "pack_bf16" in epi
+    else:
+        assert "_combine<<<" in body and "quad_sum" in epi and "ds" not in re.findall(r"\w+", epi)
+    assert ("TEACHER = false" in epi) == (src == "fused_ce.cu")  # K5 and K6 load no teacher tile
     assert "launch_bwd" not in text and "Rows" not in text
 
 
-def test_kdss_vocab_keeps_only_the_forward():
-    text = (CSRC / "kdss_vocab.cuh").read_text()
-    for gone in ("dh_kernel", "dw_kernel", "reduce_dh", "launch_bwd", "B_THREADS", "load_rows"):
-        assert gone not in text, gone
-    assert "logits_tile" in text
+def test_no_source_runs_the_mma_sync_tiling():
+    """``csrc/kdss_vocab.cuh`` (the mma.sync tiling of K5 and K7) is gone:
+    no source includes it or issues an ``mma.sync``, and ``kdss_mma.cuh``
+    no longer defines the product or its fragment loads."""
+    assert not (CSRC / "kdss_vocab.cuh").exists()
     for src in CSRC.glob("*.cu*"):
         body = src.read_text()
+        assert '#include "kdss_vocab.cuh"' not in body, src.name
+        assert '"mma.sync' not in body, src.name
         assert "CERows" not in body and "KLRows" not in body, src.name
+    helpers = (CSRC / "kdss_mma.cuh").read_text()
+    for gone in ("mma16816", "load_a", "load_b_rows", "ld32"):
+        assert not re.search(rf"\b{gone}\(", helpers), gone
+    for kept in ("FULL", "LOG2E", "LN2", "pack_bf16"):
+        assert kept in helpers
+
+
+def _profile_groups():
+    spec = importlib.util.spec_from_file_location("profile_torch_kd_step", PROFILE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.group_of
+
+
+@pytest.mark.parametrize("name,group", [
+    ("kdss_vocab90::sweep_kernel<896, kdss_ce_fwd90::LseGoldEpi>", "fused CE forward (K5)"),
+    ("kdss_ce_fwd90::ce_fwd_combine", "fused CE forward (K5)"),
+    ("kdss_ce::ce_fwd_kernel<896>", "fused CE forward (K5)"),
+    ("kdss_vocab90::sweep_kernel<896, kdss_kl_fwd90::StatsEpi>", "temperature KL forward (K7)"),
+    ("kdss_kl_fwd90::kl_fwd_combine", "temperature KL forward (K7)"),
+    ("kdss_kl::kl_fwd_kernel<896>", "temperature KL forward (K7)"),
+    ("kdss_vocab90::sweep_kernel<896, kdss_ce90::DsEpi>", "fused CE backward (K6)"),
+    ("kdss_vocab90::gemm_kernel<true, false, kdss_kl90::DsEpi>", "temperature KL backward (K8)"),
+    ("kdss_vocab90::sweep_kernel<896, kdss_loca_ce::StatsEpi<true> >", "LoCa + CE (K11), LoCa (K9)"),
+    ("kdss_loca_ce::loca_stats_combine<false>", "LoCa + CE (K11), LoCa (K9)"),
+])
+def test_profile_groups_tell_the_vocab_kernels_apart(name, group):
+    assert _profile_groups()(name) == group
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -221,6 +291,38 @@ def test_lse_gold_bwd_refuses_what_k6_cannot_take(case, at, bad, match):
         args[at] = bad
     with pytest.raises(ValueError, match=match):
         fc.lse_gold_bwd(*args)
+
+
+@pytest.mark.parametrize("case,at,bad,match", [
+    ("model dim", None, dict(d=128), "model dim"),
+    ("h dtype", 0, _meta(64, D, dtype=torch.float32), "bfloat16"),
+    ("w not contiguous", 1, _meta(D, 1000).T, "contiguous"),
+    ("labels dtype", 2, _meta(64, dtype=torch.int64), "int32"),
+    ("labels rows", 2, _meta(65, dtype=torch.int32), "int32"),
+    ("not on the card", None, {}, "CUDA tensors"),
+])
+def test_lse_gold_fwd_refuses_what_k5_cannot_take(case, at, bad, match):
+    args = (_ce_args(**bad) if at is None else _ce_args())[:3]
+    if at is not None:
+        args[at] = bad
+    with pytest.raises(ValueError, match=match):
+        fc.lse_gold_fwd(*args)
+
+
+@pytest.mark.parametrize("case,at,bad,match", [
+    ("model dim", None, dict(d=128), "model dim"),
+    ("hs dtype", 0, _meta(64, D, dtype=torch.float32), "bfloat16"),
+    ("ws shape", 1, _meta(1000, 128), "need hs"),
+    ("tmat dtype", 2, _meta(64, 1000), "tmat"),
+    ("tmat shape", 2, _meta(64, 1004, dtype=torch.float32), "tmat"),
+    ("not on the card", None, {}, "CUDA tensors"),
+])
+def test_kl_fwd_refuses_what_k7_cannot_take(case, at, bad, match):
+    args = (_kl_args(**bad) if at is None else _kl_args())[:3]
+    if at is not None:
+        args[at] = bad
+    with pytest.raises(ValueError, match=match):
+        fkl.kl_fwd(*args, inv_t=0.5)
 
 
 @pytest.mark.parametrize("case,at,bad,match", [
