@@ -67,7 +67,20 @@ Phases (any failure raises, and the exit code is non-zero):
      B=1; a checkpoint restore with its negative control; int8_full at
      B=8; the 7B at B=2; get_all_results over the predictions; rows/s,
      the host / generate split and peak memory;
- 10. print one JSON line of kernel results (time, plain time, the least time
+ 10. [create]: the dataset-creation CLI (cli/create_dataset.py) with the
+     student color backend (eval/runner.py over the Generator, a
+     checkpoint of the seeded 0.5B student at full width and depth) on a
+     synthetic SUNRGBD toolbox tree of 8 train and 6 validation frames at
+     the four sensor sizes: 0 errors, a Color row for every frame with a
+     prominent object, exact K1/K3 launch counts over the color questions,
+     each question's tokens bit-equal to the Generator called directly on
+     its batch, two questions' prefill logits held to the plain path, a
+     raising color backend failing the CLI; then the workflow on the
+     created dataset: dataset_statistics, the KD CLI's double_trouble
+     phases 1 -> 2 -> 3 with the frozen bf16 7B teacher (one epoch, B=1,
+     A=2, the phase hand-off), the evaluator with the phase-3 checkpoint
+     at B=8 and get_all_results; each step's wall time and peak memory;
+ 11. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
@@ -126,6 +139,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -133,6 +147,10 @@ import types
 
 import torch
 import torch.nn.functional as F
+
+# [create]'s spell check resolves its learned stage's Hugging Face model id
+# from local files only; offline, a look-up of the hub would only wait.
+os.environ.setdefault("HF_HUB_OFFLINE", "1")
 
 PKG = "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch"
 REF = "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu"
@@ -1959,7 +1977,6 @@ def tiny_cli_phase() -> None:
     ``common.resolve_attn_impl``) and no kernel launches.  Data and
     checkpoints go to build/chip_smoke_tiny/ in this checkout."""
     import importlib
-    import io
     import re
     import shutil
 
@@ -1968,19 +1985,14 @@ def tiny_cli_phase() -> None:
     for label, cli, extra in TINY_RUNS:
         mod = importlib.import_module(f"{PKG}.cli.{cli}")
         d = root / cli / str(len(extra))
-        out = io.StringIO()
-        reset_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            mod.main(["--synthetic_data", "--accumulate_grad_batches", "1", "--num_workers", "1",
-                      "--root_data_dir", str(d / "data"), "--checkpoint_dir", str(d / "ck"),
-                      "--tensorboard_dir", str(d / "tb"), *extra])
-        secs = time.perf_counter() - t0
-        launches = {k: v for k, v in read_counts().items() if v}
-        val = [float(x) for x in re.findall(r"val_loss (\S+)", out.getvalue())]
-        log(f"[tiny] {cli} {' '.join(extra)}: {label}, {secs:.1f} s; val_loss {val}; kernel launches {launches}")
-        if len(val) != 1 or not math.isfinite(val[0]) or "training complete" not in out.getvalue():
-            raise AssertionError(f"the tiny {cli} run did not finish: {out.getvalue()[-2000:]}")
+        r = _run_cli("tiny", mod, ["--synthetic_data", "--accumulate_grad_batches", "1", "--num_workers", "1",
+                                   "--root_data_dir", str(d / "data"), "--checkpoint_dir", str(d / "ck"),
+                                   "--tensorboard_dir", str(d / "tb"), *extra])
+        launches = {k: v for k, v in r["launches"].items() if v}
+        val = [float(x) for x in re.findall(r"val_loss (\S+)", r["log"])]
+        log(f"[tiny] {cli} {' '.join(extra)}: {label}, {r['wall']:.1f} s; val_loss {val}; kernel launches {launches}")
+        if len(val) != 1 or not math.isfinite(val[0]) or "training complete" not in r["log"]:
+            raise AssertionError(f"the tiny {cli} run did not finish: {r['log'][-2000:]}")
         if launches:
             raise AssertionError(f"the tiny {cli} run launched kernels: {launches}")
     shutil.rmtree(root, ignore_errors=True)
@@ -2014,13 +2026,26 @@ def _eval_tree(root) -> str:
 
 
 def _run_eval(tag, root, preds, *flags) -> dict:
-    """One evaluator CLI run (its output captured), its launch counts from 0,
-    wall time and peak memory."""
-    import io
-
+    """One evaluator CLI run (``_run_cli``): its rows, wall time, launch
+    counts from 0 and peak memory."""
     from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
         evaluate_onevision,
     )
+
+    r = _run_cli(tag, evaluate_onevision, ["--root_data_dir", root, "--predictions_dir", str(preds),
+                                          "--max_new_tokens", str(N_NEW), "--metric_backend", "hashed", *flags])
+    r.update(r.pop("ret"))
+    rows = len(r["rows"])
+    log(f"[{tag}] {' '.join(flags)}: {rows} rows in {r['wall']:.1f} s ({rows / r['wall']:.3f} rows/s); host "
+        f"(rows read, depth, anyres, collation) {r['host_s']:.2f} s, generate {r['generate_s']:.2f} s; "
+        f"peak memory {r['peak'] / 2**30:.2f} GiB")
+    return r
+
+
+def _run_cli(tag, mod, argv) -> dict:
+    """One CLI ``main`` (its output captured): what it returned, its launch
+    counts from 0, wall time and peak memory."""
+    import io
 
     out = io.StringIO()
     reset_counts()
@@ -2028,15 +2053,12 @@ def _run_eval(tag, root, preds, *flags) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        r = evaluate_onevision.main(["--root_data_dir", root, "--predictions_dir", str(preds),
-                                     "--max_new_tokens", str(N_NEW), "--metric_backend", "hashed", *flags])
+        ret = mod.main(argv)
     torch.cuda.synchronize()
-    r.update(wall=time.perf_counter() - t0, launches=read_counts(), peak=torch.cuda.max_memory_allocated(),
+    r = dict(ret=ret, wall=time.perf_counter() - t0, launches=read_counts(), peak=torch.cuda.max_memory_allocated(),
              log=out.getvalue())
-    rows = len(r["rows"])
-    log(f"[{tag}] {' '.join(flags)}: {rows} rows in {r['wall']:.1f} s ({rows / r['wall']:.3f} rows/s); host "
-        f"(rows read, depth, anyres, collation) {r['host_s']:.2f} s, generate {r['generate_s']:.2f} s; "
-        f"peak memory {r['peak'] / 2**30:.2f} GiB")
+    log(f"[{tag}] {mod.__name__.rsplit('.', 1)[1]}: {r['wall']:.1f} s, peak memory {r['peak'] / 2**30:.2f} GiB, "
+        f"kernel launches { {k: v for k, v in r['launches'].items() if v} }")
     return r
 
 
@@ -2195,6 +2217,257 @@ def eval_phase(dev, parent=None) -> dict:
                 rows_s8=EVAL_ROWS / r8["wall"], rows_s1=EVAL_ROWS / r1["wall"], peak=r8["peak"],
                 host8=r8["host_s"], gen8=r8["generate_s"],
                 rows_s8_parent=EVAL_ROWS / turns["parent"]["wall"] if turns else None)
+
+
+# [create]: cli/create_dataset.py with the student color backend on a
+# synthetic SUNRGBD toolbox tree, then the researcher's workflow on the
+# dataset it created.  Frames cycle through [eval]'s four sensor sizes;
+# six validation frames give each of the six question types one frame's
+# rows in the val merge.
+CREATE_SPLITS = (("train", 8, 31), ("validation", 6, 32))  # (split, frames, seed)
+CREATE_OBJECTS = ("chair", "table", "lamp", "bed", "sofa", "desk", "pillow", "box", "cabinet", "monitor")
+CREATE_STUDENT_SEED = 3  # the checkpoint's weights; the runner builds seed 0 before restoring
+CREATE_LOGIT_QUESTIONS = 2
+CREATE_EVAL_BS = 8
+
+
+def _create_tree(root, splits) -> dict:
+    """The SUNRGBD toolbox layout that ``create_dataset`` reads
+    (``splits_output_paths/<split>/{all_rgb,all_depth,annotations}.txt``,
+    RGB PNGs, uint16 depth PNGs, annotation JSONs of named objects with
+    polygons, one a wall), seeded.  Returns each split's annotations."""
+    import numpy as np
+    from PIL import Image
+
+    img = root / "SUNRGBD" / "img"
+    img.mkdir(parents=True, exist_ok=True)
+    anns = {}
+    for split, n, seed in splits:
+        rng = np.random.default_rng(seed)
+        lists = {"all_rgb.txt": [], "all_depth.txt": [], "annotations.txt": []}
+        anns[split] = []
+        for i in range(n):
+            h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
+            names = ["wall", *rng.choice(CREATE_OBJECTS, size=4, replace=False).tolist()]
+            polys = [{"object": 0, "x": [0, 0, w - 1, w - 1], "y": [0, h // 3, h // 3, 0]}]
+            for j in range(1, len(names)):
+                x0, y0 = int(rng.integers(0, w // 2)), int(rng.integers(h // 3, h // 2))
+                bw, bh = int(rng.integers(20, w // 2)), int(rng.integers(20, h // 2))
+                polys.append({"object": j, "x": [x0, x0, x0 + bw, x0 + bw], "y": [y0, y0 + bh, y0 + bh, y0]})
+            ann = {"objects": [{"name": nm} for nm in names], "frames": [{"polygon": polys}]}
+            paths = [f"SUNRGBD/img/{split}_{kind}_{i}.{ext}" for kind, ext in (("rgb", "png"), ("d", "png"),
+                                                                                ("ann", "json"))]
+            Image.fromarray(rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)).save(root / paths[0])
+            Image.fromarray(rng.integers(0, 65535, size=(h, w)).astype(np.uint16)).save(root / paths[1])
+            (root / paths[2]).write_text(json.dumps(ann))
+            for k, p in zip(lists, paths):
+                lists[k].append(p)
+            anns[split].append(ann)
+        d = root / "splits_output_paths" / split
+        d.mkdir(parents=True, exist_ok=True)
+        for k, v in lists.items():
+            (d / k).write_text("\n".join(v))
+    return anns
+
+
+def create_phase(dev) -> dict:
+    """[create]: ``cli/create_dataset.py --color_backend student`` on the card
+    with a checkpoint of the seeded 0.5B student (full width and depth) on
+    the tree of ``_create_tree``, split by split: 0 errors, a Color row for
+    every frame with a prominent object, exact launch counts over the color
+    questions (K1 26 and K3 24 a question, no other kernel); each question's
+    generated tokens bit-equal to those of the same ``Generator`` called
+    directly on the same collated batch, and for two of them the prefill
+    next-token logits on the kernel path held to the plain path by [main]'s
+    cosine; a color backend that raises must fail the CLI (the negative
+    control).  Then the workflow on the created dataset, full width and
+    depth, the hash tokenizer: ``dataset_statistics`` on the val CSV,
+    ``train_online_kd --real_model`` double_trouble phases 1 -> 2 -> 3 (one
+    epoch, B=1, A=2, the frozen bf16 7B teacher, each later phase from the
+    previous best checkpoint), ``evaluate_onevision`` with the phase-3 best
+    at B=8, and ``get_all_results``: finite losses, each phase's checkpoint,
+    one prediction per val row, the summary row; each step's wall seconds and
+    peak memory.  Data and checkpoints go to build/chip_smoke_create/,
+    removed after."""
+    import re
+    import shutil
+
+    import pandas as pd
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        create_dataset,
+        dataset_statistics,
+        evaluate_onevision,
+        get_all_results,
+        train_online_kd,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.creation.prominent import (
+        find_most_prominent_object,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval import runner
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        find_best_checkpoint,
+    )
+
+    t_create = time.perf_counter()
+    cfg = llava_onevision_0_5b()
+    base = _build.BUILD_DIR.parent / "chip_smoke_create"
+    shutil.rmtree(base, ignore_errors=True)
+    root = base / "data"
+    anns = _create_tree(root, CREATE_SPLITS)
+    student = common.init_or_load_params(cfg, None, seed=CREATE_STUDENT_SEED, attn_impl="flash", device=dev,
+                                         dtype=torch.bfloat16)
+    ckdir = base / "student"
+    CheckpointManager(str(ckdir)).save(0, 1.0, {"params": student.state_dict(), "opt_state": {}, "step": 0})
+    del student
+    torch.cuda.empty_cache()
+    log(f"[create] tree ({', '.join(f'{s}: {n} frames' for s, n, _ in CREATE_SPLITS)}; frames cycle through "
+        f"{EVAL_SIZES}) and the seed-{CREATE_STUDENT_SEED} 0.5B checkpoint written in "
+        f"{time.perf_counter() - t_create:.1f} s")
+    argv = ["--root_data_dir", str(root), "--color_backend", "student", "--student_checkpoint", str(ckdir)]
+    load = runner.load_student_for_eval
+
+    # the negative control first, on the untouched tree: nothing is written
+    def broken_backend(*a, **k):
+        def answer(image, question):
+            raise RuntimeError("injected color backend fault")
+        return answer
+
+    runner.load_student_for_eval = broken_backend
+    try:
+        create_dataset.main([*argv, "--splits", "validation"])
+    except create_dataset.ColorBackendError as e:
+        log(f"[create] negative control: a color backend that raises fails the CLI: {e!r}")
+    else:
+        raise AssertionError("a raising color backend did not fail create_dataset")
+    finally:
+        runner.load_student_for_eval = load
+    if (root / "SUNRGBD" / "csv_data" / "val_dataset.csv").exists():
+        raise AssertionError("the failed create_dataset run wrote a val CSV")
+
+    # the run itself: record each color question's batch and tokens
+    records = []
+
+    def recording_load(*a, **k):
+        answer = load(*a, **k)
+        ans = answer.__self__
+        generate = ans.gen.generate
+
+        def recorded(model, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(model, batch)
+            torch.cuda.synchronize()
+            records.append(dict(ans=ans, batch=batch, tokens=out["tokens"].clone(), s=time.perf_counter() - t0))
+            return out
+
+        ans.gen.generate = recorded
+        return answer
+
+    vis, txt = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    launches = dict.fromkeys(COUNTERS, 0)
+    runner.load_student_for_eval = recording_load
+    try:
+        for split, n, _ in CREATE_SPLITS:
+            first = len(records)
+            r = _run_cli("create", create_dataset, [*argv, "--splits", split])
+            qs = records[first:]
+            errors = re.findall(rf"^{split}: \d+ rows, (\d+) errors$", r["log"], re.M)
+            color = pd.read_csv(root / "SUNRGBD" / "csv_data" / "individual_datasets" / split / "color.csv")
+            prominent = sum(find_most_prominent_object(a) is not None for a in anns[split])
+            gen_s = sum(q["s"] for q in qs)
+            log(f"[create] {split}: {r['log'].strip().splitlines()}; {len(qs)} color questions, {len(color)} Color "
+                f"rows, {prominent} of {n} frames with a prominent object; {r['wall']:.1f} s for the split "
+                f"(the student's build and restore included), generate {gen_s:.2f} s "
+                f"({len(qs) / gen_s:.3f} color questions/s)")
+            if errors != ["0"] or len(color) != prominent or len(qs) != prominent or prominent == 0:
+                raise AssertionError(f"[create] {split}: errors {errors}, {len(color)} Color rows and {len(qs)} "
+                                     f"questions for {prominent} frames with a prominent object")
+            _hold_launches("create", r["launches"], {"flash_fwd_mha": vis, "flash_fwd_gqa": txt}, len(qs))
+            for k, v in r["launches"].items():
+                launches[k] += v
+    finally:
+        runner.load_student_for_eval = load
+
+    # each question's tokens against the same Generator called directly
+    for i, q in enumerate(records):
+        direct = Generator(cfg, q["ans"].gen.gcfg).generate(q["ans"].model, q["batch"])["tokens"]
+        if not torch.equal(direct, q["tokens"]):
+            raise AssertionError(f"[create] question {i}: the runner's tokens {q['tokens'].tolist()} are not the "
+                                 f"direct Generator's {direct.tolist()}")
+    log(f"[create] tokens of all {len(records)} color questions bit-equal to the direct Generator's")
+    for i, q in enumerate(records[:CREATE_LOGIT_QUESTIONS]):
+        model, gen = q["ans"].model, q["ans"].gen
+        with torch.no_grad():
+            logits, _, lengths = gen.prefill(model, q["batch"])
+            last = int(lengths[0]) - 1
+            flash_next = logits[0, last].float()
+            del logits
+            set_attn_impl(model, "xla")
+            logits, _, _ = gen.prefill(model, q["batch"])
+            plain_next = logits[0, last].float()
+            del logits
+            set_attn_impl(model, "flash")
+        cos = _cosine(flash_next, plain_next)
+        log(f"[create] question {i} ({int(lengths[0])} prompt tokens) next-token logits, flash vs plain path: "
+            f"max_abs_diff={(flash_next - plain_next).abs().max().item():.4e} (max |logit| "
+            f"{plain_next.abs().max().item():.3f}), cosine={cos:.6f}")
+        if not (cos >= PATH_COSINE) or not bool(torch.isfinite(flash_next).all()):
+            raise AssertionError(f"[create] question {i}: kernel path and plain path disagree (cosine {cos})")
+    del records
+    torch.cuda.empty_cache()
+
+    # the workflow on the created dataset
+    csv_dir = root / "SUNRGBD" / "csv_data"
+    val = pd.read_csv(csv_dir / "val_dataset.csv")
+    n_train = len(pd.read_csv(csv_dir / "train_dataset.csv"))
+    r = _run_cli("create", dataset_statistics, ["--root_data_dir", str(root)])
+    if f"val: {len(val)} rows" not in r["log"]:
+        raise AssertionError(f"dataset_statistics: {r['log'][-1000:]}")
+    log(f"[create] dataset_statistics: {r['log'].strip().splitlines()[0]}")
+    ck, best = base / "ck", None
+    for phase in (1, 2, 3):
+        r = _run_cli(f"create-kd{phase}", train_online_kd, [
+            "--real_model", "--root_data_dir", str(root), "--phase", str(phase), "--batch_size", "1",
+            "--accumulate_grad_batches", "2", "--max_epochs", "1", "--num_workers", "1",
+            "--checkpoint_dir", str(ck), "--tensorboard_dir", str(base / "tb")])
+        losses = [float(v) for v in re.findall(r"step \d+ loss (\S+)", r["log"])]
+        val_loss = [float(v) for v in re.findall(r"val_loss (\S+)", r["log"])]
+        handed = f"phase hand-off: initialized from {best}" in r["log"]
+        prev, best = best, find_best_checkpoint(str(ck / f"kd_double_trouble_phase{phase}"))
+        log(f"[create] phase {phase} on {n_train} train rows: losses {losses}, val_loss {val_loss}, hand-off from "
+            f"the previous phase {handed}, best checkpoint {best and os.path.basename(best)}")
+        if (not losses or len(val_loss) != 1 or not all(math.isfinite(v) for v in losses + val_loss)
+                or best is None or handed != (phase > 1)):
+            raise AssertionError(f"[create] phase {phase}: {r['log'][-2000:]}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+        if prev is not None:  # phase N - 1's checkpoint has been handed off
+            shutil.rmtree(os.path.dirname(prev))
+    preds = base / "preds"
+    r = _run_cli("create", evaluate_onevision, [
+        "--root_data_dir", str(root), "--student_ckpt_path", best, "--predictions_dir", str(preds),
+        "--eval_batch_size", str(CREATE_EVAL_BS), "--max_new_tokens", str(N_NEW), "--metric_backend", "hashed"])
+    _hold_launches("create-eval", r["launches"], {"flash_fwd_mha": vis, "flash_fwd_gqa": txt},
+                   -(-len(val) // CREATE_EVAL_BS))
+    for k, v in r["launches"].items():
+        launches[k] += v
+    pred = pd.read_csv(r["ret"]["path"])
+    if list(pred["Question_Id"]) != list(val["Question_Id"]) or len(pred) != len(val):
+        raise AssertionError(f"[create] predictions for {list(pred['Question_Id'])}, val rows "
+                             f"{list(val['Question_Id'])}")
+    os.remove(preds / "summary" / "results_summary.csv")  # get_all_results writes it anew
+    _run_cli("create", get_all_results, ["--predictions_dir", str(preds), "--metric_backend", "hashed"])
+    summary = pd.read_csv(preds / "summary" / "results_summary.csv")
+    if list(summary["File"]) != [os.path.basename(r["ret"]["path"])]:
+        raise AssertionError(f"[create] summary {summary.to_dict('records')}")
+    log(f"[create] {len(pred)} predictions, one a val row; summary "
+        f"{summary[['Simple_Accuracy', 'Neural_Similarity', 'File']].to_dict('records')}")
+    shutil.rmtree(base, ignore_errors=True)
+    secs = time.perf_counter() - t_create
+    log(f"[create] total {secs:.1f} s")
+    return dict(launches=launches, seconds=secs)
 
 
 def main_path_phase(dev, tag: str = "main") -> dict:
@@ -2472,9 +2745,11 @@ def main() -> int:
     kd_phase1_agreement_phase(dev)
     tiny_cli_phase()
     evals = eval_phase(dev, parent)
+    created = create_phase(dev)
     # launches: the driven paths, each counted from 0 around its own run
-    # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs)
-    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals)
+    # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs; the
+    # dataset creation's and its workflow's CLI runs)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
@@ -2499,6 +2774,8 @@ def main() -> int:
     log(f"[summary] {card}: evaluator {evals['rows_s8']:.3f} rows/s at B={EVAL_BS} (host "
         f"{evals['host8']:.2f} s, generate {evals['gen8']:.2f} s), {evals['rows_s1']:.3f} rows/s at B=1, "
         f"peak {evals['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: [create] dataset creation with the student color backend and the "
+        f"create -> train 1/2/3 -> evaluate -> summary workflow {created['seconds']:.1f} s")
     log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "
         f"{kd8['teacher_ms']:.1f} ms int8")
     log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "

@@ -321,7 +321,10 @@ def test_importing_every_port_module_loads_no_jax():
     assert {f"{PKG}.ops.fused_loca", f"{PKG}.ops.fused_kl", f"{PKG}.ops.int8", f"{PKG}.cli.train_online_kd",
             f"{PKG}.losses.chunked", f"{PKG}.data.dataset", f"{PKG}.cli.train", f"{PKG}.ops.flash_phase_ablation",
             f"{PKG}.eval.metrics", f"{PKG}.eval.results", f"{PKG}.cli.evaluate_onevision",
-            f"{PKG}.cli.get_all_results"} <= set(modules)
+            f"{PKG}.cli.get_all_results", f"{PKG}.cli.create_dataset", f"{PKG}.cli.dataset_statistics",
+            f"{PKG}.cli.convert_weights", f"{PKG}.eval.runner", f"{PKG}.eval.statistics", f"{PKG}.utils.spelling",
+            *(f"{PKG}.data.creation.{m}" for m in ("geometry", "prominent", "postprocess", "questions", "merge",
+                                                   "extract", "color_backend"))} <= set(modules)
     assert os.path.join(REPO, "scripts", "torch_flash_phase_ablation.py") in PORT_SCRIPTS
     code = (
         "import importlib, importlib.util, sys\n"
