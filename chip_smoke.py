@@ -80,7 +80,22 @@ Phases (any failure raises, and the exit code is non-zero):
      phases 1 -> 2 -> 3 with the frozen bf16 7B teacher (one epoch, B=1,
      A=2, the phase hand-off), the evaluator with the phase-3 checkpoint
      at B=8 and get_all_results; each step's wall time and peak memory;
- 11. print one JSON line of kernel results (time, plain time, the least time
+ 11. [remat] (run in phase 7, before [kd8] quantizes the teacher): the
+     phase-3 KD step with the student's remat off, full, dots, flash and
+     full with mlp_chunk=512: loss and every gradient leaf against remat
+     off, exact
+     launch counts (the student's flash forwards twice under full and dots,
+     once under flash), step ms, device ms and peak memory; B=2 (bench.py's
+     KD default) with and without remat; xla_chunked against xla at 2+2
+     layers on the plain path;
+ 12. [mesh]: (a) the KD CLI with --distributed --mesh 1,1,1 under a one-rank
+     NCCL group (FSDP2/DTensor student, exact launch counts) held to the
+     same CLI run without --distributed; (b) two processes in a gloo group
+     on the card, each running K11, K5/K6, K7/K8 and K9 through the *_spmd
+     wrappers on half the KD shape's rows, held to one kernel call on all
+     rows, with a rank's sums left out of the all-reduce as the negative
+     control;
+ 13. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
@@ -2045,9 +2060,12 @@ def _run_eval(tag, root, preds, *flags) -> dict:
 def _run_cli(tag, mod, argv) -> dict:
     """One CLI ``main`` (its output captured): what it returned, its launch
     counts from 0, wall time and peak memory."""
+    import gc
     import io
 
     out = io.StringIO()
+    gc.collect()  # an earlier run's models (FSDP2 hooks make cycles) are not this run's memory
+    torch.cuda.empty_cache()
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2672,6 +2690,446 @@ def kd8_steps(dev, teacher, tag: str = "kd8") -> dict:
                    _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1, int8_mm=n_proj, tmat_int8=1))
 
 
+# [remat]: the student's remat settings on the phase-3 KD step, each on a
+# fresh student from the same seed: (label, LlavaOnevision kwargs).
+REMAT_SETTINGS = (("off", {}), ("full", dict(remat=True)), ("dots", dict(remat=True, remat_policy="dots")),
+                  ("flash", dict(remat=True, remat_policy="flash")),
+                  ("full+mlp_chunk", dict(remat=True, mlp_chunk=512)))
+REMAT_STEPS = 4
+REMAT_B2_STEPS = 3
+
+
+def _fresh_student(dev, cfg, dtype=torch.bfloat16, attn_impl="flash", **remat):
+    """The 0.5B student (seed 0) with the given remat kwargs, trainable."""
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (
+        LlavaOnevision,
+        init_weights,
+    )
+
+    model = LlavaOnevision(cfg, attn_impl=attn_impl, device=dev, dtype=dtype, **remat)
+    init_weights(model, 0)
+    return model.requires_grad_(True).train()
+
+
+def _profiled_ms(fn) -> float:
+    """Device kernel time of one call of ``fn`` by torch.profiler (kernels
+    only, not the device ranges of annotations; CUDA activity alone, which
+    costs the host far less than tracing its ops too)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+
+
+def _remat_steps(dev, teacher, student, tb, steps, tag):
+    """``steps`` phase-3 steps, then one more under torch.profiler: (losses,
+    host ms a step (the mean after the first ``KD_WARMUP``), device ms of
+    the profiled step, peak bytes, launches of the unprofiled steps)."""
+    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"),
+                      accumulate_grad_batches=tb["labels"].shape[0], learning_rate=KD_LR, cosine_t_max=0,
+                      ce_impl="fused")
+    box = [TrainState(student, make_optimizer(student, KD_LR, kd_mode="double_trouble", phase=3))]
+    step = make_train_step(KDModels(student, teacher), cfg)
+    losses, times = [], []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box[0], metrics = step(box[0], None, tb)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def one():
+        box[0], m = step(box[0], None, tb)
+        losses.append(m["loss"].item())
+
+    device_ms = _profiled_ms(one)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"[{tag}] loss not finite and falling: {losses}")
+    del box, step
+    timed = times[KD_WARMUP:]
+    return losses, sum(timed) / len(timed), device_ms, peak, launches
+
+
+def _leaf_errors(names, got, want) -> float:
+    """The worst relative Frobenius error over gradient leaves.  A leaf that
+    is zero in both is equal; SigLIP's key-projection bias, whose gradient
+    is zero in exact arithmetic (a vector added to every key shifts each
+    query's scores by a constant) and rounding alone here, is measured
+    against its layer's key-projection weight gradient (the same dk rows,
+    summed against the inputs) instead of against itself."""
+    by_name = dict(zip(names, want))
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        if a is None and b is None:
+            continue
+        a, b = a.float(), b.float()
+        scale = b.norm()
+        if name.startswith("vision_tower.") and name.endswith("self_attn.k_proj.bias"):
+            scale = by_name[name[:-len("bias")] + "weight"].float().norm()
+        err = (a - b).norm()
+        if err == 0:
+            continue
+        worst = max(worst, (err / scale).item() if scale > 0 else float("inf"))
+    return worst
+
+
+def remat_phase(dev, teacher) -> dict:
+    """[remat]: the double-trouble phase-3 KD step (A=2 x B=1, the frozen
+    bf16 7B teacher, the 0.5B student at full width and depth, the SUNRGBD
+    frame in its 3072 bucket) with the student's remat off, ``full``,
+    ``dots``, ``flash`` and ``full`` with ``mlp_chunk=512``, each on a fresh
+    student from the same seed and the same batch: the loss and every
+    gradient leaf of one micro-batch against remat off (whether bit-equal,
+    and the relative Frobenius bound), exact launch counts (the student's
+    flash forwards twice under full and dots, once under flash), step ms
+    (host clock), device ms (one profiled step) and peak memory.  Then B=2,
+    the KD default of ``bench.py`` (A=1), with ``full`` and ``mlp_chunk``
+    and without remat: peak memory, samples/s, a finite and falling loss.
+    Then ``xla_chunked`` against ``xla`` at 2+2 layers on the plain path."""
+    scfg = llava_onevision_0_5b()
+    batch = synthetic_kd_batch(scfg, 1, seq_len=3072, orig_sizes=[(530, 730)], accum=ACCUM, seed=3)
+    tb = _device_batch(batch, dev, streams=("student_", "teacher_"))
+    micro = {k: v[0] for k, v in tb.items()}
+    cfg = TrainConfig(kd_mode="double_trouble", phase=3, loss=kd_loss_config_for("double_trouble"), ce_impl="fused")
+    v, t = scfg.vision.num_hidden_layers, scfg.text.num_hidden_layers
+    launches = dict.fromkeys(COUNTERS, 0)
+    ref, out = None, {}
+    for label, kw in REMAT_SETTINGS:
+        student = _fresh_student(dev, scfg, **kw)
+        loss_fn = make_loss_fn(KDModels(student, teacher), cfg)
+        names, leaves = zip(*student.named_parameters())
+        reset_counts()
+        loss, _ = loss_fn(micro)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        got = read_counts()
+        twice = kw.get("remat") and kw.get("remat_policy", "full") != "flash"
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(_kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1))
+        if twice:
+            want["flash_fwd_mha"] += v
+            want["flash_fwd_gqa"] += t
+        if got != want:
+            raise AssertionError(f"[remat] {label}: launches on one micro-batch {got} != {want}")
+        if ref is None:
+            ref = (loss.detach(), grads)
+            agree = "the reference"
+        else:
+            bit = loss.item() == ref[0].item() and all(torch.equal(a, b) for a, b in zip(grads, ref[1]))
+            rel = _leaf_errors(names, grads, ref[1])
+            lrel = abs(loss.item() - ref[0].item()) / abs(ref[0].item())
+            agree = (f"loss {loss.item():.6f} vs {ref[0].item():.6f} (rel {lrel:.2e}), worst leaf relative "
+                     f"Frobenius {rel:.2e}; bit-equal {bit}")
+            if lrel > LOSS_REL_TOL or rel > REL_FRO_TOL:
+                raise AssertionError(f"[remat] {label} disagrees with remat off: {agree}")
+        del loss, grads
+        losses, step_ms, device_ms, peak, step_launches = _remat_steps(dev, teacher, student, tb, REMAT_STEPS,
+                                                                       f"remat {label}")
+        want_steps = {k: n * ACCUM * REMAT_STEPS for k, n in want.items()}
+        if step_launches != want_steps:
+            raise AssertionError(f"[remat] {label}: launches over {REMAT_STEPS} steps {step_launches} != {want_steps}")
+        for k in launches:
+            launches[k] += step_launches[k]
+        flash_fwd = (step_launches["flash_fwd_mha"] // REMAT_STEPS, step_launches["flash_fwd_gqa"] // REMAT_STEPS)
+        log(f"[remat] {label}: {agree}; a step: K1 {flash_fwd[0]}, K3 {flash_fwd[1]} (with lse), exact; step "
+            f"{step_ms:.1f} ms (host, mean of steps {KD_WARMUP + 1}-{REMAT_STEPS}), device {device_ms:.1f} ms (one profiled "
+            f"step), {ACCUM / (step_ms / 1e3):.3f} samples/s; peak {peak / 2**30:.2f} GiB; losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}")
+        out[label] = dict(step_ms=step_ms, device_ms=device_ms, peak=peak)
+        del student, loss_fn, names, leaves
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+
+    b2 = synthetic_kd_batch(scfg, 2, seq_len=3072, orig_sizes=[(530, 730)] * 2, accum=1, seed=4)
+    tb2 = _device_batch(b2, dev, streams=("student_", "teacher_"))
+    for label, kw in (("B=2 full+mlp_chunk", dict(remat=True, mlp_chunk=512)), ("B=2 off", {})):
+        student = _fresh_student(dev, scfg, **kw)
+        losses, step_ms, device_ms, peak, step_launches = _remat_steps(dev, teacher, student, tb2, REMAT_B2_STEPS,
+                                                                       f"remat {label}")
+        for k in launches:
+            launches[k] += step_launches[k]
+        log(f"[remat] {label} (A=1, bench.py's KD default): step {step_ms:.1f} ms (host), device "
+            f"{device_ms:.1f} ms, {2 / (step_ms / 1e3):.3f} samples/s; peak {peak / 2**30:.2f} GiB; losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}")
+        out[label] = dict(step_ms=step_ms, device_ms=device_ms, peak=peak)
+        del student
+        torch.cuda.empty_cache()
+    del tb2
+
+    # xla_chunked against xla: the baseline loss and gradients at 2+2 layers, plain path
+    cut = _cut(scfg)
+    bcfg = TrainConfig(kd_mode="baseline", ce_impl="chunked", loss_chunk_size=256)
+    res = {}
+    for impl in ("xla", "xla_chunked"):
+        student = _fresh_student(dev, cut, attn_impl=impl)
+        loss, _ = make_loss_fn(KDModels(student, None), bcfg)(micro)
+        names, leaves = zip(*student.named_parameters())
+        res[impl] = (loss.item(), torch.autograd.grad(loss, leaves, allow_unused=True))
+        del student, loss
+    rel = _leaf_errors(names, *(r[1] for r in res.values()))
+    lrel = abs(res["xla"][0] - res["xla_chunked"][0]) / abs(res["xla"][0])
+    log(f"[remat] xla_chunked vs xla, baseline loss at 2+2 layers: {res['xla_chunked'][0]:.6f} vs "
+        f"{res['xla'][0]:.6f} (rel {lrel:.2e}); worst gradient leaf relative Frobenius {rel:.2e}")
+    if lrel > LOSS_REL_TOL or rel > REL_FRO_TOL:
+        raise AssertionError("[remat] xla_chunked disagrees with xla")
+    del res, tb
+    torch.cuda.empty_cache()
+    return dict(launches=launches, runs=out)
+
+
+# [mesh] (a): the KD CLI's rows of the synthetic tree (12 rows x 0.34: 4
+# train rows, 2 steps of A=2, and 4 validation rows).
+MESH_SUBSET = "0.34"
+MESH_ROWS_SEED = 23
+MESH_LOSS_TOL = 1e-4  # row-sharded sums vs one kernel call: f32 sums regrouped
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def mesh_cli_phase(dev) -> dict:
+    """[mesh] (a): the KD CLI (phase 3, the 7B teacher, the 0.5B student at
+    full width and depth, remat as the CLI builds them) with
+    ``--distributed --mesh 1,1,1`` under a one-rank NCCL group (the
+    environment torchrun would set, set here), on 4 train and 4 validation
+    rows of the synthetic tree; then the same CLI run without
+    ``--distributed`` at the same seed.  The distributed run's student is
+    FSDP2-sharded (every parameter a DTensor, its float32 masters the
+    sharded parameters), the kernels take local tensors (a DTensor reaching
+    a launcher raises), its launch counts are exact (per train micro-batch
+    the flash forwards of the student twice, remat; per validation
+    micro-batch the forwards and K11's forward), and its train and
+    validation losses are held to the plain run's."""
+    import re
+    import shutil
+
+    from torch.distributed.tensor import DTensor
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import train_online_kd
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import loop as kd_loop
+
+    root = _build.BUILD_DIR.parent / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    orig_train, orig_eval = kd_loop.make_train_step, kd_loop.make_eval_step
+    v, t = llava_onevision_0_5b().vision.num_hidden_layers, llava_onevision_0_5b().text.num_hidden_layers
+    per_train = _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1)
+    per_train["flash_fwd_mha"] += v
+    per_train["flash_fwd_gqa"] += t
+    per_val = {"flash_fwd_mha": 2 * v, "flash_fwd_gqa": t,
+               "flash_fwd_gqa_d128": llava_onevision_7b().text.num_hidden_layers, "fused_loca_ce_fwd": 1}
+    runs, launches = {}, dict.fromkeys(COUNTERS, 0)
+    for label in ("distributed", "plain"):
+        rec = dict(micro=0, val=[], losses=[], sharded=None)
+
+        def make_train(models, cfg, _rec=rec):
+            fn = orig_train(models, cfg)
+
+            def wrapped(state, tp, batch):
+                _rec["sharded"] = all(isinstance(p, DTensor) for p in state.model.parameters())
+                _rec["micro"] += batch["labels"].shape[0]
+                state, m = fn(state, tp, batch)
+                _rec["losses"].append(m["loss"].item())
+                return state, m
+
+            return wrapped
+
+        def make_eval(models, cfg, _rec=rec):
+            fn = orig_eval(models, cfg)
+
+            def wrapped(state, tp, batch):
+                m = fn(state, tp, batch)
+                _rec["val"].append(m["loss"].item())
+                return m
+
+            return wrapped
+
+        d = root / label
+        argv = ["--real_model", "--synthetic_data", "--root_data_dir", str(root / "data"), "--phase", "3",
+                "--batch_size", "1", "--accumulate_grad_batches", str(ACCUM), "--max_epochs", "1",
+                "--num_workers", "1", "--subset_percentage", MESH_SUBSET, "--checkpoint_dir", str(d / "ck"),
+                "--tensorboard_dir", str(d / "tb")]
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        if label == "distributed":
+            argv += ["--distributed", "--mesh", "1,1,1"]
+            os.environ.update(env)
+        kd_loop.make_train_step, kd_loop.make_eval_step = make_train, make_eval
+        try:
+            r = _run_cli(f"mesh-{label}", train_online_kd, argv)
+        finally:
+            kd_loop.make_train_step, kd_loop.make_eval_step = orig_train, orig_eval
+            for k in env:
+                os.environ.pop(k, None)
+        if torch.distributed.is_initialized():
+            raise AssertionError("[mesh] the CLI left its process group up")
+        want = {k: per_train.get(k, 0) * rec["micro"] + per_val.get(k, 0) * len(rec["val"]) for k in COUNTERS}
+        saved = re.findall(r"saved checkpoint (\S+)", r["log"])
+        log(f"[mesh] {label}: {rec['micro']} train and {len(rec['val'])} validation micro-batches, student "
+            f"sharded (FSDP2 DTensors): {rec['sharded']}; losses {rec['losses']}, validation {rec['val']}; "
+            f"{r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB; launches exact: {r['launches'] == want}; "
+            f"checkpoint {[os.path.basename(x) for x in saved]}")
+        if r["launches"] != want:
+            raise AssertionError(f"[mesh] {label} launches {r['launches']} != {want}")
+        if rec["sharded"] != (label == "distributed") or not rec["losses"] or len(saved) != 1:
+            raise AssertionError(f"[mesh] {label}: {r['log'][-2000:]}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+        runs[label] = dict(rec, wall=r["wall"], peak=r["peak"])
+    a, b = runs["distributed"], runs["plain"]
+    pairs = list(zip(a["losses"] + a["val"], b["losses"] + b["val"]))
+    worst = max(abs(x - y) / abs(y) for x, y in pairs)
+    log(f"[mesh] --distributed --mesh 1,1,1 vs the plain CLI: {len(pairs)} losses, worst rel diff {worst:.2e}; "
+        f"bit-equal {all(x == y for x, y in pairs)}")
+    if len(a["losses"]) != len(b["losses"]) or worst > LOSS_REL_TOL:
+        raise AssertionError(f"[mesh] the one-rank mesh run disagrees with the plain run: {pairs}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, runs=runs)
+
+
+MESH_LOSSES = ("K11 LoCa + CE", "K5/K6 CE", "K7/K8 KL", "K9 LoCa")
+
+
+def _mesh_rows_data(dev):
+    g = torch.Generator(device=dev).manual_seed(MESH_ROWS_SEED)
+    hs, ws, tmat, lab, lab_ce = _loca_inputs(dev, g, 3072, llava_onevision_0_5b().text.vocab_size, 896)
+    return hs, ws, tmat, lab, torch.where(lab_ce < 0, torch.full_like(lab_ce, -100), lab_ce)
+
+
+def _mesh_rows_loss(name, hs, ws, tmat, lab, lab_ce):
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import fused_spmd as fs
+
+    lc = kd_loss_config_for("double_trouble")
+    kw = dict(temperature=lc.temperature)
+    if name == "K11 LoCa + CE":
+        loca, ce = fs.fused_loca_ce_loss_spmd(hs, ws, tmat, lab, lab_ce, alpha=lc.loca_alpha, **kw)
+        return lc.gamma * (loca + ce) + (1.0 - lc.gamma) * ce
+    if name == "K5/K6 CE":
+        return fs.fused_ce_loss_spmd(hs, ws, lab_ce, w_layout="vd")
+    if name == "K7/K8 KL":
+        return fs.fused_kl_loss_spmd(hs, ws, tmat, **kw)
+    return fs.fused_loca_loss_spmd(hs, ws, tmat, lab, alpha=lc.loca_alpha, **kw)
+
+
+def _mesh_rows_worker(rank, world, port, out_dir):
+    """One of the ranks of [mesh] (b): a gloo group on the one card, each
+    rank on its half of the rows through the ``*_spmd`` wrappers; writes its
+    losses, dh and dW, and the K11 loss with its sums left out of the
+    all-reduce (the negative control)."""
+    import torch.distributed as dist
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import fused_spmd as fs
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel import (
+        MeshConfig,
+        make_mesh,
+        use_mesh,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=world, init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        _build.load_library()
+        dev = torch.device("cuda", 0)
+        mesh = make_mesh(MeshConfig(1, world, 1), "cpu")
+        hs, ws, tmat, lab, lab_ce = _mesh_rows_data(dev)
+        n = hs.shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        out = {}
+        reset_counts()
+        for name in MESH_LOSSES:
+            h = hs[rows].detach().clone().requires_grad_(True)
+            w = ws.detach().clone().requires_grad_(True)
+            with use_mesh(mesh):
+                loss = _mesh_rows_loss(name, h, w, tmat[rows], lab[rows], lab_ce[rows])
+            loss.backward()
+            out[name] = (loss.item(), h.grad.cpu(), w.grad.cpu())
+        launches = read_counts()
+        real = fs.all_reduce_sum
+
+        def drop_rank1(t, mesh_, axes=("data", "fsdp")):
+            if rank == 1:  # K11's sums (kl, ce), not its counts
+                t[:2].zero_()
+            return real(t, mesh_, axes)
+
+        fs.all_reduce_sum = drop_rank1
+        try:
+            with use_mesh(mesh), torch.no_grad():
+                dropped = _mesh_rows_loss(MESH_LOSSES[0], hs[rows], ws, tmat[rows], lab[rows], lab_ce[rows]).item()
+        finally:
+            fs.all_reduce_sum = real
+        torch.save(dict(out=out, dropped=dropped, launches=launches), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rows_phase(dev) -> dict:
+    """[mesh] (b): two processes in a gloo group share the card, each
+    running K11 forward and backward, K5/K6, K7/K8 and K9 through the
+    ``*_spmd`` wrappers (mesh (1, 2, 1)) on its half of the KD shape's rows
+    (N = 3072, the 152k vocab).  The losses of both ranks (the global ones,
+    from the all-reduced sums) and each rank's dh, row for row, are held to
+    one kernel call on all the rows in this process; the dW of the two
+    ranks, summed, to its dW; and a K11 loss with one rank's sums left out
+    of the all-reduce must fail the bound."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    out_dir = _build.BUILD_DIR.parent / "chip_smoke_mesh_rows"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = 2
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rows_worker, args=(world, _free_port(), str(out_dir)), nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    hs, ws, tmat, lab, lab_ce = _mesh_rows_data(dev)
+    n = hs.shape[0] // world
+    for name in MESH_LOSSES:
+        h = hs.detach().clone().requires_grad_(True)
+        w = ws.detach().clone().requires_grad_(True)
+        loss = _mesh_rows_loss(name, h, w, tmat, lab, lab_ce)  # no mesh: one kernel call on every row
+        loss.backward()
+        want = loss.item()
+        got = [r["out"][name][0] for r in ranks]
+        rel = max(abs(x - want) / abs(want) for x in got)
+        dh = torch.cat([r["out"][name][1] for r in ranks]).to(dev)
+        dw = sum(r["out"][name][2].to(dev).float() for r in ranks)
+        log(f"[mesh] {name}: two ranks {got[0]:.9e} / {got[1]:.9e}, one call {want:.9e} (rel {rel:.2e}); "
+            f"dh bit-equal row for row {torch.equal(dh, h.grad)}")
+        if rel > MESH_LOSS_TOL:
+            raise AssertionError(f"[mesh] {name}: the ranks' losses {got} disagree with one call's {want}")
+        _hold(f"mesh {name} dh (rows of both ranks) and summed dW", [
+            ("dh", dh, h.grad, _kd_bound(h.grad)), ("dW", dw, w.grad.float(), _kd_bound(w.grad))])
+        if name == MESH_LOSSES[0]:
+            bad = max(abs(r["dropped"] - want) / abs(want) for r in ranks)
+            log(f"[mesh] negative control, rank 1's LoCa and CE sums left out of K11's all-reduce: loss "
+                f"{ranks[0]['dropped']:.6e} vs {want:.6e} (rel {bad:.2e}) must fail the {MESH_LOSS_TOL:.0e} bound")
+            if bad <= MESH_LOSS_TOL:
+                raise AssertionError("[mesh] the bound does not see a rank's sums left out of the all-reduce")
+        del h, w, loss
+    per_rank = {k: v for k, v in ranks[0]["launches"].items() if v}
+    log(f"[mesh] each rank's launches: {per_rank}; the two processes {spawn_s:.1f} s")
+    want = dict(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1, fused_ce_fwd=1, fused_ce_bwd=1, fused_kl_fwd=1,
+                fused_kl_bwd=1, fused_kl_bwd_dw=1, fused_loca_fwd=1, fused_loca_bwd=1)
+    if any(r["launches"] != {**dict.fromkeys(COUNTERS, 0), **want} for r in ranks):
+        raise AssertionError(f"[mesh] rank launches {[r['launches'] for r in ranks]} != {want}")
+    del hs, ws, tmat
+    torch.cuda.empty_cache()
+    return dict(seconds=spawn_s)
+
+
 def main() -> int:
     import argparse
 
@@ -2711,17 +3169,25 @@ def main() -> int:
                 log(f"[build] {entry}: {line.strip()}")
 
     parent = None if args.parent is None else load_parent(args.parent)
+    t_main = time.perf_counter()
+
+    def mark(tag):
+        log(f"[time] {tag} done at {time.perf_counter() - t_main:.1f} s of the phases")
+
     kernels = kernel_phase(dev, parent) + k13_phase(dev, parent)
+    mark("kernels, k13")
     train = training_phase(dev)
     steps_parent = {}
     if parent is not None:
         steps_parent["train"] = steps_in_turns(parent, lambda tag: training_phase(dev, tag=tag), "train", train)
     agreement_phase(dev)
+    mark("train, agreement")
     serve = main_path_phase(dev)
     if parent is not None:
         with parent_kernels(parent):
             steps_parent["main"] = main_path_phase(dev, tag="main-parent")
     serve8 = main8_phase(dev)
+    mark("main, main8")
     teacher = _build_teacher(dev)
     kd = kd_training_phase(dev, teacher)
     if parent is not None:
@@ -2734,6 +3200,9 @@ def main() -> int:
     if parent is not None:
         steps_parent["kdfb"] = steps_in_turns(parent, lambda tag: feature_based_phase(dev, teacher, tag=tag), "kdfb",
                                               kdfb)
+    mark("kd, kdF, kd1, kdfb")
+    remat = remat_phase(dev, teacher)  # before [kd8] quantizes the teacher in place
+    mark("remat")
     kd8 = kd8_phase(dev, teacher)
     if parent is not None:
         steps_parent["kd8"] = steps_in_turns(parent, lambda tag: kd8_steps(dev, teacher, tag=tag), "kd8", kd8)
@@ -2743,13 +3212,20 @@ def main() -> int:
     kd_agreement_phase(dev, faithful=True)
     kd_agreement_phase(dev, int8=True)
     kd_phase1_agreement_phase(dev)
+    mark("kd8, agreements")
     tiny_cli_phase()
     evals = eval_phase(dev, parent)
+    mark("tiny, eval")
     created = create_phase(dev)
+    mark("create")
+    mesh = mesh_cli_phase(dev)
+    rows = mesh_rows_phase(dev)
+    mark("mesh")
     # launches: the driven paths, each counted from 0 around its own run
     # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs; the
-    # dataset creation's and its workflow's CLI runs)
-    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created)
+    # dataset creation's and its workflow's CLI runs; the remat settings'
+    # steps; the mesh CLI runs)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created, remat, mesh)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
@@ -2776,6 +3252,13 @@ def main() -> int:
         f"peak {evals['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: [create] dataset creation with the student color backend and the "
         f"create -> train 1/2/3 -> evaluate -> summary workflow {created['seconds']:.1f} s")
+    for label, r in remat["runs"].items():
+        samples = 2 if label.startswith("B=2") else ACCUM
+        log(f"[summary] {card}: [remat] {label}: step {r['step_ms']:.1f} ms (host), device {r['device_ms']:.1f} ms, "
+            f"{samples / (r['step_ms'] / 1e3):.3f} samples/s, peak {r['peak'] / 2**30:.2f} GiB")
+    for label, r in mesh["runs"].items():
+        log(f"[summary] {card}: [mesh] KD CLI {label}: {r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: [mesh] two ranks on the card, the row-sharded K5-K9 and K11: {rows['seconds']:.1f} s")
     log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "
         f"{kd8['teacher_ms']:.1f} ms int8")
     log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "

@@ -4,6 +4,14 @@ the tokenizer, the synthetic SUNRGBD and DAQUAR trees, device set-up, the
 attention and loss routes (``resolve_attn_impl``, ``resolve_ce_impl``),
 ``make_datasets``, ``init_or_load_params``, and the served model of the
 inference and evaluator CLIs (``add_serving_flags``, ``load_student``).
+
+Multi-GPU (the trainers): ``--distributed`` joins the process group that
+``torchrun`` describes in the environment (NCCL on CUDA, gloo with
+``--cpu``; :func:`init_distributed`), each rank on ``cuda:LOCAL_RANK``;
+``--mesh d,f,t`` shapes the ranks into the (data, fsdp, tensor) mesh
+(:func:`build_mesh`, as the JAX ``build_mesh``: all ranks on ``tensor``
+when the flag is absent).  A one-rank ``--distributed`` run takes the mesh
+paths too (FSDP2 over one rank).
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ from ..configs import (
 )
 from ..models.llava_onevision import LlavaOnevision, init_weights
 
-ATTN_IMPLS = ("xla", "flash")
+# --attn_impl: the JAX values ("pallas" is the port's kernels, "pallas_spmd"
+# the kernels on each rank's local shard under a mesh, "xla_chunked" the
+# query-chunked plain path) and "flash", the port's older name of "pallas".
+ATTN_IMPLS = ("xla", "pallas", "pallas_spmd", "xla_chunked", "flash")
 # --quant / --teacher_quant: "int8" quantizes the LM's decoder-block
 # projections, "int8_full" the SigLIP encoder's too (w8a8, ops/int8.py).
 QUANT_MODES = ("none", "int8", "int8_full")
@@ -233,8 +244,17 @@ def add_device_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--teacher_weights", type=str, default=None,
                    help="local HF snapshot dir for the 7B teacher")
     p.add_argument("--attn_impl", type=str, default=None, choices=ATTN_IMPLS,
-                   help="default: flash on CUDA, xla on the CPU")
+                   help="default: the kernels on CUDA (pallas_spmd under a multi-rank mesh), xla on the CPU")
     p.add_argument("--seed", type=int, default=0)
+
+
+def add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """The trainers' multi-GPU flags (the JAX ``--distributed`` and ``--mesh``)."""
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed process group torchrun describes (RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK): NCCL on CUDA, gloo with --cpu")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="data,fsdp,tensor (default: all ranks on tensor); needs --distributed")
 
 
 def add_serving_flags(p: argparse.ArgumentParser) -> None:
@@ -277,8 +297,9 @@ def load_student(args, cfg, device: torch.device) -> LlavaOnevision:
 
 
 def setup_device(args) -> torch.device:
-    """``cuda:0`` unless ``--cpu``.  Without a CUDA device and without
-    ``--cpu`` this raises: nothing carries on on the CPU in its place."""
+    """``cuda:0`` unless ``--cpu`` (``cuda:LOCAL_RANK`` with
+    ``--distributed``).  Without a CUDA device and without ``--cpu`` this
+    raises: nothing carries on on the CPU in its place."""
     if args.cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -287,7 +308,55 @@ def setup_device(args) -> torch.device:
     # cuDNN convolutions (the patch embed) default to TF32.  Set both.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda", 0)
+    index = int(os.environ.get("LOCAL_RANK", 0)) if getattr(args, "distributed", False) else 0
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+def init_distributed(args) -> None:
+    """With ``--distributed``: ``init_process_group`` from the environment
+    torchrun sets (NCCL on CUDA, gloo with ``--cpu``), unless a group is
+    already up.  Without it, a ``--mesh`` of more than one rank is refused."""
+    import torch.distributed as dist
+
+    if not getattr(args, "distributed", False):
+        if getattr(args, "mesh", None):
+            from ..parallel.mesh import parse_mesh
+
+            if parse_mesh(args.mesh).num_devices > 1:
+                raise SystemExit("--mesh over more than one rank needs --distributed (under torchrun)")
+        return
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if args.cpu else "nccl")
+
+
+def finish_distributed(args) -> None:
+    """Leave the process group :func:`init_distributed` joined."""
+    import torch.distributed as dist
+
+    if getattr(args, "distributed", False) and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def build_mesh(args):
+    """The (data, fsdp, tensor) mesh of a ``--distributed`` run (None
+    otherwise), as the JAX ``build_mesh``: ``--mesh`` if given, else
+    (1, 1, 1) on one rank and ``MeshConfig.for_devices(n)`` on n."""
+    if not getattr(args, "distributed", False):
+        return None
+    import torch.distributed as dist
+
+    from ..parallel import MeshConfig, make_mesh
+    from ..parallel.mesh import parse_mesh
+
+    n = dist.get_world_size()
+    if args.mesh:
+        mc = parse_mesh(args.mesh)
+    elif n == 1:
+        mc = MeshConfig(1, 1, 1)
+    else:
+        mc = MeshConfig.for_devices(n)
+    return make_mesh(mc, "cpu" if args.cpu else "cuda")
 
 
 def model_dtype(device: torch.device) -> torch.dtype:
@@ -301,14 +370,21 @@ def resolve_attn_impl(args, device: torch.device, cfg, trainable: bool = False) 
     """``--attn_impl`` if given, else the flash kernels on CUDA for a config
     whose head dims they take (the backward's too for a model that trains),
     and the plain path otherwise: on the CPU (as the JAX package picks
-    "pallas" on a TPU and "xla" on the CPU) and for the tiny configs."""
+    "pallas" on a TPU and "xla" on the CPU) and for the tiny configs.
+    Under a mesh of more than one rank the kernels are "pallas_spmd" (each
+    rank's local batch and heads), as the JAX function picks on TPUs."""
     if args.attn_impl:
         return args.attn_impl
     from ..ops.flash_attention import BWD_HEAD_DIMS, KERNEL_HEAD_DIMS
 
     dims = BWD_HEAD_DIMS if trainable else KERNEL_HEAD_DIMS
     taken = cfg.vision.head_dim in dims and cfg.text.head_dim in dims
-    return "flash" if device.type == "cuda" and taken else "xla"
+    if device.type != "cuda" or not taken:
+        return "xla"
+    import torch.distributed as dist
+
+    multi = getattr(args, "distributed", False) and dist.is_initialized() and dist.get_world_size() > 1
+    return "pallas_spmd" if multi else "flash"
 
 
 def resolve_ce_impl(device: torch.device, cfg) -> str:
@@ -331,6 +407,7 @@ def init_or_load_params(
     dtype: torch.dtype,
     trainable: bool = False,
     quant: str = "none",
+    remat: bool = False,
 ) -> LlavaOnevision:
     """Build the model on ``device`` in ``dtype``: weights from a local HF
     snapshot, or a seeded random init drawn tensor by tensor in float32 (so
@@ -339,15 +416,19 @@ def init_or_load_params(
     eval mode; ``True`` gives a model in train mode whose parameters require
     grad.  ``quant`` (``QUANT_MODES``, frozen models only) then quantizes
     the model in place on ``device``, one projection at a time, as the JAX
-    CLIs quantize the bf16 tree once after building it."""
+    CLIs quantize the bf16 tree once after building it.  ``remat``: each
+    layer recomputed in the backward (``models/remat.py``, the "full"
+    policy), as the JAX CLIs build both models at full width.  On the meta
+    device a model without a snapshot is built without weights (a
+    shape-only build)."""
     if quant not in QUANT_MODES or (quant != "none" and trainable):
         raise ValueError(f"quant must be one of {QUANT_MODES}, and 'none' for a trainable model; got {quant!r}")
-    model = LlavaOnevision(cfg, attn_impl=attn_impl, device=device, dtype=dtype)
+    model = LlavaOnevision(cfg, attn_impl=attn_impl, device=device, dtype=dtype, remat=remat)
     if weights_path:
         from ..models.convert import load_llava_onevision_params
 
         model.load_state_dict(load_llava_onevision_params(weights_path, cfg))
-    else:
+    elif torch.device(device).type != "meta":
         init_weights(model, seed)
     model.requires_grad_(trainable)
     if quant != "none":

@@ -6,8 +6,10 @@ to the reference's predictions CSV (columns Question_Id, Questions,
 Question_Type, Answers, Model_Answer; file
 ``results_kd_modeltypeL{pixel_data_type}_{gts_type}_{kd_model_type}{phase}.csv``),
 then the incremental summary (``summary/results_summary.csv``).  The JAX
-CLI's flags, but ``--mesh`` and its other multi-chip flags: this port runs
-on one card (``cuda:0``) unless ``--cpu`` is given.
+CLI's flags, but ``--mesh`` and its other multi-chip flags: the sharded
+generation of the JAX CLI is not ported yet (ROADMAP, queue 1), so the
+evaluator refuses ``--mesh`` and runs on one card (``cuda:0``) unless
+``--cpu`` is given.  The trainers take ``--mesh``.
 
 * ``--model_id`` naming a 7B model evaluates the 7B config (with
   ``--real_model`` or real data);

@@ -78,17 +78,30 @@ class LlavaOnevision(nn.Module):
     """``lm_quant`` / ``vision_quant`` ("none" or "int8"): w8a8 projections
     in the LM's decoder blocks / the SigLIP encoder; ``embed_quant``: the
     int8 token embedding and vocab-major head (untied LMs); the projector
-    stays float (the JAX ``LlavaOnevision`` fields of the same names)."""
+    stays float (the JAX ``LlavaOnevision`` fields of the same names).
+
+    ``remat`` recomputes the layers of both towers in the backward
+    (``remat_vision=False`` keeps the tower's activations), with
+    ``remat_policy`` for both (``models/remat.py``); ``mlp_chunk`` is the
+    LM's sequence-chunked MLP and ``remat_barrier`` a no-op kept for parity
+    (``models/qwen2.py``).  Passed down as in the JAX ``setup``.  A frozen
+    model runs under ``no_grad``, where its remat recomputes nothing."""
 
     def __init__(self, cfg: LlavaOnevisionConfig, attn_impl: str = "xla", device=None, dtype=None,
-                 lm_quant: str = "none", vision_quant: str = "none", embed_quant: str = "none"):
+                 lm_quant: str = "none", vision_quant: str = "none", embed_quant: str = "none",
+                 remat: bool = False, remat_vision: bool = True, remat_policy: str = "full",
+                 mlp_chunk: int = 0, remat_barrier: bool = False):
         super().__init__()
         self.cfg = cfg
         fk = dict(device=device, dtype=dtype)
-        self.vision_tower = SigLIPVisionTower(cfg.vision, attn_impl, vision_quant, **fk)
+        self.vision_tower = SigLIPVisionTower(cfg.vision, attn_impl, vision_quant, **fk,
+                                              remat=remat and remat_vision, remat_policy=remat_policy,
+                                              remat_barrier=remat_barrier)
         self.multi_modal_projector = MultiModalProjector(cfg, **fk)
         self.image_newline = nn.Parameter(torch.empty(cfg.text.hidden_size, **fk))
-        self.language_model = Qwen2LM(cfg.text, attn_impl, lm_quant, embed_quant, **fk)
+        self.language_model = Qwen2LM(cfg.text, attn_impl, lm_quant, embed_quant, **fk, remat=remat,
+                                      remat_policy=remat_policy, mlp_chunk=mlp_chunk,
+                                      remat_barrier=remat_barrier)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -179,7 +192,7 @@ class LlavaOnevision(nn.Module):
 
 
 def set_attn_impl(model: nn.Module, impl: str) -> None:
-    """Switch every attention module of ``model`` to ``impl`` ("xla"/"flash")."""
+    """Switch every attention module of ``model`` to ``impl`` (``ops/attention.py::IMPLS``)."""
     for m in model.modules():
         if hasattr(m, "attn_impl"):
             m.attn_impl = impl

@@ -7,7 +7,21 @@ cache serves autoregressive decoding.
 Unlike the JAX package's functional cache update, the KV cache here is a
 list of preallocated per-layer ``{"k", "v"}`` tensors of shape
 [B, total, Hkv, D], written in place; the returned caches are the same
-tensors.  (Remat and the sequence-chunked MLP are not ported yet.)
+tensors.
+
+Memory levers of the trained student (the JAX fields of the same names):
+``Qwen2LM(remat, remat_policy)`` recomputes each decoder layer in the
+backward (``models/remat.py``: ``full``, ``dots`` or ``flash``);
+``mlp_chunk`` runs the MLP in sequence chunks, each under its own
+checkpoint, so the backward holds one chunk's [chunk, intermediate]
+gate/up pair (``Qwen2MLP.seq_chunk``).  ``remat_barrier`` is kept for
+parity and changes nothing: it is the JAX ``prevent_cse``, which stops XLA
+from merging a recompute with its forward twin; eager PyTorch merges
+nothing, so a checkpoint here always recomputes.
+
+The attention reads its head counts from the projections' local widths,
+not from the config, so a block whose projections are split over a
+tensor-parallel group (``parallel/sharding.py``) runs its local heads.
 
 ``quant="int8"`` builds the block projections as :class:`QLinear` (w8a8,
 the JAX ``QDense``) and ``embed_quant="int8"`` the token embedding as
@@ -27,8 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import Qwen2Config
-from ..ops.attention import dot_product_attention, gqa_decode_attention
+from ..ops.attention import FLASH_IMPLS, dot_product_attention, gqa_decode_attention
 from ..ops.int8 import absmax_quantize_weight, int8_matmul, quantize_embedding_int8
+from .remat import check_policy, needs_remat, remat_call
 
 
 class RMSNorm(nn.Module):
@@ -165,12 +180,12 @@ class Qwen2Attention(nn.Module):
         self.o_proj = lin(cfg.num_attention_heads * hd, cfg.hidden_size, bias=False, **fk)
 
     def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
-        c = self.cfg
         b, s, _ = x.shape
-        hd = c.head_dim
-        q = apply_rope(self.q_proj(x).view(b, s, c.num_attention_heads, hd), cos, sin)
-        k = apply_rope(self.k_proj(x).view(b, s, c.num_key_value_heads, hd), cos, sin)
-        v = self.v_proj(x).view(b, s, c.num_key_value_heads, hd)
+        hd = self.cfg.head_dim
+        # local head counts: a tensor-parallel rank holds some of the heads
+        q = apply_rope(self.q_proj(x).view(b, s, -1, hd), cos, sin)
+        k = apply_rope(self.k_proj(x).view(b, s, -1, hd), cos, sin)
+        v = self.v_proj(x).view(b, s, -1, hd)
 
         new_cache = None
         if cache is not None:
@@ -180,14 +195,14 @@ class Qwen2Attention(nn.Module):
             write_cache(cv, v, index)
             k, v = ck, cv
             new_cache = cache
-            if s >= 128 and self.attn_impl == "flash" and mask is not None:
+            if s >= 128 and self.attn_impl in FLASH_IMPLS and mask is not None:
                 # One-shot prefill into a fresh cache (the Generator always
                 # prefills at cache index 0): the decode-mask rows are
                 # causal AND kv-padding, so flash re-derives causality
                 # (top-left aligned) and takes the kv padding from the most
                 # permissive row, the last.
                 out = dot_product_attention(
-                    q, k, v, mask=mask[:, :, -1:, :], causal=True, impl="flash"
+                    q, k, v, mask=mask[:, :, -1:, :], causal=True, impl=self.attn_impl
                 )
             else:
                 if s > 1:
@@ -206,32 +221,49 @@ class Qwen2Attention(nn.Module):
             impl = self.attn_impl if s >= 128 else "xla"
             out = dot_product_attention(q, k, v, mask=mask, causal=True, impl=impl)
 
-        out = self.o_proj(out.reshape(b, s, c.num_attention_heads * hd))
+        out = self.o_proj(out.reshape(b, s, -1))
         return out, new_cache
 
 
 class Qwen2MLP(nn.Module):
-    def __init__(self, cfg: Qwen2Config, quant: str = "none", device=None, dtype=None):
+    """SwiGLU MLP.  ``seq_chunk`` > 0 (the JAX ``Qwen2MLP.seq_chunk``): when
+    S > seq_chunk and S % seq_chunk == 0, the MLP runs chunk by chunk along
+    the sequence, each chunk under its own checkpoint when autograd needs
+    it, so the backward holds one chunk's [chunk, intermediate] gate/up
+    pair instead of the whole sequence's."""
+
+    def __init__(self, cfg: Qwen2Config, quant: str = "none", seq_chunk: int = 0, device=None,
+                 dtype=None):
         super().__init__()
         fk = dict(bias=False, device=device, dtype=dtype)
         lin = linear_cls(quant)
+        self.seq_chunk = seq_chunk
         self.gate_proj = lin(cfg.hidden_size, cfg.intermediate_size, **fk)
         self.up_proj = lin(cfg.hidden_size, cfg.intermediate_size, **fk)
         self.down_proj = lin(cfg.intermediate_size, cfg.hidden_size, **fk)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _ff(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ck = self.seq_chunk
+        s = x.shape[1] if x.ndim == 3 else 0
+        if not (ck and s > ck and s % ck == 0):
+            return self._ff(x)
+        remat = needs_remat(x, *self.parameters())
+        parts = [x[:, i:i + ck] for i in range(0, s, ck)]
+        return torch.cat([remat_call(self._ff, "full", p) if remat else self._ff(p) for p in parts], dim=1)
 
 
 class Qwen2Layer(nn.Module):
-    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none", device=None,
-                 dtype=None):
+    def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none", mlp_chunk: int = 0,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
         self.self_attn = Qwen2Attention(cfg, attn_impl, quant, **fk)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
-        self.mlp = Qwen2MLP(cfg, quant, **fk)
+        self.mlp = Qwen2MLP(cfg, quant, mlp_chunk, **fk)
 
     def forward(self, x, cos, sin, mask, cache=None, cache_index=None):
         h, new_cache = self.self_attn(self.input_layernorm(x), cos, sin, mask, cache, cache_index)
@@ -246,12 +278,17 @@ class Qwen2LM(nn.Module):
     Returns (logits, new_caches); new_caches is None unless caches were given.
     ``quant="int8"``: w8a8 block projections; ``embed_quant="int8"``: the
     int8 token embedding and int8 vocab-major head (untied models only).
+    ``remat``, ``remat_policy``, ``mlp_chunk``, ``remat_barrier``: the
+    memory levers of the module docstring, with the JAX defaults.
     """
 
     def __init__(self, cfg: Qwen2Config, attn_impl: str = "xla", quant: str = "none",
-                 embed_quant: str = "none", device=None, dtype=None):
+                 embed_quant: str = "none", device=None, dtype=None, remat: bool = False,
+                 remat_policy: str = "full", mlp_chunk: int = 0, remat_barrier: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat, self.remat_policy = remat, check_policy(remat_policy)
+        self.mlp_chunk, self.remat_barrier = mlp_chunk, remat_barrier
         fk = dict(device=device, dtype=dtype)
         if embed_quant == "int8" and cfg.tie_word_embeddings:
             raise ValueError("embed_quant='int8' is for untied (frozen-teacher) models: "
@@ -260,7 +297,7 @@ class Qwen2LM(nn.Module):
         self.embed_tokens = (QEmbedding if embed_quant == "int8" else nn.Embedding)(
             cfg.vocab_size, cfg.hidden_size, **fk)
         self.layers = nn.ModuleList(
-            Qwen2Layer(cfg, attn_impl, quant, **fk) for _ in range(cfg.num_hidden_layers)
+            Qwen2Layer(cfg, attn_impl, quant, mlp_chunk, **fk) for _ in range(cfg.num_hidden_layers)
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
         if not cfg.tie_word_embeddings:
@@ -302,8 +339,12 @@ class Qwen2LM(nn.Module):
             mask = attention_mask[:, None, None, :].to(torch.bool)
 
         new_caches = [] if caches is not None else None
+        remat = self.remat and caches is None and needs_remat(x, *self.parameters())
         for i, layer in enumerate(self.layers):
-            x, nc = layer(x, cos, sin, mask, None if caches is None else caches[i], cache_index)
+            if remat:
+                x, nc = remat_call(layer, self.remat_policy, x, cos, sin, mask)
+            else:
+                x, nc = layer(x, cos, sin, mask, None if caches is None else caches[i], cache_index)
             if caches is not None:
                 new_caches.append(nc)
 

@@ -6,6 +6,10 @@ The tower returns ``(last_hidden, post_ln)``, both [N, T, D]: the projector
 reads the first, feature KD the second.  ``quant="int8"`` builds the
 attention and MLP projections as w8a8 ``QLinear`` (the JAX
 ``vision_quant``); the patch conv, norms and position embedding stay float.
+``remat``, ``remat_policy`` and ``remat_barrier`` recompute each encoder
+layer in the backward, as ``models/qwen2.py`` describes.  The attention
+takes its head count from the projections' local width (tensor
+parallelism).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch import nn
 from ..configs import SigLIPVisionConfig
 from ..ops.attention import dot_product_attention
 from .qwen2 import linear_cls
+from .remat import check_policy, needs_remat, remat_call
 
 
 class SigLIPAttention(nn.Module):
@@ -36,14 +41,13 @@ class SigLIPAttention(nn.Module):
         self.out_proj = lin(d, d, **fk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.cfg
         b, s, _ = x.shape
-        shape = (b, s, c.num_attention_heads, c.head_dim)
+        shape = (b, s, -1, self.cfg.head_dim)
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
         out = dot_product_attention(q, k, v, impl=self.attn_impl)
-        return self.out_proj(out.reshape(b, s, c.hidden_size))
+        return self.out_proj(out.reshape(b, s, -1))
 
 
 class SigLIPMLP(nn.Module):
@@ -77,9 +81,10 @@ class SigLIPVisionTower(nn.Module):
     """Returns (last_layer_hidden, post_layernorm_hidden), both [N, T, D]."""
 
     def __init__(self, cfg: SigLIPVisionConfig, attn_impl: str = "xla", quant: str = "none", device=None,
-                 dtype=None):
+                 dtype=None, remat: bool = False, remat_policy: str = "full", remat_barrier: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat, self.remat_policy, self.remat_barrier = remat, check_policy(remat_policy), remat_barrier
         fk = dict(device=device, dtype=dtype)
         self.patch_embedding = nn.Conv2d(
             3, cfg.hidden_size, kernel_size=cfg.patch_size, stride=cfg.patch_size, **fk
@@ -98,6 +103,7 @@ class SigLIPVisionTower(nn.Module):
         x = self.patch_embedding(pixel_values.to(w.dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)  # [N, T, D], row-major patch order
         x = x + self.position_embedding[None]
+        remat = self.remat and needs_remat(x, *self.parameters())
         for layer in self.layers:
-            x = layer(x)
+            x = remat_call(layer, self.remat_policy, x) if remat else layer(x)
         return x, self.post_layernorm(x)

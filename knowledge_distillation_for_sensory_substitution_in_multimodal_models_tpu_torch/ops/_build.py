@@ -148,7 +148,23 @@ def load_library() -> ctypes.CDLL:
 
 
 def _ptr(t):
-    return None if t is None else t.data_ptr()
+    """The device address of ``t`` (None for None).  A DTensor is refused:
+    its ``data_ptr`` is not the address of the shard a kernel should read,
+    so a caller under a mesh hands each kernel ``.to_local()`` tensors."""
+    if t is None:
+        return None
+    if is_dtensor(t):
+        raise TypeError("a kernel takes local tensors: pass DTensor.to_local(), not the DTensor")
+    return t.data_ptr()
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed`` DTensor."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:  # a torch built without distributed
+        return False
+    return isinstance(t, DTensor)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -164,7 +180,7 @@ def _launch(name: str, device, *args) -> None:
 
 def _aligned(*ts) -> None:
     for t in ts:
-        if t is not None and t.data_ptr() % 16:
+        if t is not None and _ptr(t) % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
 
 
@@ -179,8 +195,8 @@ def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _aligned(q, k, v, out)
-    _launch("kdss_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kv_mask_u8), out.data_ptr(), _ptr(lse), _tile_counter(q.device).data_ptr(),
+    _launch("kdss_flash_fwd", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(kv_mask_u8), _ptr(out), _ptr(lse), _ptr(_tile_counter(q.device)),
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
@@ -190,8 +206,8 @@ def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
     mask; ``shift`` f32 [1] on the card (the streaming_smem arm's c) or None."""
     b, s, hq, d = q.shape
     _aligned(q, k, v, out)
-    _launch("kdss_flash_phase_ablation", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), _tile_counter(q.device).data_ptr(), _ptr(shift), b, s, hq, k.shape[2], d,
+    _launch("kdss_flash_phase_ablation", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(out), _ptr(_tile_counter(q.device)), _ptr(shift), b, s, hq, k.shape[2], d,
             int(arm), float(scale))
 
 
@@ -203,9 +219,9 @@ def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     _aligned(q, k, v, dout, dq, dk, dv, part)
-    _launch("kdss_flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kv_mask_u8), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(part),
+    _launch("kdss_flash_bwd", q.device, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(kv_mask_u8), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(part),
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
@@ -215,8 +231,8 @@ def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
     sweep) are combined into ``lse`` and ``gold``."""
     n, dm = h.shape
     _aligned(h, w)
-    _launch("kdss_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-            lse_part.data_ptr(), gold_part.data_ptr(), lse.data_ptr(), gold.data_ptr(),
+    _launch("kdss_ce_fwd", h.device, _ptr(h), _ptr(w), _ptr(labels),
+            _ptr(lse_part), _ptr(gold_part), _ptr(lse), _ptr(gold),
             n, w.shape[0], dm, lse_part.shape[0])
 
 
@@ -226,9 +242,9 @@ def ce_bwd(h, w, labels, lse, g_lse, g_gold, ds, dh_part, dh, dw, nsplit_ds: int
     through the f32 partials ``dh_part`` [nsplit_dh, N, DM], and dW."""
     n, dm = h.shape
     _aligned(h, w, ds, dh, dw)
-    _launch("kdss_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), g_lse.data_ptr(), g_gold.data_ptr(), ds.data_ptr(), dh_part.data_ptr(),
-            dh.data_ptr(), dw.data_ptr(), n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0])
+    _launch("kdss_ce_bwd", h.device, _ptr(h), _ptr(w), _ptr(labels),
+            _ptr(lse), _ptr(g_lse), _ptr(g_gold), _ptr(ds), _ptr(dh_part),
+            _ptr(dh), _ptr(dw), n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0])
 
 
 def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, log_eps) -> None:
@@ -236,9 +252,9 @@ def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, l
     teacher-logit matrix."""
     n, dm = h.shape
     _aligned(h, w, tmat)
-    _launch("kdss_loca_ce_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
-            lab.data_ptr(), lab_ce.data_ptr(), part.data_ptr(), rowstats.data_ptr(),
-            kl.data_ptr(), ce.data_ptr(), n, w.shape[0], dm, part.shape[1],
+    _launch("kdss_loca_ce_fwd", h.device, _ptr(h), _ptr(w), _ptr(tmat),
+            _ptr(lab), _ptr(lab_ce), _ptr(part), _ptr(rowstats),
+            _ptr(kl), _ptr(ce), n, w.shape[0], dm, part.shape[1],
             float(inv_t), float(alpha), float(log_eps))
 
 
@@ -249,9 +265,9 @@ def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, ds, dh_part, dh, 
     partials ``dh_part`` [nsplit_dh, N, DM], and dW."""
     n, dm = h.shape
     _aligned(h, w, tmat, ds, dh, dw)
-    _launch("kdss_loca_ce_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(),
-            lab.data_ptr(), lab_ce.data_ptr(), rowstats.data_ptr(), g_kl.data_ptr(),
-            g_ce.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), n,
+    _launch("kdss_loca_ce_bwd", h.device, _ptr(h), _ptr(w), _ptr(tmat),
+            _ptr(lab), _ptr(lab_ce), _ptr(rowstats), _ptr(g_kl),
+            _ptr(g_ce), _ptr(ds), _ptr(dh_part), _ptr(dh), _ptr(dw), n,
             w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t), float(log_eps))
 
 
@@ -260,8 +276,8 @@ def loca_fwd(h, w, tmat, lab, part, rowstats, kl, inv_t, alpha, log_eps) -> None
     teacher-logit matrix."""
     n, dm = h.shape
     _aligned(h, w, tmat)
-    _launch("kdss_loca_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
-            part.data_ptr(), rowstats.data_ptr(), kl.data_ptr(), n, w.shape[0], dm, part.shape[1],
+    _launch("kdss_loca_fwd", h.device, _ptr(h), _ptr(w), _ptr(tmat), _ptr(lab),
+            _ptr(part), _ptr(rowstats), _ptr(kl), n, w.shape[0], dm, part.shape[1],
             float(inv_t), float(alpha), float(log_eps))
 
 
@@ -270,8 +286,8 @@ def loca_bwd(h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw, nsplit_ds: int, 
     ``dw`` is None."""
     n, dm = h.shape
     _aligned(h, w, tmat, ds, dh, dw)
-    _launch("kdss_loca_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lab.data_ptr(),
-            rowstats.data_ptr(), g.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw),
+    _launch("kdss_loca_bwd", h.device, _ptr(h), _ptr(w), _ptr(tmat), _ptr(lab),
+            _ptr(rowstats), _ptr(g), _ptr(ds), _ptr(dh_part), _ptr(dh), _ptr(dw),
             n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t),
             float(log_eps))
 
@@ -283,8 +299,8 @@ def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
     ``lse_s`` and ``lse_t``."""
     n, dm = h.shape
     _aligned(h, w, tmat)
-    _launch("kdss_kl_fwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), part.data_ptr(),
-            kl.data_ptr(), lse_s.data_ptr(), lse_t.data_ptr(), n, w.shape[0], dm, part.shape[1],
+    _launch("kdss_kl_fwd", h.device, _ptr(h), _ptr(w), _ptr(tmat), _ptr(part),
+            _ptr(kl), _ptr(lse_s), _ptr(lse_t), n, w.shape[0], dm, part.shape[1],
             float(inv_t))
 
 
@@ -293,8 +309,8 @@ def kl_bwd(h, w, tmat, lse_s, lse_t, g, ds, dh_part, dh, dw, nsplit_ds: int, inv
     teacher-logit matrix at 1/T, dW unless ``dw`` is None."""
     n, dm = h.shape
     _aligned(h, w, tmat, ds, dh, dw)
-    _launch("kdss_kl_bwd", h.device, h.data_ptr(), w.data_ptr(), tmat.data_ptr(), lse_s.data_ptr(),
-            lse_t.data_ptr(), g.data_ptr(), ds.data_ptr(), dh_part.data_ptr(), dh.data_ptr(), _ptr(dw), n,
+    _launch("kdss_kl_bwd", h.device, _ptr(h), _ptr(w), _ptr(tmat), _ptr(lse_s),
+            _ptr(lse_t), _ptr(g), _ptr(ds), _ptr(dh_part), _ptr(dh), _ptr(dw), n,
             w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t))
 
 
@@ -303,7 +319,7 @@ def int8_quantize(x, xq, xs, k_block: int, xla_form: bool) -> None:
     row's K block, xs [N, ceil(K / k_block)]."""
     n, k = x.shape
     _aligned(x, xq)
-    _launch("kdss_int8_quantize", x.device, x.data_ptr(), xq.data_ptr(), xs.data_ptr(), n, k,
+    _launch("kdss_int8_quantize", x.device, _ptr(x), _ptr(xq), _ptr(xs), n, k,
             int(k_block), int(xla_form))
 
 
@@ -312,8 +328,8 @@ def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
     weight [M, K] and its f32 per-channel scale [M]."""
     n, k = xq.shape
     _aligned(xq, wq, out)
-    _launch("kdss_int8_gemm", xq.device, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
+    _launch("kdss_int8_gemm", xq.device, _ptr(xq), _ptr(xs), _ptr(wq), _ptr(ws),
+            _ptr(out), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
 
 
 def tmat_int8(hp, wq, ws, out, inv_t: float) -> None:
@@ -322,5 +338,5 @@ def tmat_int8(hp, wq, ws, out, inv_t: float) -> None:
     rows of the vocab-major int8 head wq [V, D] with their scales ws."""
     n, dp = hp.shape
     _aligned(hp, wq, out)
-    _launch("kdss_tmat_int8", hp.device, hp.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+    _launch("kdss_tmat_int8", hp.device, _ptr(hp), _ptr(wq), _ptr(ws), _ptr(out),
             n, out.shape[1], wq.shape[1], dp, float(inv_t))

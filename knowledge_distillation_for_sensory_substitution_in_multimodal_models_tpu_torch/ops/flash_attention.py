@@ -43,6 +43,14 @@ Conventions the kernel and the plain versions share:
   scalar-shift "bound" mode, its NaN poison, the D -> 128 padding and the
   packed-pair layout are TPU scheduling choices and are not carried over.
 
+Remat: under the ``flash`` policy of ``models/remat.py`` a
+:class:`FlashSaveCache` is active while a layer runs.  The first pass keeps
+each forward's ``out`` and ``lse`` there; the recompute in the backward
+takes them back instead of running the forward again (on a CPU tensor the
+plain forward then runs through the same ``torch.autograd.Function``, its
+backward the plain :func:`flash_attention_bwd_ref`).  ``flash_attention_ref``
+counts its calls in ``flash_attention_ref.calls``.
+
 Each wrapper carries ``launches``, a plain integer count of kernel launches
 (CPU calls never count), and ``head_dim_launches``, the same count split by
 head dim (the GQA forward runs at D = 64 for the student and D = 128 for the
@@ -53,6 +61,7 @@ counts on ``flash_attention_gqa_bwd``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -112,13 +121,14 @@ def bwd_workspace_shape(q_shape, k_shape):
 
 
 def _kv_mask(mask: Optional[torch.Tensor], b: int, skv: int) -> Optional[torch.Tensor]:
-    """[B, Skv] / [B, 1, 1, Skv] kv-padding mask -> bool [B, Skv] (or None)."""
+    """[B, Skv] / [B, 1, 1, Skv] kv-padding mask -> bool [B, Skv] (or None);
+    also the mask of ``ops/attention.py``'s ``xla_chunked`` arm."""
     if mask is None:
         return None
     if mask.ndim == 4:
         if mask.shape[1] != 1 or mask.shape[2] != 1:
             raise ValueError(
-                "flash attention supports kv-padding masks only; got shape "
+                "flash and chunked attention take kv-padding masks only; got shape "
                 f"{tuple(mask.shape)}"
             )
         mask = mask[:, 0, 0, :]
@@ -154,6 +164,7 @@ def flash_attention_ref(
     ``return_lse`` also the f32 row logsumexp [B, Hq, Sq] of the scaled
     scores (-inf for a row with no valid key), as the kernel writes it.
     """
+    flash_attention_ref.calls += 1
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -257,18 +268,60 @@ def kernel_args(q, k, v, kv_mask, head_dims=KERNEL_HEAD_DIMS):
     return kv_mask
 
 
+class FlashSaveCache:
+    """What the ``flash`` remat policy keeps of one layer's first pass: the
+    ``(out, lse)`` of each flash forward, in call order.  While the cache is
+    active (:func:`save_flash_outputs`), the first pass appends to it; once
+    ``replay`` is set, the recompute takes the same forwards' results back
+    in the same order and launches nothing."""
+
+    def __init__(self):
+        self.saved = []
+        self.replay = False
+
+    def keep(self, out: torch.Tensor, lse: torch.Tensor) -> None:
+        self.saved.append((out.detach(), lse))
+
+    def take(self):
+        if not self.saved:
+            raise RuntimeError("the recompute ran more flash forwards than the first pass")
+        return self.saved.pop(0)
+
+
+_ACTIVE_CACHE = [None]
+
+
+@contextlib.contextmanager
+def save_flash_outputs(cache: FlashSaveCache):
+    """Make ``cache`` the one the flash forwards keep to (or take from)."""
+    prev, _ACTIVE_CACHE[0] = _ACTIVE_CACHE[0], cache
+    try:
+        yield cache
+    finally:
+        _ACTIVE_CACHE[0] = prev
+
+
 class _FlashFn(torch.autograd.Function):
-    """Kernel forward that saves the lse, kernel backward (CUDA only)."""
+    """Forward that saves the lse (the kernel on CUDA; the plain version on
+    the CPU, only under a :class:`FlashSaveCache`), backward from it; under
+    a replaying cache the forward's results come from the cache."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner):
-        from ._build import flash_fwd
+    def forward(ctx, q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner, cache):
+        if cache is not None and cache.replay:
+            out, lse = cache.take()
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_ref(q, k, v, kv_mask, causal, scale, return_lse=True)
+        else:
+            from ._build import flash_fwd
 
-        b, sq, hq, _ = q.shape
-        out = torch.empty_like(q)
-        lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
-        flash_fwd(q, k, v, mask_u8, out, lse, causal, scale)
-        _count(fwd_owner, q.shape[3])
+            b, sq, hq, _ = q.shape
+            out = torch.empty_like(q)
+            lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+            flash_fwd(q, k, v, mask_u8, out, lse, causal, scale)
+            _count(fwd_owner, q.shape[3])
+        if cache is not None and not cache.replay:
+            cache.keep(out, lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kv_mask, ctx.causal, ctx.scale, ctx.bwd_owner = kv_mask, causal, scale, bwd_owner
         return out
@@ -279,7 +332,7 @@ class _FlashFn(torch.autograd.Function):
         delta = attention_delta(out, dout)
         dq, dk, dv = ctx.bwd_owner(q, k, v, dout.contiguous(), lse, delta,
                                    mask=ctx.kv_mask, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _dispatch(q, k, v, mask, causal, scale, fwd_owner, bwd_owner):
@@ -287,15 +340,19 @@ def _dispatch(q, k, v, mask, causal, scale, fwd_owner, bwd_owner):
     b, _, _, d = q.shape
     scale = d**-0.5 if scale is None else float(scale)
     kv_mask = _kv_mask(mask, b, k.shape[1])
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    cache = _ACTIVE_CACHE[0] if grad else None
     if q.device.type == "cpu":
+        if cache is not None:
+            return _FlashFn.apply(q, k, v, kv_mask, None, causal, scale, fwd_owner, bwd_owner, cache)
         return flash_attention_ref(q, k, v, kv_mask, causal, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask_u8 = kernel_args(q, k, v, kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if grad:
         kernel_args(q, k, v, kv_mask, BWD_HEAD_DIMS)  # the backward must exist
-        return _FlashFn.apply(q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner)
+        return _FlashFn.apply(q, k, v, kv_mask, mask_u8, causal, scale, fwd_owner, bwd_owner, cache)
     from ._build import flash_fwd
 
     out = torch.empty_like(q)
@@ -391,6 +448,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
         fn.head_dim_launches = {}
+    flash_attention_ref.calls = 0
 
 
 reset_launch_counts()

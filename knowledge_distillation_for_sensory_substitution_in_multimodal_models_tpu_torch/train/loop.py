@@ -8,6 +8,14 @@ Scalar names match the reference's Lightning logs (``train_loss``,
 back once per val epoch.  With ``profile_dir``, steps 2-4 are traced by
 ``torch.profiler`` (the host and, for a model on CUDA, the card) into
 ``<profile_dir>/trace_steps2-4.json``, the steps the JAX loop traces.
+
+Under an active mesh (``parallel/mesh.py::use_mesh``) every rank runs the
+loop: ``shard_batch_fn`` takes each rank's rows of the host batch (the JAX
+loop's argument of the same name), the step's metrics are already global
+(``train/step.py``), a SIGTERM on any rank stops every rank at the same
+step, the checkpoint is gathered whole to rank 0
+(``checkpoint.py::gather_full_state``), and rank 0 alone prints, writes
+TensorBoard scalars, traces and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -18,9 +26,11 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs import TrainConfig
-from .checkpoint import CheckpointManager
+from ..parallel.mesh import active_mesh, is_rank0
+from .checkpoint import CheckpointManager, gather_full_state
 from .step import KDModels, TrainState, make_eval_step, make_train_step
 
 
@@ -46,9 +56,32 @@ class TBWriter:
             self._w.close()
 
 
-def checkpoint_state(state: TrainState) -> dict:
+def checkpoint_state(state: TrainState) -> Optional[dict]:
+    """What a checkpoint holds; under a mesh the whole state gathered to
+    rank 0 (every rank calls; the others get None)."""
+    if active_mesh() is not None:
+        return gather_full_state(state, state.compute_dtype)
     return {"params": state.model.state_dict(), "opt_state": state.optimizer.state_dict(),
             "step": state.step}
+
+
+def _any_rank(flag: bool) -> bool:
+    """``flag`` or'd over every rank (one small all-reduce under a mesh)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=mesh.device_type)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _rank0_decides(value: bool) -> bool:
+    """Rank 0's ``value`` on every rank (a broadcast under a mesh)."""
+    if active_mesh() is None:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def load_checkpoint_state(state: TrainState, saved: dict) -> TrainState:
@@ -95,13 +128,22 @@ def run_training(
     run_name: str = "run",
     log_every: int = 10,
     profile_dir: Optional[str] = None,
+    shard_batch_fn: Optional[Callable] = None,
 ) -> TrainState:
     """Epoch loop; returns the final state.  ``put(numpy_batch) -> tensors``
-    moves a host batch to the model's device."""
+    moves a host batch to the model's device; ``shard_batch_fn`` (under a
+    mesh) first takes this rank's rows of it."""
     train_step = make_train_step(models, cfg)
     eval_step = make_eval_step(models, cfg)
-    tb = TBWriter(tb_logdir, run_name)
+    rank0 = is_rank0()
+    tb = TBWriter(tb_logdir if rank0 else None, run_name)
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    profile_dir = profile_dir if rank0 else None
+    if shard_batch_fn is not None:
+        put_host = put
+
+        def put(b):
+            return put_host(shard_batch_fn(b))
 
     preempted = {"flag": False}
     prof = None
@@ -129,7 +171,7 @@ def run_training(
                     _stop_profile(prof, state.model, profile_dir)
                     prof = None
                 n_samples += a * b
-                if step_i % log_every == 0:
+                if step_i % log_every == 0 and rank0:
                     loss = float(metrics["loss"])
                     tb.scalar("train_loss", loss, step_i)
                     for k, v in metrics.items():
@@ -138,10 +180,12 @@ def run_training(
                     rate = n_samples / max(time.time() - t_epoch, 1e-9)
                     print(f"epoch {epoch} step {step_i} loss {loss:.4f} ({rate:.2f} samples/s)",
                           flush=True)
-                if preempted["flag"]:
+                if _any_rank(preempted["flag"]):
                     if ckpt is not None:
-                        path = ckpt.save_preempt(state.step, checkpoint_state(state))
-                        print(f"preempted: saved {path}", flush=True)
+                        saved = checkpoint_state(state)
+                        if rank0:
+                            path = ckpt.save_preempt(state.step, saved)
+                            print(f"preempted: saved {path}", flush=True)
                     return state
 
             # ---- validation epoch: sum on the device, read back once ----
@@ -155,11 +199,14 @@ def run_training(
                     val_n += 1
             val_loss = float(val_sum) / val_n if val_n else float("nan")
             tb.scalar("val_loss", val_loss, state.step)
-            print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
+            if rank0:
+                print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
 
-            if ckpt is not None and val_loss == val_loss:
-                saved = ckpt.save(epoch, val_loss, checkpoint_state(state))
-                if saved:
+            if ckpt is not None and val_loss == val_loss and _rank0_decides(
+                    rank0 and ckpt.improves(val_loss)):
+                full = checkpoint_state(state)
+                if rank0:
+                    saved = ckpt.save(epoch, val_loss, full)
                     print(f"saved checkpoint {saved}", flush=True)
         return state
     finally:

@@ -40,6 +40,26 @@ Every LoCa, KL and faithful-LoCa term reads that one matrix.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
 axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
+
+Under an active mesh (``parallel/mesh.py::use_mesh``; the JAX step under
+``jax.set_mesh``) each rank runs its rows of the batch
+(``parallel/sharding.py::shard_batch``) through a student sharded by
+``parallel/sharding.py::shard_params`` (FSDP2 over data/fsdp, whose sharded
+float32 parameters are their own masters, and tensor parallelism):
+
+* the fused terms go through the row-sharded ``ops/fused_spmd.py``
+  wrappers, as JAX ``step.py:200-230`` does; the chunked route, faithful
+  LoCa and NT-Xent take the same global-value, local-gradient form
+  (``global_mean``, ``gather_rows``), so every metric is the global one on
+  every rank;
+* each micro-batch's loss, times data x fsdp, is back-propagated into
+  FSDP2's gradients (FSDP2 averages its reduce, the loss's gradient is a
+  partial sum over ranks, so the product is the sum); the gradients are
+  reduced once a step, on the last micro-batch
+  (``set_requires_gradient_sync``), accumulated in float32 before that,
+  and divided by A.
+
+Without a mesh the step is unchanged.
 """
 
 from __future__ import annotations
@@ -54,9 +74,16 @@ from ..losses.chunked import chunked_faithful_loca, chunked_kd_terms
 from ..losses.kd_losses import IGNORE_INDEX, masked_ntxent_loss
 from ..models.llava_onevision import LlavaOnevision
 from ..models.qwen2 import QLinear
-from ..ops.fused_ce import fused_ce_loss
-from ..ops.fused_kl import fused_kl_loss
-from ..ops.fused_loca import fused_loca_ce_loss, materialize_teacher_logits_int8
+from ..ops._build import is_dtensor
+from ..ops.fused_loca import materialize_teacher_logits_int8
+from ..ops.fused_spmd import (
+    fused_ce_loss_spmd,
+    fused_kl_loss_spmd,
+    fused_loca_ce_loss_spmd,
+    gather_rows,
+    global_mean,
+)
+from ..parallel.mesh import active_mesh, dp_size
 from .optimizer import Optimizer
 
 _LOCA_MODES = ("logit_based", ("double_trouble", 2), ("double_trouble", 3))
@@ -71,18 +98,27 @@ class KDModels(NamedTuple):
 @dataclasses.dataclass
 class TrainState:
     """The student (its parameters), the optimizer and the update count (the
-    JAX ``TrainState``'s params, opt_state and step)."""
+    JAX ``TrainState``'s params, opt_state and step).  ``compute_dtype``: the
+    dtype a sharded student computes in (its sharded parameters are float32
+    masters); None for an unsharded one, which computes in its own."""
 
     model: LlavaOnevision
     optimizer: Optimizer
     step: int = 0
+    compute_dtype: Optional[torch.dtype] = None
 
 
 def _fused_head(model: LlavaOnevision) -> torch.Tensor:
     """The head in its stored [V, D] layout ("vd"): the tied embedding, or
-    the untied ``lm_head`` (a torch Linear stores [out, in] = [V, D])."""
+    the untied ``lm_head`` (a torch Linear stores [out, in] = [V, D]).
+    Read after the model's forward: under FSDP2 the root's parameters are
+    then the unsharded ones (the root does not reshard after its forward),
+    whose gradients FSDP2 reduces."""
     lm = model.language_model
-    return lm.embed_tokens.weight if model.cfg.text.tie_word_embeddings else lm.lm_head.weight
+    w = lm.embed_tokens.weight if model.cfg.text.tie_word_embeddings else lm.lm_head.weight
+    if is_dtensor(w):
+        raise ValueError("the head is still sharded: read it after the model's forward")
+    return w
 
 
 def teacher_head(model: LlavaOnevision):
@@ -187,6 +223,7 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
     fused = cfg.ce_impl == "fused"
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
+        mesh = active_mesh()
         s_hidden, s_vis = _forward_hidden(student, batch, "student")
         flat = s_hidden.reshape(-1, s_hidden.shape[-1])
         head = _fused_head(student)
@@ -197,23 +234,31 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
             tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
         terms = {}
         if fused and need_loca and not faithful:
-            terms["loca"], terms["ce"] = fused_loca_ce_loss(
+            terms["loca"], terms["ce"] = fused_loca_ce_loss_spmd(
                 flat, head, tmat, loca_labels, shifted, temperature=lc.temperature, alpha=lc.loca_alpha)
         elif fused:
             if need_kl:
-                terms["kl"] = fused_kl_loss(flat, head, tmat, temperature=lc.temperature)
+                terms["kl"] = fused_kl_loss_spmd(flat, head, tmat, temperature=lc.temperature)
             if need_ce:
-                terms["ce"] = fused_ce_loss(flat, head, shifted, w_layout="vd")
+                terms["ce"] = fused_ce_loss_spmd(flat, head, shifted, w_layout="vd")
         else:
             terms = chunked_kd_terms(flat, head, loca_labels, shifted, tmat, temperature=lc.temperature,
                                      alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size, need_ce=need_ce,
                                      need_kl=need_kl, need_loca=need_loca and not faithful)
+            if mesh is not None:  # per-rank means -> global means
+                counts = {"ce": (shifted != IGNORE_INDEX).sum()}
+                terms = {k: global_mean(v, counts.get(k, flat.shape[0]), mesh) for k, v in terms.items()}
         if faithful:
             terms["loca"] = chunked_faithful_loca(flat, head, loca_labels, tmat, temperature=lc.temperature,
                                                   alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size)
+            if mesh is not None:
+                terms["loca"] = global_mean(terms["loca"], flat.shape[0], mesh)
         if need_kl:
-            terms["contrastive"] = masked_ntxent_loss(s_vis.flatten(0, 1), t_vis.flatten(0, 1),
-                                                      batch["tile_valid"].reshape(-1), lc.ntxent_temperature)
+            s_feat, t_feat = s_vis.flatten(0, 1), t_vis.flatten(0, 1)
+            valid = batch["tile_valid"].reshape(-1)
+            if mesh is not None:  # negatives from every rank's samples
+                s_feat, t_feat, valid = (gather_rows(x, mesh) for x in (s_feat, t_feat, valid))
+            terms["contrastive"] = masked_ntxent_loss(s_feat, t_feat, valid, lc.ntxent_temperature)
         del tmat  # the autograd graph holds it until the backward
         if mode == "baseline":
             loss = terms["ce"]
@@ -250,8 +295,33 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
         raise ValueError(f"accum_dtype must be float32, bfloat16 or param, got {acc_dt!r}")
     exact = acc_dt == "float32"
 
+    def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor], mesh):
+        from torch.distributed.fsdp import FSDPModule
+
+        model = state.model
+        if not isinstance(model, FSDPModule):
+            raise ValueError("under a mesh the student must be sharded by parallel.shard_params")
+        scale = float(dp_size(mesh))
+        accum = next(iter(batch.values())).shape[0]
+        m_acc = None
+        for a in range(accum):
+            model.set_requires_gradient_sync(a == accum - 1)
+            loss, metrics = loss_fn(_micro(batch, a))
+            (loss * scale).backward()
+            m_acc = metrics if m_acc is None else {k: m_acc[k] + v for k, v in metrics.items()}
+        grads = {}
+        for n, p in state.optimizer.params.items():
+            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad / accum
+            p.grad = None
+        state.optimizer.apply(grads)
+        state.step += 1
+        return state, {k: v / accum for k, v in m_acc.items()}
+
     def train_step(state: TrainState, teacher_params, batch: Dict[str, torch.Tensor]):
         del teacher_params
+        mesh = active_mesh()
+        if mesh is not None:
+            return sharded_step(state, batch, mesh)
         params = state.optimizer.params  # the trainable ones, by name
         names, leaves = list(params), list(params.values())
         accum = next(iter(batch.values())).shape[0]

@@ -137,8 +137,12 @@ def test_flash_arm_on_cpu_is_the_plain_flash():
     q, k, v = _torch(*_mk(1, 130, 130, 2, 2, 72, seed=6))
     got = attention.dot_product_attention(q, k, v, impl="flash")
     torch.testing.assert_close(got, fa.flash_attention_ref(q, k, v), atol=0, rtol=0)
+    # the JAX names of the kernel arm run the same kernels ("pallas_spmd": on
+    # a rank's local tensors)
+    for impl in ("pallas", "pallas_spmd"):
+        torch.testing.assert_close(attention.dot_product_attention(q, k, v, impl=impl), got, atol=0, rtol=0)
     with pytest.raises(ValueError, match="unknown attention impl"):
-        attention.dot_product_attention(q, k, v, impl="pallas")
+        attention.dot_product_attention(q, k, v, impl="splash")
 
 
 def _bf16(b=1, sq=64, skv=64, hq=2, hkv=2, d=64):

@@ -323,6 +323,8 @@ def test_importing_every_port_module_loads_no_jax():
             f"{PKG}.eval.metrics", f"{PKG}.eval.results", f"{PKG}.cli.evaluate_onevision",
             f"{PKG}.cli.get_all_results", f"{PKG}.cli.create_dataset", f"{PKG}.cli.dataset_statistics",
             f"{PKG}.cli.convert_weights", f"{PKG}.eval.runner", f"{PKG}.eval.statistics", f"{PKG}.utils.spelling",
+            f"{PKG}.parallel", f"{PKG}.parallel.mesh", f"{PKG}.parallel.sharding", f"{PKG}.ops.fused_spmd",
+            f"{PKG}.models.remat",
             *(f"{PKG}.data.creation.{m}" for m in ("geometry", "prominent", "postprocess", "questions", "merge",
                                                    "extract", "color_backend"))} <= set(modules)
     assert os.path.join(REPO, "scripts", "torch_flash_phase_ablation.py") in PORT_SCRIPTS

@@ -252,7 +252,9 @@ def test_ce_impl_routes_agree(setup, monkeypatch, mode, phase, faithful):
     def refuse(*a, **kw):
         raise AssertionError("the chunked route called a fused wrapper")
 
-    for name in ("fused_ce_loss", "fused_kl_loss", "fused_loca_ce_loss"):
+    # the step reaches the fused losses through their row-sharded wrappers
+    # (ops/fused_spmd.py), the single-device losses when no mesh is active
+    for name in ("fused_ce_loss_spmd", "fused_kl_loss_spmd", "fused_loca_ce_loss_spmd"):
         monkeypatch.setattr(step, name, refuse)
     m_chunk, g_chunk = _loss_and_grads(models, _port_cfg(mode, phase, faithful, "chunked"), micro)
     assert set(m_chunk) == set(m_fused) and set(g_chunk) == set(g_fused)
