@@ -95,7 +95,22 @@ Phases (any failure raises, and the exit code is non-zero):
      wrappers on half the KD shape's rows, held to one kernel call on all
      rows, with a rank's sums left out of the all-reduce as the negative
      control;
- 13. print one JSON line of kernel results (time, plain time, the least time
+     (c) the evaluator CLI with --distributed --mesh 1,1,1 under a
+     one-rank NCCL group, bf16 (every LM parameter a DTensor at each
+     generate call) and int8_full (replicated), each at B=8 on [eval]'s
+     tree: the predictions CSV byte-equal to [eval]'s plain run, every
+     row's tokens equal, exact launch counts;
+ 13. [pixtral]: the Pixtral evaluator CLI with its student backend (the
+     0.5B at full width and depth) on 5 rows: answers equal to the
+     student answerer called directly, exact K1/K3 launches a row, and a
+     raising backend failing the CLI;
+ 14. [panesar]: the Panesar VGG16+LSTM baseline at the reference's widths
+     (224 x 224, B=8, conv1d, 818 classes, float32, TF32 off): the card's
+     logits and one Adadelta step against the CPU's at B=2 (relative
+     Frobenius <= 1e-4), the steady step's time at B=8, one epoch through
+     the CLI (a finite loss, the validation loss below the seeded model's),
+     then its eval mode;
+ 15. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
@@ -2229,12 +2244,16 @@ def eval_phase(dev, parent=None) -> dict:
     log(f"[eval] get_all_results: {summary[['Simple_Accuracy', 'Neural_Similarity', 'File']].to_dict('records')}")
     if not {"Simple_Accuracy", "Neural_Similarity"} <= set(summary.columns) or len(summary) != 1:
         raise AssertionError(f"get_all_results summary {summary}")
+    # [mesh] (c) holds the evaluator under a one-rank mesh to these two runs
+    plain = {quant: dict(csv=open(r["path"], "rb").read(), tokens=[row["tokens"] for row in r["rows"]],
+                         launches=r["launches"], wall=r["wall"], peak=r["peak"])
+             for quant, r in (("none", r8), ("int8_full", r8q))}
     shutil.rmtree(base, ignore_errors=True)
     paths = dict(b8=r8, b1=r1, ckpt=restored, seed1=other, int8=r8q, b7=r7)
     return dict(launches={k: sum(r["launches"][k] for r in paths.values()) for k in COUNTERS},
                 rows_s8=EVAL_ROWS / r8["wall"], rows_s1=EVAL_ROWS / r1["wall"], peak=r8["peak"],
                 host8=r8["host_s"], gen8=r8["generate_s"],
-                rows_s8_parent=EVAL_ROWS / turns["parent"]["wall"] if turns else None)
+                rows_s8_parent=EVAL_ROWS / turns["parent"]["wall"] if turns else None, plain=plain)
 
 
 # [create]: cli/create_dataset.py with the student color backend on a
@@ -2899,6 +2918,22 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """The environment torchrun would set for one rank (a free port), for a
+    CLI's ``--distributed`` run; removed after, and the CLI must have left
+    its process group."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    if torch.distributed.is_initialized():
+        raise AssertionError("[mesh] the CLI left its process group up")
+
+
 def mesh_cli_phase(dev) -> dict:
     """[mesh] (a): the KD CLI (phase 3, the 7B teacher, the 0.5B student at
     full width and depth, remat as the CLI builds them) with
@@ -2960,19 +2995,14 @@ def mesh_cli_phase(dev) -> dict:
                 "--batch_size", "1", "--accumulate_grad_batches", str(ACCUM), "--max_epochs", "1",
                 "--num_workers", "1", "--subset_percentage", MESH_SUBSET, "--checkpoint_dir", str(d / "ck"),
                 "--tensorboard_dir", str(d / "tb")]
-        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
         if label == "distributed":
             argv += ["--distributed", "--mesh", "1,1,1"]
-            os.environ.update(env)
         kd_loop.make_train_step, kd_loop.make_eval_step = make_train, make_eval
         try:
-            r = _run_cli(f"mesh-{label}", train_online_kd, argv)
+            with _one_rank_group() if label == "distributed" else contextlib.nullcontext():
+                r = _run_cli(f"mesh-{label}", train_online_kd, argv)
         finally:
             kd_loop.make_train_step, kd_loop.make_eval_step = orig_train, orig_eval
-            for k in env:
-                os.environ.pop(k, None)
-        if torch.distributed.is_initialized():
-            raise AssertionError("[mesh] the CLI left its process group up")
         want = {k: per_train.get(k, 0) * rec["micro"] + per_val.get(k, 0) * len(rec["val"]) for k in COUNTERS}
         saved = re.findall(r"saved checkpoint (\S+)", r["log"])
         log(f"[mesh] {label}: {rec['micro']} train and {len(rec['val'])} validation micro-batches, student "
@@ -3130,6 +3160,259 @@ def mesh_rows_phase(dev) -> dict:
     return dict(seconds=spawn_s)
 
 
+def mesh_eval_phase(dev, evals) -> dict:
+    """[mesh] (c): the evaluator CLI with ``--distributed --mesh 1,1,1``
+    under a one-rank NCCL group, on ``_eval_tree``'s 21 rows at B=8, bf16
+    and then ``--quant int8_full``, held to [eval]'s plain runs of the same
+    flags: the predictions CSV byte for byte, every row's tokens, and exact
+    launch counts (K1/K3 at each prefill; K12 as [eval8]).  The bf16
+    student is sharded by ``shard_params`` (every LM parameter a DTensor
+    when ``generate`` is called, FSDP2 gathering it for each forward); the
+    int8 model stays replicated (no DTensor)."""
+    import shutil
+
+    from torch.distributed.tensor import DTensor
+
+    cfg = llava_onevision_0_5b()
+    vis, txt = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    per_batch = {"flash_fwd_mha": vis, "flash_fwd_gqa": txt}
+    per_quant = {"none": per_batch,
+                 "int8_full": {**per_batch, "int8_mm": 7 * txt + 6 * vis + (N_NEW - 1) * 7 * txt}}
+    n_batches = -(-EVAL_ROWS // EVAL_BS)
+    base = _build.BUILD_DIR.parent / "chip_smoke_mesh_eval"
+    shutil.rmtree(base, ignore_errors=True)
+    root = _eval_tree(base / "data")
+    generate = Generator.generate
+    launches, runs = dict.fromkeys(COUNTERS, 0), {}
+    for quant in ("none", "int8_full"):
+        seen = []
+
+        def recording(self, model, batch, _seen=seen):
+            _seen.append(all(isinstance(p, DTensor) for p in model.language_model.parameters()))
+            return generate(self, model, batch)
+
+        Generator.generate = recording
+        try:
+            with _one_rank_group():
+                r = _run_eval("mesh-eval", root, base / quant, "--eval_batch_size", str(EVAL_BS), "--quant", quant,
+                              "--distributed", "--mesh", "1,1,1")
+        finally:
+            Generator.generate = generate
+        plain = evals["plain"][quant]
+        same_csv = open(r["path"], "rb").read() == plain["csv"]
+        same_tokens = [row["tokens"] for row in r["rows"]] == plain["tokens"]
+        log(f"[mesh] evaluator {quant} under --distributed --mesh 1,1,1: CSV byte-equal to the plain run "
+            f"{same_csv}, tokens equal {same_tokens}; LM parameters DTensors at every generate call {set(seen)} "
+            f"({len(seen)} calls); {r['wall']:.1f} s (plain {plain['wall']:.1f} s), peak {r['peak'] / 2**30:.2f} "
+            f"GiB (plain {plain['peak'] / 2**30:.2f} GiB)")
+        _hold_launches("mesh-eval", r["launches"], per_quant[quant], n_batches)
+        if not (same_csv and same_tokens) or seen != [quant == "none"] * n_batches:
+            raise AssertionError(f"[mesh] evaluator {quant}: the one-rank mesh run is not the plain run")
+        for k in launches:
+            launches[k] += r["launches"][k]
+        runs[quant] = dict(wall=r["wall"], peak=r["peak"], plain_wall=plain["wall"], plain_peak=plain["peak"])
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(launches=launches, runs=runs)
+
+
+PIXTRAL_SUBSET = "0.25"  # 5 of the 21 rows
+
+
+def pixtral_phase(dev) -> dict:
+    """[pixtral]: ``cli/evaluate_pixtral.py`` with its default student
+    backend (the 0.5B at full width and depth, seed 0, bf16, flash) on 5
+    rows of ``_eval_tree``: every row's answer equals ``extract_answer`` of
+    the port's ``StudentAnswerer`` (``eval/runner.py``) called directly on
+    the same row, the launches are exact (each row's prefill: K1 a SigLIP
+    layer, K3 a decoder layer), and a backend that raises fails the CLI
+    (the negative control: no exit with rows missing)."""
+    import shutil
+
+    import pandas as pd
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import evaluate_pixtral
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.dataset import (
+        SUNRGBDVQADataset,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval import runner
+
+    cfg = llava_onevision_0_5b()
+    base = _build.BUILD_DIR.parent / "chip_smoke_pixtral"
+    shutil.rmtree(base, ignore_errors=True)
+    root = _eval_tree(base / "data")
+    argv = ["--root_data_dir", root, "--subset_percentage", PIXTRAL_SUBSET, "--max_new_tokens", str(N_NEW)]
+    r = _run_cli("pixtral", evaluate_pixtral, argv + ["--predictions_dir", str(base / "p")])
+    rows = r["ret"]["rows"]
+    _hold_launches("pixtral", r["launches"], {"flash_fwd_mha": cfg.vision.num_hidden_layers,
+                                              "flash_fwd_gqa": cfg.text.num_hidden_layers}, len(rows))
+    csv = pd.read_csv(r["ret"]["path"], keep_default_na=False)
+    answer = runner.load_student_for_eval(None, max_new_tokens=N_NEW)
+    ds = SUNRGBDVQADataset(root, "val_dataset.csv", float(PIXTRAL_SUBSET))
+    direct = []
+    for i in range(len(ds)):
+        question, _, rgb, _, _ = ds[i]
+        direct.append(evaluate_pixtral.extract_answer(answer(rgb, question + evaluate_pixtral.ADDITIONAL_INSTRUCTIONS)))
+    got = [str(a) for a in csv["Model_Answer"]]
+    log(f"[pixtral] {len(rows)} rows in {r['wall']:.1f} s ({len(rows) / r['wall']:.3f} rows/s), peak "
+        f"{r['peak'] / 2**30:.2f} GiB; answers equal to the answerer called directly: {got == direct} ({[a[:40] for a in got[:2]]})")
+    if len(rows) != len(ds) or got != direct or r["ret"]["errors"]:
+        raise AssertionError(f"[pixtral] CLI answers {got} != the answerer's {direct}")
+    del answer
+    real = runner.load_student_for_eval
+
+    def broken(*a, **k):
+        def fail(image, question):
+            raise RuntimeError("the answer backend failed")
+
+        return fail
+
+    runner.load_student_for_eval = broken
+    try:
+        evaluate_pixtral.main(argv + ["--predictions_dir", str(base / "broken")])
+    except RuntimeError as e:
+        log(f"[pixtral] negative control: a backend that raises fails the CLI ({e})")
+    else:
+        raise AssertionError("[pixtral] a raising backend did not fail the CLI")
+    finally:
+        runner.load_student_for_eval = real
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=r["launches"], wall=r["wall"], peak=r["peak"], rows=len(rows))
+
+
+PANESAR_CLASSES = 818  # the reference's answer classes
+PANESAR_TRAIN_ROWS = 24  # --max_items: 3 steps of B=8; the 21 validation rows are the first 21
+PANESAR_TOL = 1e-4  # relative Frobenius, card vs CPU, float32 with TF32 off
+PANESAR_STEPS = 5
+
+
+def _panesar_tree(root) -> str:
+    """``_eval_tree``, its train split extended past the 21 rows (which
+    are the validation rows) with rows of new answers over the same
+    images, to the reference's 818 answer classes."""
+    import pandas as pd
+
+    _eval_tree(root)
+    csv = root / "SUNRGBD" / "csv_data"
+    df = pd.read_csv(csv / "train_dataset.csv")
+    extra = PANESAR_CLASSES - df["Answers"].str.lower().nunique()
+    more = df.iloc[[i % len(df) for i in range(extra)]].copy()
+    more["Question_Id"] = range(len(df), len(df) + extra)
+    more["Answers"] = [f"class {i}" for i in range(extra)]
+    pd.concat([df, more]).to_csv(csv / "train_dataset.csv", index=False)
+    return str(root)
+
+
+def panesar_phase(dev) -> dict:
+    """[panesar]: the Panesar VGG16+LSTM baseline (``cli/panesar_baseline.py``)
+    at the reference's widths (224 x 224 images, B=8, conv1d fusion, 818
+    answer classes), float32 with TF32 off.  First the card against the CPU
+    on the same seeded model and two rows (B=2): the logits, then one
+    Adadelta step (dropout off) and the updated fc1 and ``mlp`` leaves and
+    their updates (relative Frobenius <= 1e-4).  Then the CLI: one epoch on
+    24 rows (3 steps), the validation loss of its 21 rows (training rows
+    too) below the seeded model's before training, every step's loss
+    finite; then ``eval`` on the saved model.  No kernel of this repo
+    launches (the JAX package runs it all through XLA)."""
+    import copy
+    import shutil
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+        panesar_baseline as pb,
+    )
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.data.dataset import (
+        SUNRGBDVQADataset,
+    )
+
+    base = _build.BUILD_DIR.parent / "chip_smoke_panesar"
+    shutil.rmtree(base, ignore_errors=True)
+    root = _panesar_tree(base / "data")
+    flags = ["--root_data_dir", root, "--img_size", "224", "--batch_size", "8", "--fusion", "conv1d",
+             "--max_items", str(PANESAR_TRAIN_ROWS), "--vocab_dir", str(base / "vocab"), "--ckpt",
+             str(base / "ck" / "panesar.pt")]
+    args = pb.build_parser().parse_args(["train", *flags])
+    train_ds = SUNRGBDVQADataset(root, "train_dataset.csv")
+    qwords, answers = pb.build_vocabs(train_ds, str(base / "vocab"))
+    if len(answers) != PANESAR_CLASSES:
+        raise AssertionError(f"[panesar] {len(answers)} answer classes")
+
+    # card vs CPU, B=2
+    t0 = time.perf_counter()
+    cpu_model = pb.build_model(args, qwords, answers, args.seed, torch.device("cpu"))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    arrays = pb.encode_batch(train_ds, [0, 1], qwords, answers, img_size=224)
+    pairs = [(cpu_model, pb.to_tensors(arrays, "cpu")), (card_model, pb.to_tensors(arrays, dev))]
+    with torch.no_grad():
+        logits = [m.eval()(*b[:3]) for m, b in pairs]
+    errs = {"logits": _errors(logits[1].cpu(), logits[0])[1]}
+    before = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    for m, b in pairs:
+        pb.train_step(m, pb.make_optimizer(m, args.lr), b, deterministic=True)
+    after = [m.state_dict() for m, _ in pairs]
+    for k in ("img_enc_rgb.fc1.weight", "img_enc_depth.fc1.weight", "mlp.weight"):
+        errs[k] = _errors(after[1][k].cpu(), after[0][k])[1]
+        errs[k + " update"] = _errors(after[1][k].cpu() - before[k], after[0][k] - before[k])[1]
+    log(f"[panesar] card vs CPU at B=2, 224 x 224, float32 (relative Frobenius): "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } ({time.perf_counter() - t0:.1f} s)")
+    if max(v for k, v in errs.items() if not k.endswith("update")) > PANESAR_TOL:
+        raise AssertionError(f"[panesar] the card disagrees with the CPU: {errs}")
+    del cpu_model, pairs, logits, before, after
+
+    # the steady step at B=8 (the CLI's epoch of 3 steps includes cuDNN's first-call set-up)
+    batch = pb.to_tensors(pb.encode_batch(train_ds, range(8), qwords, answers, img_size=224), dev)
+    opt, gen = pb.make_optimizer(card_model, args.lr), torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        pb.train_step(card_model, opt, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PANESAR_STEPS):
+        pb.train_step(card_model, opt, batch, gen)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / PANESAR_STEPS * 1e3
+    log(f"[panesar] steady train step at B=8 (mean of {PANESAR_STEPS} after 2): {steady_ms:.1f} ms "
+        f"({8 / (steady_ms / 1e3):.1f} samples/s)")
+    del card_model, opt, batch
+
+    # the seeded model's loss on the validation rows, before training
+    val_ds = SUNRGBDVQADataset(root, "val_dataset.csv")
+    model = pb.build_model(args, qwords, answers, args.seed, dev).eval()
+    num = den = 0.0
+    with torch.no_grad():
+        for start in range(0, len(val_ds), 8):
+            rgb, depth, qids, ys, valid = pb.to_tensors(
+                pb.encode_batch(val_ds, range(start, min(start + 8, len(val_ds))), qwords, answers, img_size=224), dev)
+            ce = F.cross_entropy(model(rgb, depth, qids), ys, reduction="none")
+            num, den = num + (ce * valid).sum().item(), den + valid.sum().item()
+    initial = num / den
+    del model
+    torch.cuda.empty_cache()
+
+    r = _run_cli("panesar", pb, ["train", *flags, "--epochs", "1"])
+    rec = r["ret"]
+    step_ms = rec["train_s"] / rec["steps"] * 1e3
+    log(f"[panesar] train: {rec['steps']} steps of B=8, losses {rec['train_losses']}, validation loss "
+        f"{initial:.4f} before -> {rec['val_losses'][0]:.4f} after the epoch; the CLI's training loop "
+        f"{step_ms:.1f} ms of wall a step ({8 / (step_ms / 1e3):.1f} samples/s; host encoding "
+        f"{rec['host_s'] / rec['steps'] * 1e3:.1f} ms a batch of it, the first step's set-up included), "
+        f"{r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB")
+    if (rec["steps"] != 3 or not all(math.isfinite(x) for x in rec["train_losses"] + rec["val_losses"])
+            or not rec["val_losses"][0] < initial):
+        raise AssertionError(f"[panesar] training: {rec}, initial validation loss {initial}")
+    e = _run_cli("panesar-eval", pb, ["eval", *flags])
+    ev = e["ret"]
+    log(f"[panesar] eval: accuracy {ev['accuracy']:.4f} ({ev['correct']}/{ev['total']}), "
+        f"{ev['rows'] / ev['eval_s']:.1f} rows/s in the loop, {e['wall']:.1f} s, peak {e['peak'] / 2**30:.2f} GiB")
+    if ev["total"] != len(val_ds) or "panesar eval accuracy" not in e["log"]:
+        raise AssertionError(f"[panesar] eval: {e['log'][-500:]}")
+    for run in (r, e):
+        if any(run["launches"].values()):
+            raise AssertionError(f"[panesar] a kernel of this repo launched: {run['launches']}")
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches=dict.fromkeys(COUNTERS, 0), step_ms=step_ms, steady_ms=steady_ms, peak=r["peak"],
+                eval_rows_s=ev["rows"] / ev["eval_s"], errs=errs)
+
+
 def main() -> int:
     import argparse
 
@@ -3220,12 +3503,20 @@ def main() -> int:
     mark("create")
     mesh = mesh_cli_phase(dev)
     rows = mesh_rows_phase(dev)
-    mark("mesh")
+    mark("mesh (a), (b)")
+    mesh_eval = mesh_eval_phase(dev, evals)
+    mark("mesh (c)")
+    pixtral = pixtral_phase(dev)
+    mark("pixtral")
+    panesar = panesar_phase(dev)
+    mark("panesar")
     # launches: the driven paths, each counted from 0 around its own run
     # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs; the
     # dataset creation's and its workflow's CLI runs; the remat settings'
-    # steps; the mesh CLI runs)
-    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created, remat, mesh)
+    # steps; the mesh CLI runs; the evaluator under a mesh; the Pixtral CLI;
+    # the Panesar CLI, which launches none)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created, remat, mesh, mesh_eval,
+             pixtral, panesar)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
@@ -3259,6 +3550,16 @@ def main() -> int:
     for label, r in mesh["runs"].items():
         log(f"[summary] {card}: [mesh] KD CLI {label}: {r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: [mesh] two ranks on the card, the row-sharded K5-K9 and K11: {rows['seconds']:.1f} s")
+    for quant, r in mesh_eval["runs"].items():
+        log(f"[summary] {card}: [mesh] evaluator {quant} at B={EVAL_BS} under --distributed --mesh 1,1,1: "
+            f"{r['wall']:.1f} s ({EVAL_ROWS / r['wall']:.3f} rows/s), peak {r['peak'] / 2**30:.2f} GiB; plain "
+            f"{r['plain_wall']:.1f} s ({EVAL_ROWS / r['plain_wall']:.3f} rows/s), peak {r['plain_peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: [pixtral] student backend {pixtral['rows']} rows in {pixtral['wall']:.1f} s "
+        f"({pixtral['rows'] / pixtral['wall']:.3f} rows/s), peak {pixtral['peak'] / 2**30:.2f} GiB")
+    log(f"[summary] {card}: [panesar] 224 x 224, B=8, conv1d, {PANESAR_CLASSES} classes, float32: steady step "
+        f"{panesar['steady_ms']:.1f} ms ({8 / (panesar['steady_ms'] / 1e3):.1f} samples/s); the CLI's training loop "
+        f"{panesar['step_ms']:.1f} ms of wall a step (host encoding and set-up included), peak "
+        f"{panesar['peak'] / 2**30:.2f} GiB; eval {panesar['eval_rows_s']:.1f} rows/s")
     log(f"[summary] {card}: teacher per micro-batch {kd8['teacher_ms_bf16']:.1f} ms bf16, "
         f"{kd8['teacher_ms']:.1f} ms int8")
     log(f"[summary] fused_kl_bwd dW launches: {sum(path['launches']['fused_kl_bwd_dw'] for path in paths)} "

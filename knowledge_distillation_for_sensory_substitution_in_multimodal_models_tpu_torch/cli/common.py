@@ -5,6 +5,11 @@ attention and loss routes (``resolve_attn_impl``, ``resolve_ce_impl``),
 ``make_datasets``, ``init_or_load_params``, and the served model of the
 inference and evaluator CLIs (``add_serving_flags``, ``load_student``).
 
+Flag sets: the trainers take ``add_device_flags``, ``add_mesh_flags`` and
+``add_train_flags``; every other CLI takes the JAX ``add_tpu_flags`` set
+through :func:`add_jax_flag_set` (the same three, the trainers' eight host
+flags parsed and not read, as the JAX CLIs parse them).
+
 Multi-GPU (the trainers): ``--distributed`` joins the process group that
 ``torchrun`` describes in the environment (NCCL on CUDA, gloo with
 ``--cpu``; :func:`init_distributed`), each rank on ``cuda:LOCAL_RANK``;
@@ -197,19 +202,28 @@ def add_reference_flags(p: argparse.ArgumentParser, accum_default: int = 64) -> 
     p.add_argument("--accumulate_grad_batches", type=int, default=accum_default)
 
 
-def add_train_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX trainers' data, checkpoint and logging flags that this port
-    implements."""
-    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
-    p.add_argument("--tensorboard_dir", type=str, default="tensorboard_logs")
+# the help of a flag that a CLI takes for the JAX flag set and never reads
+UNREAD = "parsed for the JAX CLI's flag set; this CLI does not read it"
+
+
+def add_train_flags(p: argparse.ArgumentParser, unread: bool = False) -> None:
+    """The JAX trainers' data, checkpoint and logging flags (the JAX
+    defaults).  ``unread``: the CLIs that take them only for the JAX flag
+    set (:func:`add_jax_flag_set`); their help says so."""
+
+    def h(text=None):
+        return UNREAD if unread else text
+
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints", help=h())
+    p.add_argument("--tensorboard_dir", type=str, default="tensorboard_logs", help=h())
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="trace train steps 2-4 with torch.profiler into this directory")
-    p.add_argument("--num_workers", type=int, default=4)
+                   help=h("trace train steps 2-4 with torch.profiler into this directory"))
+    p.add_argument("--num_workers", type=int, default=4, help=h())
     p.add_argument("--depth_encoding", type=str, default="prewitt",
-                   choices=["prewitt", "gray3", "prewitt_imagenet"])
-    p.add_argument("--train_csv", type=str, default="train_dataset.csv")
-    p.add_argument("--val_csv", type=str, default="val_dataset.csv")
-    p.add_argument("--dataset", type=str, default="sunrgbd", choices=["sunrgbd", "daquar"])
+                   choices=["prewitt", "gray3", "prewitt_imagenet"], help=h())
+    p.add_argument("--train_csv", type=str, default="train_dataset.csv", help=h())
+    p.add_argument("--val_csv", type=str, default="val_dataset.csv", help=h())
+    p.add_argument("--dataset", type=str, default="sunrgbd", choices=["sunrgbd", "daquar"], help=h())
 
 
 def make_datasets(args, root: str):
@@ -248,18 +262,49 @@ def add_device_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
 
 
-def add_mesh_flags(p: argparse.ArgumentParser) -> None:
-    """The trainers' multi-GPU flags (the JAX ``--distributed`` and ``--mesh``)."""
+def add_mesh_flags(p: argparse.ArgumentParser, note: str = "") -> None:
+    """The multi-GPU flags (the JAX ``--distributed`` and ``--mesh``) of the
+    trainers and the evaluator; ``note`` ends both helps."""
     p.add_argument("--distributed", action="store_true",
                    help="join the torch.distributed process group torchrun describes (RANK, WORLD_SIZE, "
-                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK): NCCL on CUDA, gloo with --cpu")
+                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK): NCCL on CUDA, gloo with --cpu" + note)
     p.add_argument("--mesh", type=str, default=None,
-                   help="data,fsdp,tensor (default: all ranks on tensor); needs --distributed")
+                   help="data,fsdp,tensor (default: all ranks on tensor); needs --distributed" + note)
 
 
-def add_serving_flags(p: argparse.ArgumentParser) -> None:
+def add_jax_flag_set(p: argparse.ArgumentParser, mesh_note: str = "") -> None:
+    """The flag set of the JAX ``add_tpu_flags`` for the CLIs other than the
+    trainers, with the JAX defaults: :func:`add_device_flags`,
+    :func:`add_mesh_flags` (``mesh_note`` ends their help) and the
+    trainers' eight host flags (:func:`add_train_flags`), which these CLIs
+    parse and do not read, as the JAX CLIs parse them and never read them."""
+    add_device_flags(p)
+    add_mesh_flags(p, mesh_note)
+    add_train_flags(p, unread=True)
+
+
+# --mesh_note of the CLIs that run one process
+ONE_PROCESS = ("; this CLI runs one process: --distributed and a --mesh over more than one rank are refused "
+               "(cli/evaluate_onevision.py generates under a mesh)")
+
+
+def refuse_mesh(args, cli: str) -> None:
+    """For a CLI that runs one process on one device: refuse
+    ``--distributed`` and a ``--mesh`` over more than one rank (a launch of
+    several ranks would run the whole model on every rank), naming the
+    evaluator, which generates under a mesh.  A one-rank ``--mesh`` is
+    accepted and changes nothing."""
+    from ..parallel.mesh import parse_mesh
+
+    if args.distributed or (args.mesh and parse_mesh(args.mesh).num_devices > 1):
+        raise SystemExit(f"{cli} runs one process on one device: --distributed and a --mesh over more than one "
+                         "rank are refused (each rank would run the whole model); cli/evaluate_onevision.py "
+                         "generates under --distributed --mesh")
+
+
+def add_serving_flags(p: argparse.ArgumentParser, quant_note: str = "") -> None:
     """The flags the inference and evaluator CLIs share, beside
-    ``add_device_flags``."""
+    :func:`add_jax_flag_set`; ``quant_note`` ends ``--quant``'s help."""
     p.add_argument("--student_ckpt_path", type=str, default=None,
                    help="a checkpoint of the port's train CLIs (epoch=NN-val_loss=X.ckpt); its "
                         "weights replace the initial ones (params-only restore)")
@@ -269,7 +314,7 @@ def add_serving_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--quant", type=str, default="none", choices=QUANT_MODES,
                    help="int8: w8a8 LM decoder-block projections (decode at batch 1 is "
                         "weight-bandwidth-bound, int8 halves the bytes); int8_full: the SigLIP "
-                        "projections too (ops/int8.py)")
+                        "projections too (ops/int8.py)" + quant_note)
 
 
 def load_student(args, cfg, device: torch.device) -> LlavaOnevision:

@@ -6,10 +6,22 @@ to the reference's predictions CSV (columns Question_Id, Questions,
 Question_Type, Answers, Model_Answer; file
 ``results_kd_modeltypeL{pixel_data_type}_{gts_type}_{kd_model_type}{phase}.csv``),
 then the incremental summary (``summary/results_summary.csv``).  The JAX
-CLI's flags, but ``--mesh`` and its other multi-chip flags: the sharded
-generation of the JAX CLI is not ported yet (ROADMAP, queue 1), so the
-evaluator refuses ``--mesh`` and runs on one card (``cuda:0``) unless
-``--cpu`` is given.  The trainers take ``--mesh``.
+CLI's flags (``common.add_jax_flag_set``; the trainers' eight host flags
+are parsed and not read, as in the JAX CLI).  One card (``cuda:0``) unless
+``--cpu`` is given.
+
+Sharded generation (JAX ``cli/evaluate_onevision.py:160-170``): under
+``torchrun --nproc_per_node N ... --distributed --mesh d,f,t`` (each rank on
+``cuda:LOCAL_RANK``; gloo with ``--cpu``) the served model is sharded by
+``parallel.shard_params`` after the checkpoint restore and the ``--quant``
+swap, and generates under the mesh.  Every rank runs every batch, whole
+(the JAX evaluator does not shard the batch either), and the decode loop
+runs exactly ``--max_new_tokens`` steps, so every rank makes the same
+forward calls; rank 0 writes the CSV and the summary, and every rank
+returns the same rows.  ``--distributed`` shards even on one rank (as the
+trainers do; the JAX CLI skips a one-device mesh).  An int8 model
+(``--quant int8|int8_full``) stays replicated on every rank (see
+``--quant``).
 
 * ``--model_id`` naming a 7B model evaluates the 7B config (with
   ``--real_model`` or real data);
@@ -53,9 +65,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt_style", type=str, default="reference", choices=["reference", "train"],
                    help="reference: the paper's eval prompt; train: the training template's "
                         "assistant header verbatim (data/chat.py)")
-    common.add_serving_flags(p)
-    common.add_device_flags(p)
+    common.add_serving_flags(p, quant_note=QUANT_MESH_NOTE)
+    common.add_jax_flag_set(p)
     return p
+
+
+QUANT_MESH_NOTE = (
+    ". Under --distributed an int8 model stays replicated on every rank: torch's parallel styles take "
+    "nn.Linear and nn.Embedding only; a row-wise w8a8 split would change each row's activation absmax "
+    "unless that max were all-reduced, and would need K12 (which fuses the quantize pass and the scale "
+    "epilogue) to emit int32 partial sums, so its tokens would no longer equal one device's by "
+    "construction; and one card cannot measure the memory that sharding would save")
 
 
 def predictions_file(args) -> str:
@@ -69,25 +89,36 @@ def main(argv=None) -> dict:
     ``tokens`` and their ``margins``, which the CSV leaves out), the CSV
     path, and the wall split: ``host_s`` (reading rows: image decode and the
     depth encoding; collation: anyres tiles and the prompt) and
-    ``generate_s`` (generation, synchronised on the card)."""
+    ``generate_s`` (generation, synchronised on the card).  Under
+    ``--distributed`` every rank returns the same rows; rank 0 writes."""
     args = build_parser().parse_args(argv)
     common.load_env()
+    common.init_distributed(args)
     device = common.setup_device(args)
+    mesh = common.build_mesh(args)
 
     import pandas as pd
     import torch
+    from torch.distributed.fsdp import FSDPModule
 
     from ..data.collate import OneVisionCollator
     from ..data.dataset import SUNRGBDVQADataset
     from ..eval.decode import GenerateConfig, Generator
     from ..eval.metrics import force_backend
     from ..eval.results import update_summary
+    from ..parallel import shard_params, use_mesh
+    from ..parallel.mesh import is_rank0
     from ..utils.numwords import digits_to_words
 
     force_backend(args.metric_backend)
     root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
     if args.synthetic_data:
-        root = common.ensure_synthetic_dataset(root or tempfile.mkdtemp(prefix="kdss_synth_"))
+        # ranks that share a --root_data_dir: rank 0 writes the tree
+        shared = root is not None and torch.distributed.is_initialized()
+        if not shared or is_rank0():
+            root = common.ensure_synthetic_dataset(root or tempfile.mkdtemp(prefix="kdss_synth_"))
+        if shared:
+            torch.distributed.barrier()
     if not root:
         raise SystemExit("set ROOT_DATA_DIR or pass --root_data_dir / --synthetic_data")
 
@@ -97,6 +128,9 @@ def main(argv=None) -> dict:
     if "7b" in args.model_id.lower() and not common.is_tiny(args):
         scfg = tcfg
     model = common.load_student(args, scfg, device)
+    if mesh is not None:
+        # after the restore and the --quant swap, as the JAX CLI shards
+        shard_params(model, mesh)
     tok = common.make_tokenizer(args, scfg)
 
     ds = SUNRGBDVQADataset(root, f"{args.gts_type}_dataset.csv", args.subset_percentage,
@@ -131,7 +165,12 @@ def main(argv=None) -> dict:
         tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
               if not k.startswith("teacher_") and k != "question_id"}
         t1 = time.perf_counter()
-        out = gen.generate(model, tb)
+        with use_mesh(mesh):
+            out = gen.generate(model, tb)
+        if isinstance(model, FSDPModule):
+            # FSDP2 keeps the root's own parameters gathered after a forward
+            # (for a backward); free them between batches
+            model.reshard()
         seqs, valid = out["sequences"][:n_real].cpu(), out["valid"][:n_real].cpu()
         plens = out["prompt_lengths"][:n_real].cpu()
         tokens, margins = out["tokens"][:n_real].cpu(), out["margins"][:n_real].float().cpu()
@@ -152,16 +191,17 @@ def main(argv=None) -> dict:
                 "tokens": tokens[j].tolist(),
                 "margins": margins[j].tolist(),
             })
-        if start % (10 * bs) == 0:
+        if start % (10 * bs) == 0 and is_rank0():
             print(f"evaluated {start + len(idxs)}/{len(ds)}", flush=True)
 
-    os.makedirs(args.predictions_dir, exist_ok=True)
     out_path = os.path.join(args.predictions_dir, predictions_file(args))
-    pd.DataFrame(rows).drop(columns=["tokens", "margins"]).to_csv(out_path, index=False)
-    print("Results saved to:", out_path)
-
-    summary = update_summary(args.predictions_dir)
-    print("summary:", summary.tail(1).to_dict("records"))
+    if is_rank0():
+        os.makedirs(args.predictions_dir, exist_ok=True)
+        pd.DataFrame(rows).drop(columns=["tokens", "margins"]).to_csv(out_path, index=False)
+        print("Results saved to:", out_path)
+        summary = update_summary(args.predictions_dir)
+        print("summary:", summary.tail(1).to_dict("records"))
+    common.finish_distributed(args)
     return dict(rows=rows, path=out_path, host_s=host_s, generate_s=generate_s)
 
 

@@ -5,6 +5,13 @@ encode one depth image, generate one answer, print a one-row DataFrame.
 ``int8_full`` with the SigLIP encoder's too (the tied embedding and head
 stay float, as in the JAX CLI).
 
+The JAX flag set (``common.add_jax_flag_set``): the trainers' eight host
+flags are parsed and not read, as in the JAX CLI.  ``--mesh`` and
+``--distributed`` are parsed, as the JAX CLI parses them and never reads
+them; a one-rank ``--mesh`` is accepted, while ``--distributed`` and a
+``--mesh`` over more than one rank are refused (each rank would run the
+whole model): the evaluator generates under a mesh.
+
 Offline smoke on the CPU:
   python -m knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli.inference \\
       --synthetic_data --cpu --max_new_tokens 4
@@ -24,12 +31,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--row", type=int, default=0, help="dataset row to run")
     p.add_argument("--gts_type", type=str, default="val")
     common.add_serving_flags(p)
-    common.add_device_flags(p)
+    common.add_jax_flag_set(p, mesh_note=common.ONE_PROCESS)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.refuse_mesh(args, "cli/inference.py")
     common.load_env()
     device = common.setup_device(args)
 

@@ -8,12 +8,19 @@ the model, KV caches filled, an Sq x Skv causal+padding mask), then a Python
 loop of single-token steps; the JAX package's jit and ``lax.scan`` become
 eager code.  All state stays on the model's device: no step reads a value
 back to the host.
+
+Under a mesh (``parallel/sharding.py::shard_params``) the model's
+parameters are DTensors and every rank runs the whole batch: each layer's
+KV cache holds that rank's kv heads (``local_kv_heads``: kv / t where the
+tensor plan splits the attention), and the loop runs exactly
+``max_new_tokens`` steps with no early exit, so that every rank makes the
+same forward calls (FSDP2 all-gathers in each).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -74,6 +81,16 @@ def _ngram_ban_mask(ids, valid, prefix, vocab):
     return _scatter_or(ban, ids[:, m:], match)
 
 
+def local_kv_heads(model) -> List[int]:
+    """Each LM layer's kv heads on this rank: its ``k_proj``'s local output
+    width over the head dim (the config's count on a model that is not
+    split over ``tensor``)."""
+    from ..parallel.sharding import local_out_features
+
+    hd = model.cfg.text.head_dim
+    return [local_out_features(layer.self_attn.k_proj) // hd for layer in model.language_model.layers]
+
+
 class Generator:
     """Greedy generator.
 
@@ -89,14 +106,16 @@ class Generator:
         self.cfg = model_cfg
         self.gcfg = gen_cfg
 
-    def init_caches(self, b: int, total: int, dtype, device):
-        """Preallocated per-layer KV caches [B, total, Hkv, D], written in place."""
+    def init_caches(self, b: int, total: int, dtype, device, kv_heads: Optional[Sequence[int]] = None):
+        """Preallocated per-layer KV caches [B, total, Hkv, D], written in
+        place; ``kv_heads``: each layer's Hkv (default: the config's)."""
         c = self.cfg.text
-        shape = (b, total, c.num_key_value_heads, c.head_dim)
+        if kv_heads is None:
+            kv_heads = [c.num_key_value_heads] * c.num_hidden_layers
         return [
-            {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(c.num_hidden_layers)
+            {"k": torch.zeros((b, total, h, c.head_dim), dtype=dtype, device=device),
+             "v": torch.zeros((b, total, h, c.head_dim), dtype=dtype, device=device)}
+            for h in kv_heads
         ]
 
     def prefill(self, model, batch):
@@ -109,7 +128,7 @@ class Generator:
         total = s + self.gcfg.max_new_tokens
         dev = ids.device
         lengths = mask.sum(dim=1)  # [B] prompt lengths (right padding)
-        caches = self.init_caches(b, total, model.dtype, dev)
+        caches = self.init_caches(b, total, model.dtype, dev, local_kv_heads(model))
         # causal + padding mask over the cache buffer
         q_pos = torch.arange(s, device=dev)[None, :, None]
         k_pos = torch.arange(total, device=dev)[None, None, :]

@@ -32,6 +32,9 @@ against the JAX package's leaf by leaf.
 
 :func:`load_llava_onevision_params` chains the safetensors reader, the HF
 key mapping and :func:`params_from_flax`.
+
+:func:`panesar_params_from_flax` does for the JAX ``PanesarVQAModel`` tree
+what :func:`params_from_flax` does for LLaVA-OneVision (``models/panesar.py``).
 """
 
 from __future__ import annotations
@@ -226,3 +229,53 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
 def load_llava_onevision_params(path: str, cfg: LlavaOnevisionConfig) -> Dict[str, torch.Tensor]:
     """Local HF snapshot dir -> torch ``state_dict`` (no network)."""
     return params_from_flax(convert_hf_state_dict(load_safetensors_dir(path), cfg), cfg)
+
+
+# Flax OptimizedLSTMCell's gates in torch's order (i, f, g, o): input
+# kernels i* without bias, hidden-state kernels h* with bias.
+_LSTM_GATES = ("i", "f", "g", "o")
+_PANESAR_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
+def panesar_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` tree of the JAX ``PanesarVQAModel`` -> the port's
+    ``models/panesar.py`` state dict (float32):
+
+    * ``features.conv_{i}`` (HWIO) -> ``features.{torchvision position}``
+      (OIHW); Dense kernels [in, out] -> weights [out, in];
+    * ``OptimizedLSTMCell_{l}`` -> ``lstm_{l}``: ``weight_ih_l0`` the input
+      kernels ``ii|if|ig|io`` stacked (transposed), ``weight_hh_l0`` the
+      hidden-state kernels ``hi|hf|hg|ho``, ``bias_hh_l0`` their biases and
+      ``bias_ih_l0`` zero (the cell has no input bias);
+    * ``conv1d``: Flax ``Conv(1, (1,))`` kernel [1, 2, 1] (width, in, out)
+      -> ``Conv1d(2, 1, 1)`` weight [1, 2, 1] (out, in, width);
+    * ``Embed.embedding`` -> ``weight``."""
+    from .panesar import vgg16_conv_positions
+
+    positions = vgg16_conv_positions()
+    flat = _flatten(tree)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+    cells = sorted({k.rsplit(".", 2)[0] for k in flat if ".OptimizedLSTMCell_" in k})
+    for cell in cells:
+        enc, _, layer = cell.rpartition(".OptimizedLSTMCell_")
+        lstm = f"{enc}.lstm_{layer}"
+        put(f"{lstm}.weight_ih_l0", np.concatenate([flat[f"{cell}.i{g}.kernel"] for g in _LSTM_GATES], 1).T)
+        put(f"{lstm}.weight_hh_l0", np.concatenate([flat[f"{cell}.h{g}.kernel"] for g in _LSTM_GATES], 1).T)
+        bias = np.concatenate([flat[f"{cell}.h{g}.bias"] for g in _LSTM_GATES])
+        put(f"{lstm}.bias_hh_l0", bias)
+        put(f"{lstm}.bias_ih_l0", np.zeros_like(bias))
+    for key, arr in flat.items():
+        if ".OptimizedLSTMCell_" in key:
+            continue
+        module, _, leaf = key.rpartition(".")
+        module = re.sub(r"\bfeatures\.conv_(\d+)$", lambda m: f"features.{positions[int(m.group(1))]}", module)
+        if leaf == "kernel":  # Dense [in, out], Conv1d (W, I, O), Conv2d HWIO -> torch layouts
+            arr, leaf = arr.transpose(_PANESAR_PERM[arr.ndim]), "weight"
+        elif leaf == "embedding":
+            leaf = "weight"
+        put(f"{module}.{leaf}", arr)
+    return sd

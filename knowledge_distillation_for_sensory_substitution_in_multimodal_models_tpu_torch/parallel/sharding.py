@@ -55,9 +55,17 @@ Where torch does not follow the table, the parameter is replicated over
 * ``patch_embedding``: torch has no tensor-parallel style for a
   convolution.
 * int8 models (``QLinear`` / ``QEmbedding``: the quantized teacher, int8
-  serving): their int8, float32 and bf16 leaves in one layer are not one
-  dtype, which FSDP2 needs, and the parallel styles take ``nn.Linear`` and
-  ``nn.Embedding`` only; such a model is left replicated on every rank.
+  serving, the evaluator's ``--quant`` under a mesh) are left replicated on
+  every rank, though the table shards ``kernel_q`` like ``kernel``:
+  (1) their int8, float32 and bf16 leaves in one layer are not one dtype,
+  which FSDP2 needs, and torch's parallel styles take ``nn.Linear`` and
+  ``nn.Embedding`` only; (2) a row-wise w8a8 split changes each row's
+  activation absmax (the quantize pass's scale) unless that max is
+  all-reduced first, and since K12 fuses the quantize pass and the scale
+  epilogue, such a split would also need K12 to emit int32 partial sums,
+  which it does not: tokens equal to one device would no longer follow by
+  construction; (3) one card cannot measure the memory that sharding
+  would save.  A ``QLinear`` tensor plan is a multi-card item (ROADMAP).
 
 The batch: :func:`shard_batch` gives each rank its rows of the global batch
 over (data, fsdp), the same rows to every rank of a tensor group.
@@ -261,6 +269,23 @@ def tensor_plan(model: nn.Module, t: int) -> Dict[str, str]:
              (tc.num_attention_heads, tc.num_key_value_heads))
         pair(f"{p}.mlp", ("gate_proj", "up_proj"), ("down_proj",))
     return plan
+
+
+def local_out_features(linear: nn.Module) -> int:
+    """The output features of ``linear`` (an ``nn.Linear`` or a
+    ``QLinear``) that this rank's forward computes: out / t for a weight
+    split column-wise over ``tensor``, else all of them.  FSDP's split of
+    dim 0 does not count: FSDP gathers the weight before the forward."""
+    from torch.distributed.tensor import DTensor
+
+    w = linear.weight_q if hasattr(linear, "weight_q") else linear.weight
+    n = w.shape[0]
+    if isinstance(w, DTensor):
+        mesh = w.device_mesh
+        for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names or (), w.placements)):
+            if name == AXIS_TENSOR and pl.is_shard(0):
+                n //= mesh.size(i)
+    return n
 
 
 def is_quantized(model: nn.Module) -> bool:

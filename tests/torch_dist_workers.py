@@ -196,3 +196,93 @@ def tensor_plan_worker(rank, world):
     shard_params(model, make_mesh(MeshConfig(1, 1, world)))
     return {n: (list(p.placements), tuple(p.to_local().shape)) if isinstance(p, DTensor) else (None, None)
             for n, p in model.named_parameters()}
+
+
+def generate_worker(rank, world, cases, state_dicts, batches, max_new, cli_argv=None):
+    """Each case ``(mesh shape, model)`` whose mesh spans ``world`` ranks:
+    the tiny port model (``tiny_served_model``: "none" and "int8_full"
+    with ``state_dicts[model]``, "kv4" the seeded 4-kv-head variant),
+    sharded by ``shard_params``, greedy tokens of ``Generator`` on the whole
+    batch ``batches[model]`` under the mesh.  Returns {case: (tokens,
+    whether every LM parameter is a DTensor, the tokens or the error of a
+    cache sized from the config)}; then, with ``cli_argv``, runs the
+    evaluator CLI's main on this rank and adds its rows under "cli" and,
+    under "cli_sharded", whether every LM parameter was a DTensor at each
+    of its ``generate`` calls."""
+    import math
+
+    from torch.distributed.tensor import DTensor
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.eval.decode import (
+        GenerateConfig, Generator)
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel import (
+        MeshConfig, make_mesh, shard_params, use_mesh)
+
+    class ConfigSizedCache(Generator):
+        """The cache of the config's kv heads on every rank (before local widths)."""
+
+        def init_caches(self, b, total, dtype, device, kv_heads=None):
+            return super().init_caches(b, total, dtype, device)
+
+    gcfg = GenerateConfig(max_new_tokens=max_new, repetition_penalty=1.0, no_repeat_ngram_size=0, eos_token_id=-1)
+    out = {}
+    for case in cases:
+        shape, which = case
+        if math.prod(shape) != world:
+            continue
+        mesh = make_mesh(MeshConfig(*shape))
+        model = tiny_served_model(state_dicts.get(which), which)
+        shard_params(model, mesh)
+        sharded = all(isinstance(p, DTensor) for p in model.language_model.parameters())
+        batch = {k: torch.from_numpy(v) for k, v in batches[which].items()}
+        with use_mesh(mesh):
+            tokens = Generator(model.cfg, gcfg).generate(model, batch)["tokens"]
+            try:  # the tokens, or the error, of a cache of the config's kv heads
+                old = ConfigSizedCache(model.cfg, gcfg).generate(model, batch)["tokens"]
+            except RuntimeError as e:
+                old = str(e)
+        out[case] = (tokens, sharded, old)
+    if cli_argv is not None:
+        from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import (
+            evaluate_onevision)
+
+        seen, generate = [], Generator.generate
+
+        def recording(self, model, batch):
+            seen.append(all(isinstance(p, DTensor) for p in model.language_model.parameters()))
+            return generate(self, model, batch)
+
+        Generator.generate = recording
+        try:
+            out["cli"] = evaluate_onevision.main(cli_argv)["rows"]
+        finally:
+            Generator.generate = generate
+        out["cli_sharded"] = seen
+    return out
+
+
+def tiny_served_model(state_dict, which: str = "none"):
+    """The tiny port model in eval mode with ``state_dict``; "int8" /
+    "int8_full" quantize it in place as the serving CLIs' ``--quant``;
+    "kv4" is the tiny config with 4 kv heads (4 q / 4 kv), seed 0."""
+    import dataclasses
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch import configs as pc
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import LlavaOnevision
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.llava_onevision import (
+        init_weights)
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops.int8 import (
+        quantize_model_int8)
+
+    cfg = pc.llava_onevision_tiny()
+    if which == "kv4":
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_key_value_heads=4))
+    model = LlavaOnevision(cfg, attn_impl="xla")
+    if which == "kv4":
+        init_weights(model, 0)
+    else:
+        model.load_state_dict(state_dict)
+    model.requires_grad_(False).eval()
+    if which in ("int8", "int8_full"):
+        quantize_model_int8(model, include_vision=which == "int8_full")
+    return model
