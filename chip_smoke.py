@@ -110,7 +110,17 @@ Phases (any failure raises, and the exit code is non-zero):
      Frobenius <= 1e-4), the steady step's time at B=8, one epoch through
      the CLI (a finite loss, the validation loss below the seeded model's),
      then its eval mode;
- 15. print one JSON line of kernel results (time, plain time, the least time
+ 15. [aot]: the memory planner (parallel/aot.py), in four processes of its
+     own side by side (a fake process group must not meet [mesh]'s NCCL
+     one): (a) one KD step of [kd]'s configuration on fake tensors, its
+     estimate held to [kd]'s max_memory_allocated within 10%; (b) every
+     kernel entry traced on fake tensors allocates what its real launch
+     allocates (each fresh tensor's shape, dtype and strides, in order);
+     (c) the full-depth 7B teacher + 0.5B student (the JAX planner's pair,
+     max_tiles 5), phase 3, per rank at meshes (1,2,4), (1,8,1) and (1,1,8),
+     bf16 and int8_full teachers: the rule-table and placed parameter
+     bytes, arguments, temps and the estimate against 80 GiB;
+ 16. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
      result line {"ok": true, "device": {...}} last.
@@ -177,6 +187,7 @@ import types
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # [create]'s spell check resolves its learned stage's Hugging Face model id
 # from local files only; offline, a look-up of the hub would only wait.
@@ -1711,6 +1722,8 @@ def kd_path(dev, teacher, tag: str, mode: str, phase: int, steps: int, per_micro
         parts.append({k: v.item() for k, v in metrics.items() if k != "loss"})
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    # the most bytes asked for at once, before the allocator's rounding
+    requested = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"]
     want = {k: per_micro.get(k, 0) * ACCUM * steps for k in COUNTERS}
     log(f"[{tag}] launches over {steps} steps: {launches} (expected {want}; flash_fwd_mha counts "
         f"the student's and the teacher's SigLIP)")
@@ -1736,7 +1749,7 @@ def kd_path(dev, teacher, tag: str, mode: str, phase: int, steps: int, per_micro
     if len(kept) != len(frozen) or len(moved) != len(masters0):
         raise AssertionError(f"{mode} phase {phase}: a frozen parameter moved or a trained master did not")
     del state, step
-    out = dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+    out = dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak, requested=requested)
     if probe is not None:
         out["probe"] = probe(student, tb)
     del student, tb
@@ -3413,6 +3426,205 @@ def panesar_phase(dev) -> dict:
                 eval_rows_s=ev["rows"] / ev["eval_s"], errs=errs)
 
 
+# [aot]: the memory planner (parallel/aot.py) in a process of its own, so
+# that its fake process group never meets [mesh]'s NCCL group.  (a) The
+# planner's estimate for [kd]'s configuration (phase 3, A=2 x B=1, the
+# 3072 bucket, no remat, the bf16 teacher) against [kd]'s measured
+# max_memory_allocated, within AOT_TOL; (b) every kernel entry traced on
+# fake tensors allocates what its real launch allocates (each fresh
+# output's shape, dtype and strides, in order); (c) the full-depth 7B table.
+AOT_TOL = 0.10
+AOT_MESHES = ((1, 2, 4), (1, 8, 1), (1, 1, 8))
+AOT_QUANTS = ("none", "int8_full")
+AOT_TIMEOUT_S = 600
+
+
+def _aot_cases(dev):
+    """Operands and call of every kernel entry (KERNELS) at small shapes."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def f32(*shape, lo=0.0):
+        return torch.rand(*shape, generator=g, device=dev) + lo
+
+    def lab(n, v):
+        return torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    n, v, dm = 300, 1004, 896
+    loss = lambda: (bf(n, dm), bf(v, dm), f32(n, v), lab(n, v), lab(n, v))  # noqa: E731
+    stats = lambda: f32(len(fl.ROW_STATS), n, lo=1.0)  # noqa: E731
+    mha, gqa, gqa128 = ((1, 129, 2, 72), (1, 129, 2, 72)), ((1, 200, 14, 64), (1, 200, 2, 64)), \
+        ((1, 200, 28, 128), (1, 200, 4, 128))
+    fwd = lambda qs, ks: (bf(*qs), bf(*ks), bf(*ks))  # noqa: E731
+    bwd = lambda qs, ks: (*fwd(qs, ks), bf(*qs), f32(qs[0], qs[2], qs[1], lo=1.0),  # noqa: E731
+                          torch.zeros(qs[0], qs[2], qs[1], device=dev))
+    wq = lambda m, k: torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)  # noqa: E731
+    return {
+        "flash_fwd_mha": (fwd(*mha), lambda q, k, v: fa.flash_attention(q, k, v)),
+        "flash_fwd_gqa": (fwd(*gqa), lambda q, k, v: fa.flash_attention_gqa(q, k, v, causal=True)),
+        "flash_fwd_gqa_d128": (fwd(*gqa128), lambda q, k, v: fa.flash_attention_gqa(q, k, v, causal=True)),
+        "flash_bwd_mha": (bwd(*mha), lambda *a: fa.flash_attention_bwd(*a)),
+        "flash_bwd_gqa": (bwd(*gqa), lambda *a: fa.flash_attention_gqa_bwd(*a, causal=True)),
+        "fused_ce_fwd": (loss()[:2] + (lab(n, v),), fc.lse_gold_fwd),
+        "fused_ce_bwd": (loss()[:2] + (lab(n, v), f32(n, lo=3.0), f32(n), f32(n)), fc.lse_gold_bwd),
+        "fused_loca_ce_fwd": (loss(), lambda *a: fl.loca_ce_fwd(*a, inv_t=0.5, alpha=0.8, eps=1e-8)),
+        "fused_loca_ce_bwd": (loss() + (stats(), f32(n), f32(n)), lambda *a: fl.loca_ce_bwd(*a, inv_t=0.5, eps=1e-8)),
+        "fused_loca_fwd": (loss()[:4], lambda *a: fl.loca_fwd(*a, inv_t=0.5, alpha=0.8, eps=1e-8)),
+        "fused_loca_bwd": (loss()[:4] + (stats(), f32(n)), lambda *a: fl.loca_bwd(*a, inv_t=0.5, eps=1e-8)),
+        "fused_kl_fwd": (loss()[:3], lambda *a: fkl.kl_fwd(*a, inv_t=0.5)),
+        "fused_kl_bwd": (loss()[:3] + (f32(n, lo=3.0), f32(n, lo=3.0), f32(n)),
+                         lambda *a: fkl.kl_bwd(*a, inv_t=0.5)),
+        "int8_mm": ((bf(37, 896), wq(4864, 896), f32(4864, lo=0.5)), i8.int8_matmul),
+        "tmat_int8": ((bf(300, 3584), wq(1008, 3584), f32(1008, lo=0.5)),
+                      lambda h, w, s: fl.materialize_teacher_logits_int8(h, w, s, 0.5, 1004)),
+        "flash_phase_ablation": (fwd(*gqa), lambda q, k, v: k13.phase_ablation_forward(q, k, v, "full")),
+        "flash_phase_ablation_d128": (fwd(*gqa128), lambda q, k, v: k13.phase_ablation_forward(q, k, v, "full")),
+    }
+
+
+class _FreshAllocations(TorchDispatchMode):
+    """Logs (op, shape, dtype, strides, device) of every op output that is a
+    fresh tensor (its schema return has no alias annotation), in call
+    order (the stride of a dim of size 1 reads None: it addresses nothing);
+    two logs are held equal on all but the op's name."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for r, t in zip(func._schema.returns, outs):
+            if isinstance(t, torch.Tensor) and r.alias_info is None:
+                strides = tuple(st if sz > 1 else None for sz, st in zip(t.shape, t.stride()))
+                self.log.append((str(func), tuple(t.shape), str(t.dtype), strides, str(t.device)))
+        return out
+
+
+def aot_contract(dev) -> dict:
+    """(b): each kernel entry's fresh allocations, real launch vs traced."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    out = {}
+    with torch.no_grad():
+        for name, (args, call) in _aot_cases(dev).items():
+            with _FreshAllocations() as real:
+                call(*args)
+            torch.cuda.synchronize()
+            with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+                fake_args = [mode.from_tensor(a) for a in args]
+                with _FreshAllocations() as traced:
+                    call(*fake_args)
+            same = [e[1:] for e in real.log] == [e[1:] for e in traced.log]
+            out[name] = dict(equal=same, real=real.log, traced=traced.log)
+    return out
+
+
+def aot_worker(out_path: str, part: str) -> None:
+    """A process of the [aot] phase (``--aot-worker OUT PART``), its result
+    written as JSON to OUT: PART "kd" runs (a) and (b); "d,f,t" the rows of
+    (c) at that mesh, as rank 0 of a fake process group of d x f x t ranks."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_aot_7b as planner
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel import aot
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        parse_mesh,
+    )
+
+    dev = common.setup_device(types.SimpleNamespace(cpu=False))
+    res = {}
+    if part == "kd":
+        t0 = time.perf_counter()
+        _, stats = aot.aot_compile_kd_step(llava_onevision_0_5b(), llava_onevision_7b(), MeshConfig(),
+                                           seq_len=3072, per_dp_batch=1, accum=ACCUM, orig=(530, 730), remat=False)
+        res["kd"] = dict(stats, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res["contract"] = aot_contract(dev)
+        res["contract_seconds"] = time.perf_counter() - t0
+    else:
+        mesh_cfg = parse_mesh(part)
+        planner.start_fake_group(mesh_cfg.num_devices)
+        res["table"] = [planner.plan(mesh_cfg, quant, "none") for quant in AOT_QUANTS]
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _aot_table(rows) -> str:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_aot_7b as planner
+
+    return planner.table(rows)
+
+
+def aot_phase(card: str, kd: dict) -> dict:
+    """[aot]: run :func:`aot_worker`'s parts in processes of their own, side
+    by side, and hold their results (see AOT_TOL)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    parts = ["kd"] + [",".join(map(str, m)) for m in AOT_MESHES]
+    procs = []
+    for i, part in enumerate(parts):  # the traces are host work: one process each, side by side
+        out = os.path.join(build, f"chip_smoke_aot_{i}.json")
+        with open(out + ".log", "w") as log_file:
+            procs.append((part, out, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--aot-worker", out, part],
+                stdout=log_file, stderr=subprocess.STDOUT)))
+    res = {"table": []}
+    try:
+        for part, out, proc in procs:
+            rc = proc.wait(timeout=max(1.0, AOT_TIMEOUT_S - (time.perf_counter() - t0)))
+            with open(out + ".log") as f:
+                text = f.read()
+            os.remove(out + ".log")
+            if rc != 0:
+                raise AssertionError(f"[aot] worker {part} failed ({rc}):\n{text[-6000:]}")
+            with open(out) as f:
+                got = json.load(f)
+            os.remove(out)
+            res["table"] += got.pop("table", [])
+            res.update(got)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res["table_text"] = _aot_table(res["table"])
+    gib = 2**30
+    est, peak = res["kd"]["per_chip_hbm_estimate"], kd["peak"]
+    rel = (est - peak) / peak
+    cats = res["kd"]["categories"]
+    log(f"[aot] {card}: (a) the planner's estimate for [kd]'s step {est / gib:.3f} GiB ({est} B; arguments "
+        f"{res['kd']['argument_bytes'] / gib:.3f}, temps {res['kd']['temp_bytes'] / gib:.3f}; traced in "
+        f"{res['kd']['seconds']:.1f} s, launches {res['kd']['traced_launches']}) vs [kd]'s max_memory_allocated "
+        f"{peak / gib:.3f} GiB ({peak} B): {rel:+.2%} (tol {AOT_TOL:.0%}); [kd]'s requested-bytes peak "
+        f"{kd['requested']} B: {kd['requested'] - est} B over the estimate (what no op dispatch allocates: "
+        f"cuBLAS workspaces), {peak - kd['requested']} B under max_memory_allocated (the allocator's rounding)")
+    log(f"[aot] (a) categories at the start {cats['at_start']}; at the peak {cats['at_peak']}")
+    if not abs(rel) <= AOT_TOL:
+        raise AssertionError(f"[aot] the planner's estimate {est} is {rel:+.2%} off [kd]'s peak {peak}")
+    bad = [name for name, r in res["contract"].items() if not r["equal"]]
+    for name, r in res["contract"].items():
+        log(f"[aot] {card}: (b) {name}: {len(r['real'])} fresh allocations, traced equal to real: {r['equal']}"
+            + ("" if r["equal"] else f"; real {r['real']}; traced {r['traced']}"))
+    if bad or set(res["contract"]) != set(KERNELS):
+        raise AssertionError(f"[aot] traced allocations differ from the real launches': {bad}")
+    log(f"[aot] {card}: (c) the full-depth 7B teacher + 0.5B student (max_tiles 5), phase 3, seq 3072, A=2, "
+        f"remat, per rank:")
+    for line in res["table_text"].splitlines():
+        log(f"[aot] {line}")
+    for r in res["table"]:
+        log(f"[aot] (c) {json.dumps({k: r[k] for k in ('mesh', 'teacher_quant', 'params', 'argument_bytes', 'temp_bytes', 'per_chip_hbm_estimate', 'trace_seconds')})}")
+    log(f"[aot] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+
 def main() -> int:
     import argparse
 
@@ -3422,7 +3634,11 @@ def main() -> int:
                          "time K1-K13 and the [train], [main], [kd], [kd1], [kdfb], [kd8] and [eval] runs "
                          "with its kernels beside this checkout's, and hold K1, K2, K4, K6 and K8-K12 "
                          "bit-equal to its output")
+    ap.add_argument("--aot-worker", nargs=2, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.aot_worker is not None:
+        aot_worker(*args.aot_worker)
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
     card = subprocess.run(
@@ -3510,6 +3726,8 @@ def main() -> int:
     mark("pixtral")
     panesar = panesar_phase(dev)
     mark("panesar")
+    aot_phase(card, kd)
+    mark("aot")
     # launches: the driven paths, each counted from 0 around its own run
     # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs; the
     # dataset creation's and its workflow's CLI runs; the remat settings'

@@ -7,8 +7,10 @@ SUNRGBD: CSV at ``<root>/SUNRGBD/csv_data/<name>`` with columns
 positionally; image paths are joined under ``<root>/SUNRGBD`` with the
 duplicated "SUNRGBD" segment stripped.  DAQUAR (NYU-Depth): CSV at
 ``<root>/<name>``, images at ``<root>/images/<stem>.png`` and
-``<root>/depth/<stem>_depth.png``.  The depth stream goes through the numpy
-encoders of ``data/depth.py``.
+``<root>/depth/<stem>_depth.png``.  The depth stream's Prewitt encodings
+(``prewitt``, ``prewitt_imagenet``) run in the native library
+(``data/native.py``), as the JAX dataset runs them (`dataset.py:80-90`);
+``gray3`` in numpy (``data/depth.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .depth import depth_to_3ch_numpy, depth_to_gray3_numpy
+from .depth import depth_to_gray3_numpy
+from .native import depth_to_3ch_native
 
 DEPTH_ENCODINGS = ("prewitt", "gray3", "prewitt_imagenet")
 
@@ -72,7 +75,7 @@ class SUNRGBDVQADataset:
         if self.depth_encoding == "gray3":
             depth3 = depth_to_gray3_numpy(depth_raw)
         else:
-            depth3 = depth_to_3ch_numpy(
+            depth3 = depth_to_3ch_native(
                 depth_raw, imagenet_bake=self.depth_encoding == "prewitt_imagenet"
             )
         return str(self.df.iloc[idx, 1]), str(self.df.iloc[idx, 2]), rgb, depth3, idx

@@ -15,7 +15,8 @@ modules (``flash_attention``, ``flash_phase_ablation``, ``fused_ce``,
 ``fused_loca``, ``fused_kl``, ``int8``);
 pointers stay alive until the kernels end because the callers hold the
 tensors and the launches are ordered on the current stream with their
-later use.
+later use.  Under ``FakeTensorMode`` a launcher returns before it reads a
+pointer (:func:`_traceable`): the memory planner traces the kernel routes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -190,6 +192,31 @@ def _tile_counter(device):
     return torch.empty(1, dtype=torch.int32, device=device)
 
 
+def _traceable(launcher=None, *, scratch=None):
+    """Make ``launcher`` return at once when its first operand is a
+    ``FakeTensor`` (a step traced under ``FakeTensorMode``, as
+    ``parallel/aot.py`` traces one): before ``_aligned``, ``_ptr`` or
+    :func:`load_library`, none of which a tensor without storage can serve.
+    The op modules allocate every output and scratch buffer before the
+    launch, and ``scratch(device)`` is what the launcher allocates for
+    itself (the flash kernels' tile counter), which a traced call allocates
+    too; so a traced step allocates what the real step allocates and
+    computes nothing.  A real tensor always goes on to the launch."""
+    if launcher is None:
+        return functools.partial(_traceable, scratch=scratch)
+
+    @functools.wraps(launcher)
+    def launch(*args, **kwargs):
+        if isinstance(args[0], FakeTensor):
+            if scratch is not None:
+                scratch(args[0].device)
+            return None
+        return launcher(*args, **kwargs)
+
+    return launch
+
+
+@_traceable(scratch=_tile_counter)
 def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None:
     """Flash forward (K1/K3); ``lse`` f32 [B, Hq, Sq] or None."""
     b, sq, hq, d = q.shape
@@ -200,6 +227,7 @@ def flash_fwd(q, k, v, kv_mask_u8, out, lse, causal: bool, scale: float) -> None
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
+@_traceable(scratch=_tile_counter)
 def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
     """K13: phase-ablation arm ``arm`` (an index into
     ``flash_phase_ablation.ARMS``) of the causal flash forward, Sq == Skv, no
@@ -211,6 +239,7 @@ def flash_phase_ablation(q, k, v, out, shift, arm: int, scale: float) -> None:
             int(arm), float(scale))
 
 
+@_traceable
 def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
               scale: float, part=None) -> None:
     """Flash backward (K2/K4): dq, dk, dv from the saved lse and delta;
@@ -225,6 +254,7 @@ def flash_bwd(q, k, v, kv_mask_u8, dout, lse, delta, dq, dk, dv, causal: bool,
             b, sq, skv, hq, hkv, d, int(causal), float(scale))
 
 
+@_traceable
 def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
     """Fused CE forward (K5) over a [V, DM] head: a sweep whose partials
     ``lse_part`` and ``gold_part`` [nsplit, N] (two per vocab split of the
@@ -236,6 +266,7 @@ def ce_fwd(h, w, labels, lse_part, gold_part, lse, gold) -> None:
             n, w.shape[0], dm, lse_part.shape[0])
 
 
+@_traceable
 def ce_bwd(h, w, labels, lse, g_lse, g_gold, ds, dh_part, dh, dw, nsplit_ds: int) -> None:
     """Fused CE backward (K6) over a [V, DM] head: the bf16 d_logits into
     ``ds`` [N, ld_ds] (a sweep of ``nsplit_ds`` vocab splits), then dh
@@ -247,6 +278,7 @@ def ce_bwd(h, w, labels, lse, g_lse, g_gold, ds, dh_part, dh, dw, nsplit_ds: int
             _ptr(dh), _ptr(dw), n, w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0])
 
 
+@_traceable
 def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, log_eps) -> None:
     """Combined LoCa + CE forward (K11) over a [V, DM] head and an f32 [N, V]
     teacher-logit matrix."""
@@ -258,6 +290,7 @@ def loca_ce_fwd(h, w, tmat, lab, lab_ce, part, rowstats, kl, ce, inv_t, alpha, l
             float(inv_t), float(alpha), float(log_eps))
 
 
+@_traceable
 def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, ds, dh_part, dh, dw, nsplit_ds: int,
                 inv_t, log_eps) -> None:
     """Combined LoCa + CE backward (K11): the bf16 d_logits into ``ds`` [N,
@@ -271,6 +304,7 @@ def loca_ce_bwd(h, w, tmat, lab, lab_ce, rowstats, g_kl, g_ce, ds, dh_part, dh, 
             w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t), float(log_eps))
 
 
+@_traceable
 def loca_fwd(h, w, tmat, lab, part, rowstats, kl, inv_t, alpha, log_eps) -> None:
     """LoCa forward without CE (K9) over a [V, DM] head and an f32 [N, V]
     teacher-logit matrix."""
@@ -281,6 +315,7 @@ def loca_fwd(h, w, tmat, lab, part, rowstats, kl, inv_t, alpha, log_eps) -> None
             float(inv_t), float(alpha), float(log_eps))
 
 
+@_traceable
 def loca_bwd(h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw, nsplit_ds: int, inv_t, log_eps) -> None:
     """LoCa backward without CE (K9): as :func:`loca_ce_bwd`, dW unless
     ``dw`` is None."""
@@ -292,6 +327,7 @@ def loca_bwd(h, w, tmat, lab, rowstats, g, ds, dh_part, dh, dw, nsplit_ds: int, 
             float(log_eps))
 
 
+@_traceable
 def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
     """Temperature KL forward (K7) over a [V, DM] head and an f32 [N, V]
     teacher-logit matrix at 1/T: a sweep whose partials ``part`` [6,
@@ -304,6 +340,7 @@ def kl_fwd(h, w, tmat, part, kl, lse_s, lse_t, inv_t) -> None:
             float(inv_t))
 
 
+@_traceable
 def kl_bwd(h, w, tmat, lse_s, lse_t, g, ds, dh_part, dh, dw, nsplit_ds: int, inv_t) -> None:
     """Temperature KL backward (K8): as :func:`ce_bwd` with the f32 [N, V]
     teacher-logit matrix at 1/T, dW unless ``dw`` is None."""
@@ -314,6 +351,7 @@ def kl_bwd(h, w, tmat, lse_s, lse_t, g, ds, dh_part, dh, dw, nsplit_ds: int, inv
             w.shape[0], dm, ds.shape[1], int(nsplit_ds), dh_part.shape[0], float(inv_t))
 
 
+@_traceable
 def int8_quantize(x, xq, xs, k_block: int, xla_form: bool) -> None:
     """K12 pass 1: bf16 x [N, K] -> int8 xq [N, K] and the f32 scale of each
     row's K block, xs [N, ceil(K / k_block)]."""
@@ -323,6 +361,7 @@ def int8_quantize(x, xq, xs, k_block: int, xla_form: bool) -> None:
             int(k_block), int(xla_form))
 
 
+@_traceable
 def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
     """K12 pass 2: out [N, M] (bf16 or f32) from pass 1's xq and xs, the int8
     weight [M, K] and its f32 per-channel scale [M]."""
@@ -332,6 +371,7 @@ def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
             _ptr(out), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
 
 
+@_traceable
 def tmat_int8(hp, wq, ws, out, inv_t: float) -> None:
     """K10: the f32 teacher logits out [N, V] at 1/T from the hidden states in
     K10's layout hp [N, Dp] (``fused_loca.k10_hidden_layout``) and the first V

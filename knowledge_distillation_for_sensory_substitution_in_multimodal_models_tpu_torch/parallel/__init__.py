@@ -13,8 +13,10 @@ package's:
   sharded across ranks, each with its own rows of the batch;
 * ``tensor``: Megatron-style tensor parallelism of the blocks.
 
-The JAX package's ``parallel/aot.py`` (XLA ``memory_analysis()``) has no
-counterpart here.
+``parallel/aot.py`` is the memory planner: the sharded KD step at real 7B
+widths run on fake tensors under a memory tracker (the JAX module's
+``memory_analysis()``), and the per-rank parameter bytes of the rule table
+and of what ``shard_params`` places.
 """
 
 from .mesh import MeshConfig, active_mesh, make_mesh, use_mesh

@@ -64,8 +64,10 @@ Where torch does not follow the table, the parameter is replicated over
   all-reduced first, and since K12 fuses the quantize pass and the scale
   epilogue, such a split would also need K12 to emit int32 partial sums,
   which it does not: tokens equal to one device would no longer follow by
-  construction; (3) one card cannot measure the memory that sharding
-  would save.  A ``QLinear`` tensor plan is a multi-card item (ROADMAP).
+  construction.  What such a plan would save a rank is the rule table's
+  bytes against the placed ones (``parallel/aot.py``:
+  ``sharded_param_bytes`` against ``placed_param_bytes``); a ``QLinear``
+  tensor plan is a multi-card item (ROADMAP).
 
 The batch: :func:`shard_batch` gives each rank its rows of the global batch
 over (data, fsdp), the same rows to every rank of a tensor group.
