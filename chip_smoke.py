@@ -89,17 +89,23 @@ Phases (any failure raises, and the exit code is non-zero):
      KD default) with and without remat; xla_chunked against xla at 2+2
      layers on the plain path;
  12. [mesh]: (a) the KD CLI with --distributed --mesh 1,1,1 under a one-rank
-     NCCL group (FSDP2/DTensor student, exact launch counts) held to the
-     same CLI run without --distributed; (b) two processes in a gloo group
+     NCCL group (FSDP2/DTensor student and teacher, exact launch counts)
+     held to the same CLI run without --distributed, with the bf16 and
+     with the int8_full teacher; (b) two processes in a gloo group
      on the card, each running K11, K5/K6, K7/K8 and K9 through the *_spmd
      wrappers on half the KD shape's rows, held to one kernel call on all
      rows, with a rank's sums left out of the all-reduce as the negative
-     control;
+     control; (d) two processes in a gloo group on the card, each with one
+     full-width 7B int8_full decoder layer and one SigLIP layer split at
+     tensor = 2 (the row-wise projections through K12's split form), each
+     layer's output bit-equal to one process's, with a rank's int32
+     partials left out of the SUM as the negative control;
      (c) the evaluator CLI with --distributed --mesh 1,1,1 under a
-     one-rank NCCL group, bf16 (every LM parameter a DTensor at each
-     generate call) and int8_full (replicated), each at B=8 on [eval]'s
+     one-rank NCCL group, bf16 and int8_full (every LM parameter a
+     DTensor at each generate call), each at B=8 on [eval]'s
      tree: the predictions CSV byte-equal to [eval]'s plain run, every
-     row's tokens equal, exact launch counts;
+     row's tokens equal, exact launch counts; the host time in FSDP2's
+     forward hooks beside the generate time the mesh adds;
  13. [pixtral]: the Pixtral evaluator CLI with its student backend (the
      0.5B at full width and depth) on 5 rows: answers equal to the
      student answerer called directly, exact K1/K3 launches a row, and a
@@ -110,16 +116,20 @@ Phases (any failure raises, and the exit code is non-zero):
      Frobenius <= 1e-4), the steady step's time at B=8, one epoch through
      the CLI (a finite loss, the validation loss below the seeded model's),
      then its eval mode;
- 15. [aot]: the memory planner (parallel/aot.py), in four processes of its
-     own side by side (a fake process group must not meet [mesh]'s NCCL
-     one): (a) one KD step of [kd]'s configuration on fake tensors, its
+ 15. [aot]: the memory planner (parallel/aot.py), in five processes of its
+     own (a fake process group must not meet [mesh]'s NCCL one), niced:
+     (c)'s four beside [create] (after the timed kernel, step, generate
+     and evaluator phases; [create]'s wall is taken beside them) and
+     waited for before [mesh], (a) and (b)'s last: (a) one KD step of
+     [kd]'s configuration on fake tensors, its
      estimate held to [kd]'s max_memory_allocated within 10%; (b) every
      kernel entry traced on fake tensors allocates what its real launch
      allocates (each fresh tensor's shape, dtype and strides, in order);
      (c) the full-depth 7B teacher + 0.5B student (the JAX planner's pair,
-     max_tiles 5), phase 3, per rank at meshes (1,2,4), (1,8,1) and (1,1,8),
-     bf16 and int8_full teachers: the rule-table and placed parameter
-     bytes, arguments, temps and the estimate against 80 GiB;
+     max_tiles 5), phase 3, per rank at meshes (1,2,4), (1,8,1), (1,1,8)
+     and (1,1,4), bf16 and int8_full teachers: the rule-table and placed
+     parameter bytes (for the int8 teacher beside its whole bytes),
+     arguments, temps and the estimate against 80 GiB;
  16. print one JSON line of kernel results (time, plain time, the least time
      the card could take and what bounds it, and the time of one PyTorch
      call that computes the same function where there is one), then the
@@ -139,7 +149,10 @@ ragged S, at Sq < Skv with a kv mask and at the evaluator's B = 8 over
 ragged prompts, times K1 and K3 with and without the lse, times K3 on the
 causal work without a kv mask beside SDPA's `is_causal` call (the
 library's speed for that work, not the same function), holds K12
-bit-equal to its plain version, and logs the flash backwards' time by kernel (dq, dk/dv and K4's
+bit-equal to its plain version, holds the four kernels of K12's split form
+(row absmax, quantize with a given amax, the int32 GEMM, the scale
+epilogue) bit-equal to their plain versions at the 7B's tensor = 2 local
+shapes and the split form with no group bit-equal to the fused K12, and logs the flash backwards' time by kernel (dq, dk/dv and K4's
 reduce) from torch.profiler.  With `--parent DIR` (another checkout of the
 port, e.g. the parent commit unpacked by `git archive` under build/), the
 script also builds DIR's kernels and, with DIR's flash forward, flash
@@ -329,6 +342,12 @@ KERNELS = {
     # K8's dh kernel; its dW kernel is counted apart (a frozen head skips it)
     "fused_kl_bwd": ("csrc/fused_kl.cu", "ops/fused_kl.py:243", lambda: fkl.kl_bwd.launches),
     "int8_mm": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_matmul.launches),
+    # K12's split form (a row-wise QLinear under a tensor split): its four
+    # kernels, each launched once a call of ops/int8.py::int8_matmul_rowwise
+    "int8_absmax": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_row_absmax.launches),
+    "int8_quantize_given": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_quantize_rows.launches),
+    "int8_gemm_s32": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_gemm_s32.launches),
+    "int8_epilogue": ("csrc/int8_mm.cu", "ops/int8.py:165", lambda: i8.int8_scale_epilogue.launches),
     "tmat_int8": ("csrc/tmat_int8.cu", "ops/fused_loca.py:1042",
                   lambda: fl.materialize_teacher_logits_int8.launches),
     # K13, the phase-ablation arms of K3: its kernel's template parameter ARM,
@@ -470,6 +489,22 @@ def _must_fail(name, fault, outs) -> None:
         raise AssertionError(f"the check of {name} cannot see {fault}: {fro}")
 
 
+def log_ptxas(lib_path, tag: str, only: str = "") -> None:
+    """Log the build log's ptxas lines beside the library: registers,
+    shared memory and spills per kernel (those whose name holds ``only``)."""
+    log_file = lib_path.with_suffix(".log")
+    if not log_file.exists():
+        return
+    entry = None
+    for line in log_file.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and only in entry and "Used" in line:
+            log(f"{tag} {entry[:100]}: {line.split(':', 1)[1].strip()}")
+        elif entry and only in entry and "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            log(f"{tag} {entry}: {line.strip()}")
+
+
 def load_parent(root):
     """The kernel launchers (``ops/_build.py``) of another checkout of the
     port at ``root``, e.g. the parent commit unpacked by ``git archive``:
@@ -485,6 +520,7 @@ def load_parent(root):
     t0 = time.perf_counter()
     parent.load_library()
     log(f"[parent] built {parent.library_path().name} from {path.parent.parent} in {time.perf_counter() - t0:.1f} s")
+    log_ptxas(parent.library_path(), "[parent] [build]", only="kdss_int8")
     return parent
 
 
@@ -864,6 +900,7 @@ def kernel_phase(dev, parent=None) -> list:
     results += loca_kernel_phase(dev, g, parent)
     results += kl_kernel_phase(dev, g, parent)
     results += int8_kernel_phase(dev, g, parent)
+    results += int8_split_kernel_phase(dev, g)
     return results
 
 
@@ -1510,6 +1547,93 @@ def tmat_kernel_phase(dev, g, parent=None) -> dict:
     del ht, wq, ws
     torch.cuda.empty_cache()
     return _result("tmat_int8", err, ms, plain_ms, least, library)
+
+
+# K12's split form at the 7B teacher's tensor = 2 local shapes (label, N,
+# K, M): gate_proj column-wise (the whole K, half the channels) and
+# down_proj row-wise (half the K), where the split form runs.
+INT8_SPLIT_CASES = [("gate_proj t=2 (column-wise)", 3072, 3584, 9472),
+                    ("down_proj t=2 (row-wise)", 3072, 9472, 3584)]
+INT8_SPLIT_FULL = [("gate_proj", 3072, 3584, 18944), ("down_proj", 3072, 18944, 3584)]
+
+
+def int8_split_kernel_phase(dev, g) -> list:
+    """The four kernels of K12's split form (``ops/int8.py``: the row absmax,
+    the quantize pass with a given amax, the int32 GEMM and the scale
+    epilogue) at INT8_SPLIT_CASES, each held bit for bit to its plain
+    version; the quantize pass fed 1.5 x the rows' own amax (a larger
+    column on another rank).  Timed at the row-wise shape beside its bound,
+    its plain version and a library call where one computes the same
+    function (``torch.linalg.vector_norm`` at inf for the absmax,
+    ``torch._int_mm`` for the int32 GEMM), and the four together beside the
+    fused K12 at the same shape.  A negative control (an epilogue fed
+    weight scales of 1 in half the columns) must fail the bounds.  With no
+    group (a group of one) the split form is bit-equal to the fused K12 at
+    the full gate_proj and down_proj shapes."""
+    errs, timed = dict.fromkeys(("int8_absmax", "int8_quantize_given", "int8_gemm_s32", "int8_epilogue"), 0.0), {}
+    for label, n, k, m in INT8_SPLIT_CASES:
+        x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+        wq, ws = i8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.02)
+        amax = i8.int8_row_absmax(x)
+        given = amax * 1.5
+        xq, xs = i8.int8_quantize_rows(x, given)
+        acc = i8.int8_gemm_s32(xq, wq)
+        y = i8.int8_scale_epilogue(acc, xs, ws)
+        torch.cuda.synchronize()
+        want_q = i8.quantize_rows_ref(x, given)
+        pieces = (("int8_absmax", amax, i8.row_absmax_ref(x)), ("int8_quantize_given", xq, want_q[0]),
+                  ("int8_quantize_given", xs, want_q[1]), ("int8_gemm_s32", acc, i8.gemm_s32_ref(xq, wq)),
+                  ("int8_epilogue", y, i8.scale_epilogue_ref(acc, xs, ws)))
+        for name, got, want in pieces:
+            tol = KERNEL_TOL * max(1.0, want.float().abs().max().item())
+            errs[name] = max(errs[name], _hold(f"{name} {label}", [("out", got, want, tol)]))
+            same = torch.equal(got, want)
+            log(f"[kernel] {name} {label}: bit-equal to its plain version: {same}")
+            if not same:
+                raise AssertionError(f"{name} {label} is not bit-equal to its plain version")
+        if label.endswith("(row-wise)"):
+            bad_ws = ws.clone()
+            bad_ws[::2] = 1.0
+            _must_fail("int8_epilogue", "weight scales of 1 in half the columns",
+                       [(i8.int8_scale_epilogue(acc, xs, bad_ws), y)])
+            iters = 10
+            ms = {"int8_absmax": time_ms(lambda: i8.int8_row_absmax(x), iters=iters),
+                  "int8_quantize_given": time_ms(lambda: i8.int8_quantize_rows(x, given), iters=iters),
+                  "int8_gemm_s32": time_ms(lambda: i8.int8_gemm_s32(xq, wq), iters=iters),
+                  "int8_epilogue": time_ms(lambda: i8.int8_scale_epilogue(acc, xs, ws), iters=iters)}
+            plain = {"int8_absmax": time_ms(lambda: i8.row_absmax_ref(x), iters=2, warmup=1),
+                     "int8_quantize_given": time_ms(lambda: i8.quantize_rows_ref(x, given), iters=2, warmup=1),
+                     "int8_gemm_s32": time_ms(lambda: i8.gemm_s32_ref(xq, wq), iters=2, warmup=1),
+                     "int8_epilogue": time_ms(lambda: i8.scale_epilogue_ref(acc, xs, ws), iters=2, warmup=1)}
+            library = {"int8_absmax": time_ms(lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1,
+                                                                               dtype=torch.float32), iters=iters),
+                       "int8_quantize_given": None,
+                       "int8_gemm_s32": time_ms(lambda: torch._int_mm(xq, wq.T), iters=iters),
+                       "int8_epilogue": None}
+            least = {"int8_absmax": bound(0, nbytes(x, amax)),
+                     "int8_quantize_given": bound(0, nbytes(x, given, xq, xs)),
+                     "int8_gemm_s32": bound(2 * n * k * m, nbytes(xq, wq, acc), peak=PEAK_INT8_OPS),
+                     "int8_epilogue": bound(0, nbytes(acc, xs, ws, y))}
+            fused_ms = time_ms(lambda: i8.int8_matmul(x, wq, ws), iters=iters)
+            split_ms = time_ms(lambda: i8.int8_matmul_rowwise(x, wq, ws, None), iters=iters)
+            log(f"[kernel] K12 split form {label} [{n} x {k}] x [{m} x {k}]^T: " + ", ".join(
+                f"{name} {ms[name]:.4f} ms (bound {least[name][0]:.4f} ms, {least[name][1]})" for name in ms)
+                + f"; the four together {split_ms:.4f} ms (no collective), fused K12 {fused_ms:.4f} ms")
+            timed = dict(ms=ms, plain=plain, library=library, least=least)
+        del x, wq, ws, amax, given, xq, xs, acc, y
+        torch.cuda.empty_cache()
+    for label, n, k, m in INT8_SPLIT_FULL:
+        x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+        wq, ws = i8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.02)
+        same = torch.equal(i8.int8_matmul_rowwise(x, wq, ws, None), i8.int8_matmul(x, wq, ws))
+        log(f"[kernel] K12 split form, a group of one, {label} [{n} x {k}] x [{m} x {k}]^T: bit-equal to the fused "
+            f"K12: {same}")
+        if not same:
+            raise AssertionError(f"the split form with a group of one is not the fused K12 at {label}")
+        del x, wq, ws
+    torch.cuda.empty_cache()
+    return [_result(name, errs[name], timed["ms"][name], timed["plain"][name], timed["least"][name],
+                    timed["library"][name]) for name in errs]
 
 
 @contextlib.contextmanager
@@ -2259,7 +2383,7 @@ def eval_phase(dev, parent=None) -> dict:
         raise AssertionError(f"get_all_results summary {summary}")
     # [mesh] (c) holds the evaluator under a one-rank mesh to these two runs
     plain = {quant: dict(csv=open(r["path"], "rb").read(), tokens=[row["tokens"] for row in r["rows"]],
-                         launches=r["launches"], wall=r["wall"], peak=r["peak"])
+                         launches=r["launches"], wall=r["wall"], peak=r["peak"], generate_s=r["generate_s"])
              for quant, r in (("none", r8), ("int8_full", r8q))}
     shutil.rmtree(base, ignore_errors=True)
     paths = dict(b8=r8, b1=r1, ckpt=restored, seed1=other, int8=r8q, b7=r7)
@@ -2919,6 +3043,9 @@ def remat_phase(dev, teacher) -> dict:
 # [mesh] (a): the KD CLI's rows of the synthetic tree (12 rows x 0.34: 4
 # train rows, 2 steps of A=2, and 4 validation rows).
 MESH_SUBSET = "0.34"
+# (label, --teacher_quant): each mesh run beside the plain run of its teacher
+MESH_CLI_RUNS = (("distributed", "none"), ("plain", "none"), ("distributed-int8", "int8_full"),
+                 ("plain-int8", "int8_full"))
 MESH_ROWS_SEED = 23
 MESH_LOSS_TOL = 1e-4  # row-sharded sums vs one kernel call: f32 sums regrouped
 
@@ -2959,33 +3086,44 @@ def mesh_cli_phase(dev) -> dict:
     a launcher raises), its launch counts are exact (per train micro-batch
     the flash forwards of the student twice, remat; per validation
     micro-batch the forwards and K11's forward), and its train and
-    validation losses are held to the plain run's."""
+    validation losses are held to the plain run's.  Then the same pair with
+    ``--teacher_quant int8_full``: the int8 teacher FSDP2-sharded too (every
+    leaf a DTensor at each step), K12 352 a micro-batch as [kd8]'s, losses
+    held to the plain int8 run's.  Each run gathers and names its
+    checkpoint, but writes it as an empty file: a phase-3 checkpoint (f32
+    masters and AdamW moments) is ~12 GB, the card's machine caps what one
+    run writes to its disk at 45 GiB, deleted files included, and
+    [create]'s phase hand-offs already write and read real ones."""
     import re
     import shutil
 
     from torch.distributed.tensor import DTensor
 
     from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.cli import train_online_kd
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import checkpoint as ckpt_mod
     from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train import loop as kd_loop
 
     root = _build.BUILD_DIR.parent / "chip_smoke_mesh"
     shutil.rmtree(root, ignore_errors=True)
-    orig_train, orig_eval = kd_loop.make_train_step, kd_loop.make_eval_step
+    orig_train, orig_eval, orig_save = kd_loop.make_train_step, kd_loop.make_eval_step, ckpt_mod._save
     v, t = llava_onevision_0_5b().vision.num_hidden_layers, llava_onevision_0_5b().text.num_hidden_layers
     per_train = _kd_per_micro(fused_loca_ce_fwd=1, fused_loca_ce_bwd=1)
     per_train["flash_fwd_mha"] += v
     per_train["flash_fwd_gqa"] += t
     per_val = {"flash_fwd_mha": 2 * v, "flash_fwd_gqa": t,
                "flash_fwd_gqa_d128": llava_onevision_7b().text.num_hidden_layers, "fused_loca_ce_fwd": 1}
+    tcfg = llava_onevision_7b()
+    n_proj = 7 * tcfg.text.num_hidden_layers + 6 * tcfg.vision.num_hidden_layers  # [kd8]'s K12 a micro-batch
     runs, launches = {}, dict.fromkeys(COUNTERS, 0)
-    for label in ("distributed", "plain"):
-        rec = dict(micro=0, val=[], losses=[], sharded=None)
+    for label, quant in MESH_CLI_RUNS:
+        rec = dict(micro=0, val=[], losses=[], sharded=None, teacher_sharded=None)
 
         def make_train(models, cfg, _rec=rec):
             fn = orig_train(models, cfg)
 
             def wrapped(state, tp, batch):
                 _rec["sharded"] = all(isinstance(p, DTensor) for p in state.model.parameters())
+                _rec["teacher_sharded"] = all(isinstance(p, DTensor) for p in models.teacher.parameters())
                 _rec["micro"] += batch["labels"].shape[0]
                 state, m = fn(state, tp, batch)
                 _rec["losses"].append(m["loss"].item())
@@ -3008,34 +3146,45 @@ def mesh_cli_phase(dev) -> dict:
                 "--batch_size", "1", "--accumulate_grad_batches", str(ACCUM), "--max_epochs", "1",
                 "--num_workers", "1", "--subset_percentage", MESH_SUBSET, "--checkpoint_dir", str(d / "ck"),
                 "--tensorboard_dir", str(d / "tb")]
-        if label == "distributed":
+        distributed = label.startswith("distributed")
+        if distributed:
             argv += ["--distributed", "--mesh", "1,1,1"]
+        if quant != "none":
+            argv += ["--teacher_quant", quant]
         kd_loop.make_train_step, kd_loop.make_eval_step = make_train, make_eval
+        ckpt_mod._save = lambda path, state: open(path, "wb").close()  # see the docstring
         try:
-            with _one_rank_group() if label == "distributed" else contextlib.nullcontext():
+            with _one_rank_group() if distributed else contextlib.nullcontext():
                 r = _run_cli(f"mesh-{label}", train_online_kd, argv)
         finally:
             kd_loop.make_train_step, kd_loop.make_eval_step = orig_train, orig_eval
-        want = {k: per_train.get(k, 0) * rec["micro"] + per_val.get(k, 0) * len(rec["val"]) for k in COUNTERS}
+            ckpt_mod._save = orig_save
+        k12 = {"int8_mm": n_proj if quant != "none" else 0}
+        want = {k: {**per_train, **k12}.get(k, 0) * rec["micro"] + {**per_val, **k12}.get(k, 0) * len(rec["val"])
+                for k in COUNTERS}
         saved = re.findall(r"saved checkpoint (\S+)", r["log"])
         log(f"[mesh] {label}: {rec['micro']} train and {len(rec['val'])} validation micro-batches, student "
-            f"sharded (FSDP2 DTensors): {rec['sharded']}; losses {rec['losses']}, validation {rec['val']}; "
-            f"{r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB; launches exact: {r['launches'] == want}; "
-            f"checkpoint {[os.path.basename(x) for x in saved]}")
+            f"sharded (FSDP2 DTensors): {rec['sharded']}, teacher ({quant}) sharded: {rec['teacher_sharded']}; "
+            f"losses {rec['losses']}, validation {rec['val']}; {r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB; "
+            f"launches exact: {r['launches'] == want} (K12 {r['launches']['int8_mm']}, "
+            f"{k12['int8_mm']} a micro-batch); checkpoint {[os.path.basename(x) for x in saved]}")
         if r["launches"] != want:
             raise AssertionError(f"[mesh] {label} launches {r['launches']} != {want}")
-        if rec["sharded"] != (label == "distributed") or not rec["losses"] or len(saved) != 1:
+        if (rec["sharded"] != distributed or rec["teacher_sharded"] != distributed or not rec["losses"]
+                or len(saved) != 1):
             raise AssertionError(f"[mesh] {label}: {r['log'][-2000:]}")
         for k in launches:
             launches[k] += r["launches"][k]
         runs[label] = dict(rec, wall=r["wall"], peak=r["peak"])
-    a, b = runs["distributed"], runs["plain"]
-    pairs = list(zip(a["losses"] + a["val"], b["losses"] + b["val"]))
-    worst = max(abs(x - y) / abs(y) for x, y in pairs)
-    log(f"[mesh] --distributed --mesh 1,1,1 vs the plain CLI: {len(pairs)} losses, worst rel diff {worst:.2e}; "
-        f"bit-equal {all(x == y for x, y in pairs)}")
-    if len(a["losses"]) != len(b["losses"]) or worst > LOSS_REL_TOL:
-        raise AssertionError(f"[mesh] the one-rank mesh run disagrees with the plain run: {pairs}")
+    for quant, (dist_label, plain_label) in (("none", ("distributed", "plain")),
+                                             ("int8_full", ("distributed-int8", "plain-int8"))):
+        a, b = runs[dist_label], runs[plain_label]
+        pairs = list(zip(a["losses"] + a["val"], b["losses"] + b["val"]))
+        worst = max(abs(x - y) / abs(y) for x, y in pairs)
+        log(f"[mesh] teacher {quant}: --distributed --mesh 1,1,1 vs the plain CLI: {len(pairs)} losses, worst rel "
+            f"diff {worst:.2e}; bit-equal {all(x == y for x, y in pairs)}")
+        if len(a["losses"]) != len(b["losses"]) or worst > LOSS_REL_TOL:
+            raise AssertionError(f"[mesh] teacher {quant}: the one-rank mesh run disagrees with the plain run: {pairs}")
     shutil.rmtree(root, ignore_errors=True)
     return dict(launches=launches, runs=runs)
 
@@ -3173,15 +3322,153 @@ def mesh_rows_phase(dev) -> dict:
     return dict(seconds=spawn_s)
 
 
+# [mesh] (d): one full-width layer of each tower of the 7B, int8_full, split
+# over two processes (tensor = 2): the decoder layer on one 3072-token row,
+# the SigLIP layer on five 729-patch tiles.
+MESH_INT8_SEED = 29
+MESH_INT8_ROWS = 3072
+MESH_INT8_TILES = 5
+
+
+def _mesh_int8_inputs(dev, model):
+    """The decoder layer's input (x, cos, sin) and the SigLIP layer's."""
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(MESH_INT8_SEED + 1)
+    x = torch.randn(1, MESH_INT8_ROWS, cfg.text.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(MESH_INT8_ROWS, device=dev)[None]
+    cos, sin = qwen2.rope_cos_sin(pos, cfg.text.head_dim, cfg.text.rope_theta, torch.bfloat16)
+    patches = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+    xv = torch.randn(MESH_INT8_TILES, patches, cfg.vision.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    return x, cos, sin, xv
+
+
+def _mesh_int8_worker(rank, world, port, out_dir):
+    """One of the ranks of [mesh] (d): a gloo group on the one card.  Each
+    rank builds the same 1 + 1-layer 7B (seeded, full width) quantized
+    int8_full, runs its decoder and SigLIP layers whole, then splits them
+    over a (world,) tensor mesh by ``tensor_plan`` and the package's int8
+    styles (every rank holds the same weights, so each takes its shard
+    locally: ``src_data_rank`` None) and runs them again, launches counted
+    around that run; then the decoder layer once more with this rank's
+    int32 partials left out of the SUM on rank 1 (the negative control)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel.sharding import (
+        Int8ColwiseParallel,
+        Int8RowwiseParallel,
+        tensor_plan,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=world, init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        _build.load_library()
+        dev = torch.device("cuda", 0)
+        model = common.init_or_load_params(_cut(llava_onevision_7b(), 1), None, seed=MESH_INT8_SEED,
+                                           attn_impl="flash", device=dev, dtype=torch.bfloat16)
+        i8.quantize_model_int8(model, include_vision=True)
+        layer, vlayer = model.language_model.layers[0], model.vision_tower.layers[0]
+        x, cos, sin, xv = _mesh_int8_inputs(dev, model)
+        with torch.no_grad():
+            want = (layer(x, cos, sin, None)[0], vlayer(xv))
+        styles = {}
+        for name, style in tensor_plan(model, world).items():
+            if isinstance(model.get_submodule(name), qwen2.QLinear):
+                styles[name] = (Int8ColwiseParallel if style == "colwise" else Int8RowwiseParallel)()
+                styles[name].src_data_rank = None
+        parallelize_module(model, init_device_mesh("cuda", (world,), mesh_dim_names=("tensor",)), styles)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = (layer(x, cos, sin, None)[0], vlayer(xv))
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        launches = read_counts()
+        real = dist.all_reduce
+
+        def drop_rank1(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+            if rank == 1 and t.dtype == torch.int32:
+                t.zero_()
+            return real(t, op=op, group=group, async_op=async_op)
+
+        dist.all_reduce = drop_rank1
+        try:
+            with torch.no_grad():
+                dropped = layer(x, cos, sin, None)[0]
+        finally:
+            dist.all_reduce = real
+        torch.save(dict(want=[t.cpu() for t in want], got=[t.cpu() for t in got], dropped=dropped.cpu(),
+                        launches=launches, styles=sorted(styles), split_s=split_s),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_int8_phase(dev) -> dict:
+    """[mesh] (d): two processes in a gloo group share the card, each with
+    one full-width decoder layer and one SigLIP layer of the 7B quantized
+    int8_full, split at tensor = 2 by the package's plan and int8 styles:
+    q/k/v and gate/up (and SigLIP's q/k/v) column-wise through the fused
+    K12, o_proj and down_proj (and SigLIP's out_proj) row-wise through
+    K12's split form over the group; SigLIP's MLP stays whole.  Each
+    layer's output on each rank must be bit-equal to the unsplit layer's in
+    one process, with exact launch counts; the decoder layer with rank 1's
+    int32 partials left out of the SUM must not be."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    out_dir = _build.BUILD_DIR.parent / "chip_smoke_mesh_int8"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = 2
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_int8_worker, args=(world, _free_port(), str(out_dir)), nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[mesh] (d) split modules: {ranks[0]['styles']}")
+    for i, name in enumerate(("decoder layer", "SigLIP layer")):
+        want = ranks[0]["want"][i]
+        for r, rec in enumerate(ranks):
+            err = (rec["got"][i].float() - want.float()).abs().max().item()
+            same = torch.equal(rec["got"][i], want) and torch.equal(rec["want"][i], want)
+            log(f"[mesh] (d) {name} {tuple(want.shape)}, rank {r} of two: bit-equal to one process: {same} "
+                f"(max abs diff {err:.3e})")
+            if not same:
+                raise AssertionError(f"[mesh] (d) the {name} split over two ranks differs from one process's")
+    want = ranks[0]["want"][0]
+    for r, rec in enumerate(ranks):
+        fro = _errors(rec["dropped"], want)[1]
+        log(f"[mesh] (d) negative control, rank 1's int32 partials left out of the SUM: rank {r}'s decoder layer "
+            f"rel_fro_err={fro:.3e}, bit-equal {torch.equal(rec['dropped'], want)}")
+        if torch.equal(rec["dropped"], want) or not fro > 0:
+            raise AssertionError("[mesh] (d) the check does not see a rank's partials left out of the SUM")
+    tcfg = llava_onevision_7b()
+    want_launches = {**dict.fromkeys(COUNTERS, 0), "int8_mm": 5 + 3 + 2, "int8_absmax": 3, "int8_quantize_given": 3,
+                     "int8_gemm_s32": 3, "int8_epilogue": 3, "flash_fwd_gqa_d128": 1, "flash_fwd_mha": 1}
+    per_rank = {k: v for k, v in ranks[0]["launches"].items() if v}
+    log(f"[mesh] (d) each rank's launches: {per_rank}; the split layers {ranks[0]['split_s']:.2f} s (host, first "
+        f"call); the two processes {spawn_s:.1f} s; {tcfg.text.num_attention_heads // world} q heads and "
+        f"{tcfg.text.num_key_value_heads // world} kv heads a rank")
+    if any(r["launches"] != want_launches for r in ranks):
+        raise AssertionError(f"[mesh] (d) rank launches {[r['launches'] for r in ranks]} != {want_launches}")
+    torch.cuda.empty_cache()
+    return dict(launches=ranks[0]["launches"], seconds=spawn_s)
+
+
 def mesh_eval_phase(dev, evals) -> dict:
     """[mesh] (c): the evaluator CLI with ``--distributed --mesh 1,1,1``
     under a one-rank NCCL group, on ``_eval_tree``'s 21 rows at B=8, bf16
     and then ``--quant int8_full``, held to [eval]'s plain runs of the same
     flags: the predictions CSV byte for byte, every row's tokens, and exact
-    launch counts (K1/K3 at each prefill; K12 as [eval8]).  The bf16
-    student is sharded by ``shard_params`` (every LM parameter a DTensor
-    when ``generate`` is called, FSDP2 gathering it for each forward); the
-    int8 model stays replicated (no DTensor)."""
+    launch counts (K1/K3 at each prefill; K12 as [eval8]).  The bf16 and
+    the int8 student are sharded by ``shard_params`` (every LM parameter a
+    DTensor when ``generate`` is called, FSDP2 gathering it for each
+    forward, its int8 leaves too)."""
     import shutil
 
     from torch.distributed.tensor import DTensor
@@ -3198,10 +3485,11 @@ def mesh_eval_phase(dev, evals) -> dict:
     generate = Generator.generate
     launches, runs = dict.fromkeys(COUNTERS, 0), {}
     for quant in ("none", "int8_full"):
-        seen = []
+        seen, hooks = [], dict(s=0.0, n=0)
 
-        def recording(self, model, batch, _seen=seen):
+        def recording(self, model, batch, _seen=seen, _hooks=hooks):
             _seen.append(all(isinstance(p, DTensor) for p in model.language_model.parameters()))
+            fsdp_hook_timer(model, _hooks)
             return generate(self, model, batch)
 
         Generator.generate = recording
@@ -3219,13 +3507,46 @@ def mesh_eval_phase(dev, evals) -> dict:
             f"({len(seen)} calls); {r['wall']:.1f} s (plain {plain['wall']:.1f} s), peak {r['peak'] / 2**30:.2f} "
             f"GiB (plain {plain['peak'] / 2**30:.2f} GiB)")
         _hold_launches("mesh-eval", r["launches"], per_quant[quant], n_batches)
-        if not (same_csv and same_tokens) or seen != [quant == "none"] * n_batches:
+        if not (same_csv and same_tokens) or seen != [True] * n_batches:
             raise AssertionError(f"[mesh] evaluator {quant}: the one-rank mesh run is not the plain run")
         for k in launches:
             launches[k] += r["launches"][k]
-        runs[quant] = dict(wall=r["wall"], peak=r["peak"], plain_wall=plain["wall"], plain_peak=plain["peak"])
+        extra = r["generate_s"] - plain["generate_s"]
+        log(f"[mesh] evaluator {quant}: generate {r['generate_s']:.2f} s under the mesh, {plain['generate_s']:.2f} s "
+            f"plain ({extra:+.2f} s); FSDP2's forward hooks {hooks['s']:.2f} s of host in {hooks['n']} calls "
+            + (f" ({hooks['s'] / extra:.0%} of the difference)" if extra > 0 else ""))
+        runs[quant] = dict(wall=r["wall"], peak=r["peak"], plain_wall=plain["wall"], plain_peak=plain["peak"],
+                           generate_s=r["generate_s"], plain_generate_s=plain["generate_s"], hooks_s=hooks["s"])
     shutil.rmtree(base, ignore_errors=True)
     return dict(launches=launches, runs=runs)
+
+
+def fsdp_hook_timer(model, acc: dict) -> None:
+    """Add the host seconds of FSDP2's forward hooks on every ``FSDPModule``
+    of ``model`` to ``acc["s"]`` (their calls to ``acc["n"]``): a hook of
+    this function's own on each side of FSDP2's pre- and post-forward hooks
+    (one prepended, one appended), installed once a model."""
+    from torch.distributed.fsdp import FSDPModule
+
+    if getattr(model, "_fsdp_hooks_timed", False):
+        return
+    model._fsdp_hooks_timed = True
+    for m in model.modules():
+        if not isinstance(m, FSDPModule):
+            continue
+        t0 = [0.0]
+
+        def start(*_, _t0=t0):
+            _t0[0] = time.perf_counter()
+
+        def stop(*_, _t0=t0):
+            acc["s"] += time.perf_counter() - _t0[0]
+            acc["n"] += 1
+
+        m.register_forward_pre_hook(start, prepend=True)
+        m.register_forward_pre_hook(stop)
+        m.register_forward_hook(start, prepend=True)
+        m.register_forward_hook(stop)
 
 
 PIXTRAL_SUBSET = "0.25"  # 5 of the 21 rows
@@ -3434,7 +3755,7 @@ def panesar_phase(dev) -> dict:
 # fake tensors allocates what its real launch allocates (each fresh
 # output's shape, dtype and strides, in order); (c) the full-depth 7B table.
 AOT_TOL = 0.10
-AOT_MESHES = ((1, 2, 4), (1, 8, 1), (1, 1, 8))
+AOT_MESHES = ((1, 2, 4), (1, 8, 1), (1, 1, 8), (1, 1, 4))
 AOT_QUANTS = ("none", "int8_full")
 AOT_TIMEOUT_S = 600
 
@@ -3477,6 +3798,11 @@ def _aot_cases(dev):
         "fused_kl_bwd": (loss()[:3] + (f32(n, lo=3.0), f32(n, lo=3.0), f32(n)),
                          lambda *a: fkl.kl_bwd(*a, inv_t=0.5)),
         "int8_mm": ((bf(37, 896), wq(4864, 896), f32(4864, lo=0.5)), i8.int8_matmul),
+        "int8_absmax": ((bf(37, 896),), i8.int8_row_absmax),
+        "int8_quantize_given": ((bf(37, 896), f32(37, lo=0.5)), i8.int8_quantize_rows),
+        "int8_gemm_s32": ((wq(37, 896), wq(4864, 896)), i8.int8_gemm_s32),
+        "int8_epilogue": ((torch.randint(-2**20, 2**20, (37, 4864), generator=g, device=dev, dtype=torch.int32),
+                           f32(37, lo=0.5), f32(4864, lo=0.5)), i8.int8_scale_epilogue),
         "tmat_int8": ((bf(300, 3584), wq(1008, 3584), f32(1008, lo=0.5)),
                       lambda h, w, s: fl.materialize_teacher_logits_int8(h, w, s, 0.5, 1004)),
         "flash_phase_ablation": (fwd(*gqa), lambda q, k, v: k13.phase_ablation_forward(q, k, v, "full")),
@@ -3561,39 +3887,71 @@ def _aot_table(rows) -> str:
     return planner.table(rows)
 
 
-def aot_phase(card: str, kd: dict) -> dict:
-    """[aot]: run :func:`aot_worker`'s parts in processes of their own, side
-    by side, and hold their results (see AOT_TOL)."""
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
+def _aot_spawn(part: str):
+    """(part, its JSON path, the process) of one :func:`aot_worker` part,
+    niced: its host work runs beside the card's phases."""
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       f"chip_smoke_aot_{part.replace(',', '')}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".log", "w") as log_file:
+        return part, out, subprocess.Popen([sys.executable, os.path.abspath(__file__), "--aot-worker", out, part],
+                                           stdout=log_file, stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10))
+
+
+def aot_start(started: dict) -> None:
+    """Start (c)'s parts, one process a mesh, into ``started``: they trace
+    on fake tensors and launch nothing on the card, but take four of the
+    host's cores, so they start after the timed kernel, step, generate and
+    evaluator phases, beside [create].  (a) and (b), which launch the
+    contract's kernels, start in :func:`aot_phase`, after every phase."""
+    started.update(procs=[_aot_spawn(",".join(map(str, m))) for m in AOT_MESHES], t0=time.perf_counter())
+
+
+def aot_collect(started: dict) -> None:
+    """Wait for ``started``'s processes (AOT_TIMEOUT_S from here) and add
+    their results to ``started["res"]``."""
     t0 = time.perf_counter()
-    parts = ["kd"] + [",".join(map(str, m)) for m in AOT_MESHES]
-    procs = []
-    for i, part in enumerate(parts):  # the traces are host work: one process each, side by side
-        out = os.path.join(build, f"chip_smoke_aot_{i}.json")
-        with open(out + ".log", "w") as log_file:
-            procs.append((part, out, subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--aot-worker", out, part],
-                stdout=log_file, stderr=subprocess.STDOUT)))
-    res = {"table": []}
-    try:
-        for part, out, proc in procs:
-            rc = proc.wait(timeout=max(1.0, AOT_TIMEOUT_S - (time.perf_counter() - t0)))
-            with open(out + ".log") as f:
-                text = f.read()
-            os.remove(out + ".log")
-            if rc != 0:
-                raise AssertionError(f"[aot] worker {part} failed ({rc}):\n{text[-6000:]}")
-            with open(out) as f:
-                got = json.load(f)
-            os.remove(out)
-            res["table"] += got.pop("table", [])
-            res.update(got)
-    finally:
-        for _, _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    res = started.setdefault("res", {"table": []})
+    while started["procs"]:
+        part, out, proc = started["procs"][0]
+        rc = proc.wait(timeout=max(1.0, AOT_TIMEOUT_S - (time.perf_counter() - t0)))
+        started["procs"].pop(0)
+        with open(out + ".log") as f:
+            text = f.read()
+        os.remove(out + ".log")
+        if rc != 0:
+            raise AssertionError(f"[aot] worker {part} failed ({rc}):\n{text[-6000:]}")
+        with open(out) as f:
+            got = json.load(f)
+        os.remove(out)
+        res["table"] += got.pop("table", [])
+        res.update(got)
+
+
+def aot_wait(started: dict) -> None:
+    """Collect (c)'s processes before [mesh], so that no phase after
+    [create] shares the host with them."""
+    t0 = time.perf_counter()
+    aot_collect(started)
+    log(f"[aot] (c)'s workers collected {time.perf_counter() - started['t0']:.1f} s after they started, "
+        f"{time.perf_counter() - t0:.1f} s of it waited after [create]")
+
+
+def aot_stop(started: dict) -> None:
+    """Kill what is left of the [aot] processes."""
+    for _, _, proc in started["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def aot_phase(card: str, kd: dict, started: dict) -> dict:
+    """[aot]: start (a) and (b)'s process, wait for it and hold its results
+    and (c)'s (:func:`aot_wait`'s; see AOT_TOL)."""
+    t0 = time.perf_counter()
+    started["procs"] = [_aot_spawn("kd")]
+    aot_collect(started)
+    res = started["res"]
     res["table_text"] = _aot_table(res["table"])
     gib = 2**30
     est, peak = res["kd"]["per_chip_hbm_estimate"], kd["peak"]
@@ -3620,7 +3978,15 @@ def aot_phase(card: str, kd: dict) -> dict:
         log(f"[aot] {line}")
     for r in res["table"]:
         log(f"[aot] (c) {json.dumps({k: r[k] for k in ('mesh', 'teacher_quant', 'params', 'argument_bytes', 'temp_bytes', 'per_chip_hbm_estimate', 'trace_seconds')})}")
-    log(f"[aot] {time.perf_counter() - t0:.1f} s")
+    est = {(tuple(r["mesh"]), r["teacher_quant"]): r["per_chip_hbm_estimate"] for r in res["table"]}
+    for r in res["table"]:
+        if r["teacher_quant"] != "none":
+            p, mesh = r["params"], tuple(r["mesh"])
+            log(f"[aot] (c) {r['teacher_quant']} teacher at {'x'.join(map(str, mesh))}: placed "
+                f"{p['teacher_placed'] / gib:.3f} GiB a rank, rule table {p['teacher_rule'] / gib:.3f} GiB, every "
+                f"leaf whole {p['teacher_whole'] / gib:.3f} GiB; the step's estimate {est[mesh, r['teacher_quant']] / gib:.3f} "
+                f"GiB a rank, with the bf16 teacher {est.get((mesh, 'none'), 0) / gib:.3f} GiB")
+    log(f"[aot] (a) and (b): {time.perf_counter() - t0:.1f} s after the phases")
     return res
 
 
@@ -3656,18 +4022,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] {how} {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    log_file = lib_path.with_suffix(".log")
-    if log_file.exists():  # ptxas: registers, shared memory and spills per kernel
-        entry = None
-        for line in log_file.read_text().splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "Used" in line and entry:
-                log(f"[build] {entry[:100]}: {line.split(':', 1)[1].strip()}")
-            elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                log(f"[build] {entry}: {line.strip()}")
+    log_ptxas(lib_path, "[build]")
 
     parent = None if args.parent is None else load_parent(args.parent)
+    started = dict(procs=[])
+    try:
+        return run_phases(card, dev, parent, started)
+    finally:
+        aot_stop(started)
+
+
+def run_phases(card: str, dev, parent, started: dict) -> int:
+    """The phases after the build (the module docstring's 3-16); [aot]'s
+    processes go into ``started``."""
     t_main = time.perf_counter()
 
     def mark(tag):
@@ -3715,26 +4082,30 @@ def main() -> int:
     tiny_cli_phase()
     evals = eval_phase(dev, parent)
     mark("tiny, eval")
+    aot_start(started)  # beside [create] only: the phases before and after are timed without them
     created = create_phase(dev)
     mark("create")
+    aot_wait(started)
     mesh = mesh_cli_phase(dev)
     rows = mesh_rows_phase(dev)
-    mark("mesh (a), (b)")
+    mesh_int8 = mesh_int8_phase(dev)
+    mark("mesh (a), (b), (d)")
     mesh_eval = mesh_eval_phase(dev, evals)
     mark("mesh (c)")
     pixtral = pixtral_phase(dev)
     mark("pixtral")
     panesar = panesar_phase(dev)
     mark("panesar")
-    aot_phase(card, kd)
+    aot_phase(card, kd, started)
     mark("aot")
     # launches: the driven paths, each counted from 0 around its own run
     # (K9's: the op path on a [kdF] micro-batch; the evaluator's runs; the
     # dataset creation's and its workflow's CLI runs; the remat settings'
-    # steps; the mesh CLI runs; the evaluator under a mesh; the Pixtral CLI;
-    # the Panesar CLI, which launches none)
-    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created, remat, mesh, mesh_eval,
-             pixtral, panesar)
+    # steps; the mesh CLI runs; the int8 layers split over two processes
+    # (rank 0's); the evaluator under a mesh; the Pixtral CLI; the Panesar
+    # CLI, which launches none)
+    paths = (train, serve, serve8, kd, kdf, kdf["probe"], kd1, kdfb, kd8, evals, created, remat, mesh, mesh_int8,
+             mesh_eval, pixtral, panesar)
     for kr in kernels:
         kr["launches"] = sum(path["launches"][kr["name"]] for path in paths)
     log(f"[summary] {card}: train step {train['step_ms']:.1f} ms "
@@ -3760,7 +4131,8 @@ def main() -> int:
         f"{evals['host8']:.2f} s, generate {evals['gen8']:.2f} s), {evals['rows_s1']:.3f} rows/s at B=1, "
         f"peak {evals['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: [create] dataset creation with the student color backend and the "
-        f"create -> train 1/2/3 -> evaluate -> summary workflow {created['seconds']:.1f} s")
+        f"create -> train 1/2/3 -> evaluate -> summary workflow {created['seconds']:.1f} s (beside [aot] (c)'s "
+        f"four planner processes)")
     for label, r in remat["runs"].items():
         samples = 2 if label.startswith("B=2") else ACCUM
         log(f"[summary] {card}: [remat] {label}: step {r['step_ms']:.1f} ms (host), device {r['device_ms']:.1f} ms, "
@@ -3768,6 +4140,8 @@ def main() -> int:
     for label, r in mesh["runs"].items():
         log(f"[summary] {card}: [mesh] KD CLI {label}: {r['wall']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB")
     log(f"[summary] {card}: [mesh] two ranks on the card, the row-sharded K5-K9 and K11: {rows['seconds']:.1f} s")
+    log(f"[summary] {card}: [mesh] (d) two ranks on the card, the 7B int8_full decoder and SigLIP layers split at "
+        f"tensor = 2 (K12's split form): {mesh_int8['seconds']:.1f} s")
     for quant, r in mesh_eval["runs"].items():
         log(f"[summary] {card}: [mesh] evaluator {quant} at B={EVAL_BS} under --distributed --mesh 1,1,1: "
             f"{r['wall']:.1f} s ({EVAL_ROWS / r['wall']:.3f} rows/s), peak {r['peak'] / 2**30:.2f} GiB; plain "

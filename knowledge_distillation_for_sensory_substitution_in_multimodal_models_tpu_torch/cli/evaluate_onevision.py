@@ -20,8 +20,7 @@ runs exactly ``--max_new_tokens`` steps, so every rank makes the same
 forward calls; rank 0 writes the CSV and the summary, and every rank
 returns the same rows.  ``--distributed`` shards even on one rank (as the
 trainers do; the JAX CLI skips a one-device mesh).  An int8 model
-(``--quant int8|int8_full``) stays replicated on every rank (see
-``--quant``).
+(``--quant int8|int8_full``) shards by the same rules (see ``--quant``).
 
 * ``--model_id`` naming a 7B model evaluates the 7B config (with
   ``--real_model`` or real data);
@@ -71,11 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 QUANT_MESH_NOTE = (
-    ". Under --distributed an int8 model stays replicated on every rank: torch's parallel styles take "
-    "nn.Linear and nn.Embedding only; a row-wise w8a8 split would change each row's activation absmax "
-    "unless that max were all-reduced, and would need K12 (which fuses the quantize pass and the scale "
-    "epilogue) to emit int32 partial sums, so its tokens would no longer equal one device's by "
-    "construction; and one card cannot measure the memory that sharding would save")
+    ". Under --distributed an int8 model is sharded as a float one is (parallel/sharding.py): its "
+    "projection pairs split over tensor, the row-wise ones through K12's split form (the row absmax "
+    "all-reduced, int32 partial sums), so its tokens equal one device's; FSDP2 shards every int8 leaf; "
+    "SigLIP's int8 MLP stays whole over tensor (4304 / t is no multiple of 16)")
 
 
 def predictions_file(args) -> str:

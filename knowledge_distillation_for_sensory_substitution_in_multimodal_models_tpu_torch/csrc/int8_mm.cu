@@ -50,6 +50,23 @@
 //   at n = 8, zero-filled past N), where a 64-row x tile would waste 63/64
 //   of the tensor cores' work on zeros and the weight bytes bound the time.
 //
+// The split form (ops/int8.py::int8_matmul_rowwise), for a projection whose
+// K is split over a tensor-parallel group, runs the XLA form in four
+// launches with two all-reduces between them, so that the sharded product
+// equals the one-device one bit for bit:
+//   `row_absmax`: one warp per row writes the local max |x| of the rank's K
+//     columns, f32 [N], unclamped (the group then takes the MAX);
+//   `quantize_rows<GIVEN = true>`: reads that global amax instead of
+//     computing one, clamps it to 1e-6 and quantizes and scales as above
+//     (xs = amax / 127, the XLA form's division);
+//   `gemm_kernel<G, S32 = true>`: the same mainloop, the raw s32
+//     accumulators written to int32 [N, M] and the epilogue skipped (the
+//     group then SUMs them, exact in int32 at every width of the repo);
+//   `scale_epilogue`: y = (float(acc) * xs) * ws with __fmul_rn in the JAX
+//     order, cast to bf16 or f32; four elements a thread, bound by bytes.
+// GIVEN and S32 are template parameters, so the fused K12's instantiations
+// (false) compile to the code they had before the split form.
+//
 // What bounds it on the H100: at the 7B teacher's projections (N = 3072
 // rows, K and M of 3584 and 18944) the product is 70-417 GOP against
 // 30-206 MB of operands and output, so it is bound by the int8 tensor-core
@@ -99,9 +116,34 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// This lane's part of max |x| over columns [k0, k1) of a row (8 bf16 a load).
+__device__ __forceinline__ float lane_absmax(const bf* __restrict__ xr, int k0, int k1, int lane) {
+  float amax = 0.f;
+  for (int k = k0 + lane * 8; k < k1; k += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf* e = reinterpret_cast<const bf*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+  }
+  return amax;
+}
+
+// The split form's first pass: amax[row] = max |x| over the row, unclamped.
+__global__ void __launch_bounds__(Q_WARPS * 32)
+    row_absmax(const bf* __restrict__ x, float* __restrict__ amax, int N, int K) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * Q_WARPS + warp;
+  if (row >= N) return;
+  const float a = warp_max(lane_absmax(x + (long)row * K, 0, K, lane));
+  if (lane == 0) amax[row] = a;
+}
+
+// GIVEN: `given` (f32 [N], the split form's all-reduced amax, k_block = K)
+// replaces the computed absmax of each row.
+template <bool GIVEN>
 __global__ void __launch_bounds__(Q_WARPS * 32)
     quantize_rows(const bf* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int N,
-                  int K, int k_block, int nkb, int div_scale) {
+                  int K, int k_block, int nkb, int div_scale, const float* __restrict__ given) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * Q_WARPS + warp;
   if (row >= N) return;
@@ -109,14 +151,11 @@ __global__ void __launch_bounds__(Q_WARPS * 32)
   int8_t* qr = xq + (long)row * K;
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * k_block, k1 = min(k0 + k_block, K);
-    float amax = 0.f;
-    for (int k = k0 + lane * 8; k < k1; k += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-      const bf* e = reinterpret_cast<const bf*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
-    }
-    amax = fmaxf(warp_max(amax), 1e-6f);
+    float amax;
+    if constexpr (GIVEN)
+      amax = fmaxf(given[row], 1e-6f);
+    else
+      amax = fmaxf(warp_max(lane_absmax(xr, k0, k1, lane)), 1e-6f);
     const float mul = 127.0f / amax;
     for (int k = k0 + lane * 8; k < k1; k += 256) {
       const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
@@ -152,11 +191,13 @@ __device__ __forceinline__ void mma_stage(int (&acc)[G::NACC], const unsigned ch
   }
 }
 
-template <class G>
+// S32 (the split form, XLA form only): out is int32 [N, M], the raw sums.
+template <class G, bool S32>
 __global__ void __launch_bounds__(G::THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                 const float* __restrict__ xs, const float* __restrict__ ws, void* __restrict__ out, int N, int K,
                 int M, int k_block, int nkb, int out_f32, int n_at, int n_tiles) {
+  static_assert(!(S32 && G::KBLOCK), "the split form is the XLA form");
   constexpr int STAGES = G::STAGES, NACC = G::NACC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -253,6 +294,27 @@ __global__ void __launch_bounds__(G::THREADS, 1)
       if (lane == 0) mbar_arrive(empty + prev);
     }
 
+    if constexpr (S32) {
+      // the split form: the raw s32 sums, no epilogue
+#pragma unroll
+      for (int i = 0; i < NACC; i += 2) {
+        const int xr = x_row(i);
+        if constexpr (G::SWAP) {
+          const int ch = ar + 8 * ((i / 2) % 2);
+          if (ch >= M) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (xr + e < N) static_cast<int*>(out)[static_cast<long>(xr + e) * M + ch] = acc[i + e];
+        } else {
+          const int col = b0 + 8 * (i / 4) + 2 * ti;
+          if (xr >= N || col >= M) continue;
+          *reinterpret_cast<int2*>(static_cast<int*>(out) + static_cast<long>(xr) * M + col) =
+              make_int2(acc[i], acc[i + 1]);
+        }
+      }
+      continue;
+    }
+
     // y = (acc * row scale) * ws per output channel (the XLA form: its one
     // K block's sum), or accf * ws (K12's).
 #pragma unroll
@@ -293,6 +355,29 @@ __global__ void __launch_bounds__(G::THREADS, 1)
   }
 }
 
+// The split form's epilogue: out[r, c] = (float(acc[r, c]) * xs[r]) * ws[c],
+// four consecutive elements of a row a thread (M a multiple of 8).
+__global__ void __launch_bounds__(256)
+    scale_epilogue(const int* __restrict__ acc, const float* __restrict__ xs, const float* __restrict__ ws,
+                   void* __restrict__ out, int N, int M, int out_f32) {
+  const long quads = static_cast<long>(N) * M / 4;
+  for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; q < quads;
+       q += static_cast<long>(gridDim.x) * blockDim.x) {
+    const long e0 = q * 4;
+    const int row = static_cast<int>(e0 / M), col = static_cast<int>(e0 % M);
+    const int4 a = reinterpret_cast<const int4*>(acc)[q];
+    const int av[4] = {a.x, a.y, a.z, a.w};
+    const float s = xs[row];
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = __fmul_rn(__fmul_rn(__int2float_rn(av[j]), s), ws[col + j]);
+    if (out_f32)
+      reinterpret_cast<float4*>(out)[q] = make_float4(y[0], y[1], y[2], y[3]);
+    else
+      reinterpret_cast<uint2*>(out)[q] = make_uint2(kdss::pack_bf16(y[0], y[1]), kdss::pack_bf16(y[2], y[3]));
+  }
+}
+
 // A 2-D map of an int8 matrix [rows, K] (row-major, 16-byte aligned, K a
 // multiple of 16): dims {K, rows}, boxes of 128 K bytes x `box_rows` rows
 // with the 128-byte swizzle; ops/int8.py::tma_map states the same map.
@@ -304,7 +389,7 @@ inline cudaError_t int8_map(CUtensorMap* map, const void* base, int rows, int K,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <class G>
+template <class G, bool S32 = false>
 cudaError_t launch_gemm(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int N, int K,
                         int M, int k_block, int nkb, int out_f32, cudaStream_t st) {
   const int ra = G::SWAP ? M : N, rb = G::SWAP ? N : M;
@@ -312,7 +397,7 @@ cudaError_t launch_gemm(const void* xq, const void* xs, const void* wq, const vo
   cudaError_t err = int8_map(&map_a, G::SWAP ? wq : xq, ra, K, G::BM);
   if (err == cudaSuccess) err = int8_map(&map_b, G::SWAP ? xq : wq, rb, K, G::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    err = cudaFuncSetAttribute(gemm_kernel<G, S32>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -321,9 +406,9 @@ cudaError_t launch_gemm(const void* xq, const void* xs, const void* wq, const vo
   const long n_tiles = static_cast<long>(n_at) * ((rb + G::BN - 1) / G::BN);
   if (n_tiles > (1L << 30)) return cudaErrorInvalidValue;
   const int grid = n_tiles < sms ? static_cast<int>(n_tiles) : sms;
-  gemm_kernel<G><<<grid, G::THREADS, G::SMEM, st>>>(map_a, map_b, static_cast<const float*>(xs),
-                                                    static_cast<const float*>(ws), out, N, K, M, k_block, nkb,
-                                                    out_f32, n_at, static_cast<int>(n_tiles));
+  gemm_kernel<G, S32><<<grid, G::THREADS, G::SMEM, st>>>(map_a, map_b, static_cast<const float*>(xs),
+                                                         static_cast<const float*>(ws), out, N, K, M, k_block, nkb,
+                                                         out_f32, n_at, static_cast<int>(n_tiles));
   return cudaGetLastError();
 }
 
@@ -347,9 +432,9 @@ int kdss_int8_quantize(const void* x, void* xq, void* xs, int N, int K, int k_bl
                        void* stream) {
   if (!shapes_ok(N, K, k_block)) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (N + Q_WARPS - 1) / Q_WARPS;
-  quantize_rows<<<grid, Q_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  quantize_rows<false><<<grid, Q_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), N, K, k_block,
-      n_blocks(K, k_block), div_scale);
+      n_blocks(K, k_block), div_scale, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,6 +454,49 @@ int kdss_int8_gemm(const void* xq, const void* xs, const void* wq, const void* w
     err = nkb == 1 ? launch_gemm<GemmXla>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st)
                    : launch_gemm<GemmKBlock>(xq, xs, wq, ws, out, N, K, M, k_block, nkb, out_f32, st);
   return static_cast<int>(err);
+}
+
+// The split form (ops/int8.py::int8_matmul_rowwise), four launches:
+// amax f32 [N] = max |x| of each row of x bf16 [N, K], unclamped.
+int kdss_int8_absmax(const void* x, void* amax, int N, int K, void* stream) {
+  if (N <= 0 || K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  row_absmax<<<(N + Q_WARPS - 1) / Q_WARPS, Q_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(x), static_cast<float*>(amax), N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq int8 [N, K] and xs f32 [N] = max(amax, 1e-6) / 127 with the given amax
+// f32 [N] (the group's MAX of kdss_int8_absmax's).
+int kdss_int8_quantize_given(const void* x, const void* amax, void* xq, void* xs, int N, int K, void* stream) {
+  if (!shapes_ok(N, K, K) || amax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  quantize_rows<true><<<(N + Q_WARPS - 1) / Q_WARPS, Q_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), N, K, K, 1, 1,
+      static_cast<const float*>(amax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc int32 [N, M] = xq [N, K] . wq [M, K]^T, the raw sums (the XLA form's
+// GEMM, epilogue skipped); M a multiple of 8, K of 16.
+int kdss_int8_gemm_s32(const void* xq, const void* wq, void* acc, int N, int K, int M, void* stream) {
+  if (!shapes_ok(N, K, K) || M <= 0 || M % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      N <= DECODE_ROWS ? launch_gemm<GemmDecode, true>(xq, nullptr, wq, nullptr, acc, N, K, M, K, 1, 0, st)
+                       : launch_gemm<GemmXla, true>(xq, nullptr, wq, nullptr, acc, N, K, M, K, 1, 0, st);
+  return static_cast<int>(err);
+}
+
+// out [N, M] (f32 if out_f32, else bf16) = (float(acc) * xs[row]) * ws[col];
+// M a multiple of 8.
+int kdss_int8_epilogue(const void* acc, const void* xs, const void* ws, void* out, int N, int M, int out_f32,
+                       void* stream) {
+  if (N <= 0 || M <= 0 || M % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long quads = static_cast<long>(N) * M / 4;
+  const long blocks = (quads + 255) / 256;
+  scale_epilogue<<<static_cast<int>(blocks < 8192 ? blocks : 8192), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(acc), static_cast<const float*>(xs), static_cast<const float*>(ws), out, N, M,
+      out_f32);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -42,7 +42,8 @@ from torch import nn
 
 from ..configs import Qwen2Config
 from ..ops.attention import FLASH_IMPLS, dot_product_attention, gqa_decode_attention
-from ..ops.int8 import absmax_quantize_weight, int8_matmul, quantize_embedding_int8
+from ..ops._build import is_dtensor
+from ..ops.int8 import absmax_quantize_weight, int8_matmul, int8_matmul_rowwise, quantize_embedding_int8
 from .remat import check_policy, needs_remat, remat_call
 
 
@@ -98,13 +99,62 @@ def write_cache(cache: torch.Tensor, x: torch.Tensor, index: Union[int, torch.Te
     cache[rows, pos] = x
 
 
-class QLinear(nn.Module):
+# FSDP2 of torch 2.11 makes each sharded parameter with ``requires_grad`` set
+# before it restores the flag, which an int8 tensor refuses.  So, for FSDP2,
+# the int8 modules below hold ``weight_q`` as this one-byte float, its bytes
+# unchanged (a dtype view, never a cast), and view it back where they read it;
+# no other module knows the format.
+INT8_CARRIER = torch.float8_e4m3fn
+
+
+def _as_int8(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.int8 else t.view(torch.int8)
+
+
+class _Int8Weight(nn.Module):
+    """``weight_q``'s format, shared by :class:`QLinear` and
+    :class:`QEmbedding`: int8, or ``INT8_CARRIER`` once
+    :meth:`hold_for_fsdp` has run."""
+
+    def int8_weight(self) -> torch.Tensor:
+        """``weight_q`` as int8, whole: a sharded ``weight_q`` (a DTensor,
+        before FSDP2 has gathered it for a forward) is refused."""
+        if is_dtensor(self.weight_q):
+            raise ValueError("weight_q is still sharded: read it after the model's forward")
+        return _as_int8(self.weight_q)
+
+    def hold_for_fsdp(self) -> None:
+        """Re-register ``weight_q`` as a frozen ``INT8_CARRIER`` view of the
+        same bytes (a DTensor shard by shard), which FSDP2 can shard."""
+        from torch.distributed.tensor import DTensor
+
+        p = self.weight_q
+        if p.dtype != torch.int8:
+            return
+        if isinstance(p, DTensor):
+            data = DTensor.from_local(p.to_local().view(INT8_CARRIER), p.device_mesh, p.placements,
+                                      run_check=False, shape=p.shape, stride=p.stride())
+        else:
+            data = p.detach().view(INT8_CARRIER)
+        self.weight_q = nn.Parameter(data, requires_grad=False)
+
+
+class QLinear(_Int8Weight):
     """Int8 (w8a8) drop-in for ``nn.Linear`` on frozen paths (the JAX
     ``QDense``): ``weight_q`` int8 [out, in] (the torch layout, the
     transpose of the JAX ``kernel_q``), ``weight_scale`` f32 [out], an
     optional bias.  The output comes from ``ops/int8.py::int8_matmul`` in
     its XLA form (the JAX default) in the input's dtype; the bias is added
-    after that cast, in that dtype, as ``QDense`` adds it."""
+    after that cast, in that dtype, as ``QDense`` adds it.
+
+    Split over a tensor-parallel group (``parallel/sharding.py``'s int8
+    styles make ``weight_q`` a DTensor over the group): column-wise
+    (``weight_q`` Shard(0)) the whole input gives this rank's output
+    columns through ``int8_matmul`` with its local weight, scales and bias;
+    row-wise (Shard(1)) the input is this rank's K shard, and the output,
+    whole on every rank, comes from the split form
+    ``int8_matmul_rowwise`` over the group, the bias added once, after
+    the reduce."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None):
         super().__init__()
@@ -128,11 +178,20 @@ class QLinear(nn.Module):
         return q
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_matmul(x, self.weight_q, self.weight_scale, out_dtype=x.dtype)
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        wq, ws, bias = self.weight_q, self.weight_scale, self.bias
+        if is_dtensor(wq):
+            group = wq.device_mesh.get_group()
+            rowwise = wq.placements[0].is_shard(1)
+            wq, ws = _as_int8(wq.to_local()), ws.to_local()
+            bias = None if bias is None else bias.to_local()
+            if rowwise:
+                y = int8_matmul_rowwise(x, wq, ws, group, out_dtype=x.dtype)
+                return y if bias is None else y + bias.to(y.dtype)
+        y = int8_matmul(x, _as_int8(wq), ws, out_dtype=x.dtype)
+        return y if bias is None else y + bias.to(y.dtype)
 
 
-class QEmbedding(nn.Module):
+class QEmbedding(_Int8Weight):
     """Int8 drop-in for ``nn.Embedding`` (the JAX ``QEmbed``):
     ``weight_q`` int8 [V, D] with a per-row f32 ``weight_scale`` [V, 1]; a
     lookup gathers the int8 row times its scale, then casts to ``dtype``.
@@ -154,7 +213,7 @@ class QEmbedding(nn.Module):
         return q
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        rows = self.weight_q[input_ids].float()
+        rows = self.int8_weight()[input_ids].float()
         return (rows * self.weight_scale[input_ids, 0][..., None]).to(self.dtype)
 
 

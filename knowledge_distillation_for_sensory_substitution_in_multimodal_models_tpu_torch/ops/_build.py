@@ -137,6 +137,14 @@ def load_library() -> ctypes.CDLL:
         "kdss_int8_quantize": [vp] * 3 + [ci] * 4 + [vp],
         # xq, xs, wq, ws, out, N, K, M, k_block, out_f32, stream
         "kdss_int8_gemm": [vp] * 5 + [ci] * 5 + [vp],
+        # the split form: x, amax, N, K, stream
+        "kdss_int8_absmax": [vp] * 2 + [ci] * 2 + [vp],
+        # x, amax, xq, xs, N, K, stream
+        "kdss_int8_quantize_given": [vp] * 4 + [ci] * 2 + [vp],
+        # xq, wq, acc, N, K, M, stream
+        "kdss_int8_gemm_s32": [vp] * 3 + [ci] * 3 + [vp],
+        # acc, xs, ws, out, N, M, out_f32, stream
+        "kdss_int8_epilogue": [vp] * 4 + [ci] * 3 + [vp],
         # hp, wq, ws, out, N, V, D, Dp, inv_t, stream
         "kdss_tmat_int8": [vp] * 4 + [ci] * 4 + [cf, vp],
     }
@@ -369,6 +377,44 @@ def int8_gemm(xq, xs, wq, ws, out, k_block: int) -> None:
     _aligned(xq, wq, out)
     _launch("kdss_int8_gemm", xq.device, _ptr(xq), _ptr(xs), _ptr(wq), _ptr(ws),
             _ptr(out), n, k, wq.shape[0], int(k_block), int(out.dtype == torch.float32))
+
+
+@_traceable
+def int8_absmax(x, amax) -> None:
+    """K12's split form, the row-absmax pass: max |x| of each row of bf16 x
+    [N, K] into f32 ``amax`` [N], unclamped."""
+    n, k = x.shape
+    _aligned(x)
+    _launch("kdss_int8_absmax", x.device, _ptr(x), _ptr(amax), n, k)
+
+
+@_traceable
+def int8_quantize_given(x, amax, xq, xs) -> None:
+    """K12's split form, the quantize pass with a given row amax f32 [N]
+    (clamped to 1e-6 in the kernel): int8 xq [N, K] and xs = amax / 127, f32
+    [N]."""
+    n, k = x.shape
+    _aligned(x, xq)
+    _launch("kdss_int8_quantize_given", x.device, _ptr(x), _ptr(amax), _ptr(xq), _ptr(xs), n, k)
+
+
+@_traceable
+def int8_gemm_s32(xq, wq, acc) -> None:
+    """K12's split form, the GEMM with an int32 output: the raw sums
+    xq [N, K] . wq [M, K]^T into ``acc`` int32 [N, M], no epilogue."""
+    n, k = xq.shape
+    _aligned(xq, wq, acc)
+    _launch("kdss_int8_gemm_s32", xq.device, _ptr(xq), _ptr(wq), _ptr(acc), n, k, wq.shape[0])
+
+
+@_traceable
+def int8_epilogue(acc, xs, ws, out) -> None:
+    """K12's split form, the scale epilogue: out [N, M] (bf16 or f32) =
+    (float(acc) * xs[row]) * ws[col]."""
+    n, m = acc.shape
+    _aligned(acc, out)
+    _launch("kdss_int8_epilogue", acc.device, _ptr(acc), _ptr(xs), _ptr(ws), _ptr(out), n, m,
+            int(out.dtype == torch.float32))
 
 
 @_traceable

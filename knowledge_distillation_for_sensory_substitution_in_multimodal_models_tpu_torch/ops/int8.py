@@ -26,13 +26,32 @@ the plain version :func:`int8_matmul_ref`, which computes both forms with the
 same arithmetic (the integer products summed exactly in float64).  K12 has
 no backward (the JAX package defines none): inputs must not require grad.
 
+The split form, for a projection whose K is split over a tensor-parallel
+group (a row-wise ``QLinear``, ``parallel/sharding.py``):
+:func:`int8_matmul_rowwise` runs the XLA form in four launches of K12's
+source, with two all-reduces between them.  The JAX form has global
+semantics under GSPMD (the absmax over all of K, an int32 dot, the scales
+after), and so does this: each rank writes the local ``max |x|`` of its K
+columns (:func:`int8_row_absmax`), the group takes their MAX, each rank
+quantizes its columns with that global amax (:func:`int8_quantize_rows`,
+the 1e-6 clamp applied to the global value), multiplies them into raw int32
+partial sums (:func:`int8_gemm_s32`), the group SUMs the int32 partials
+(exact: |acc| <= K * 127^2 <= 18944 * 16129 < 2^31 at every width of the
+repo), and each rank applies the scales (:func:`int8_scale_epilogue`,
+``(float(acc) * (amax / 127)) * ws``).  So the sharded product equals the
+one-device product bit for bit, and with no group it equals
+:func:`int8_matmul`'s.  Each piece has its plain version (``*_ref``).
+
 :func:`quantize_model_int8` is the counterpart of the JAX
 ``quantize_lm_params_int8``: it replaces a model's ``nn.Linear`` projections
 (and optionally its token embedding and untied head) by their int8 modules
 in place, one module at a time, so a bf16 model is never held twice.
 
-Counter: ``int8_matmul.launches``, one per call that launches K12 (its
-quantize and GEMM kernels together).  CPU calls never count.
+Counters: ``int8_matmul.launches``, one per call that launches K12 (its
+quantize and GEMM kernels together), and one on each piece of the split
+form (``int8_row_absmax.launches``, ``int8_quantize_rows.launches``,
+``int8_gemm_s32.launches``, ``int8_scale_epilogue.launches``), one per
+kernel launch.  CPU calls never count.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 # Modules whose weight becomes (weight_q, weight_scale); they match the
 # QLinear call sites of models/qwen2.py and models/siglip.py.
@@ -196,8 +216,161 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     return out.reshape(*lead, m)
 
 
+# ------------------------------------------------------------ the split form
+
+
+def row_absmax_ref(x2: torch.Tensor) -> torch.Tensor:
+    """Plain version of the row-absmax pass: max |x| of each row of x2 [N,
+    K] in f32 [N], unclamped."""
+    return x2.float().abs().amax(dim=-1)
+
+
+def quantize_rows_ref(x2: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the quantize pass with a given row amax (f32 [N]):
+    a = max(amax, 1e-6), xq = clip(round(x * (127 / a)), -127, 127) int8
+    [N, K] (half to even) and the row scale xs = a / 127, f32 [N]."""
+    a = amax.float().clamp_min(1e-6)[:, None]
+    xq = torch.round(x2.float() * (torch.full_like(a, 127.0) / a)).clamp_(-127, 127).to(torch.int8)
+    return xq, _div(a, 127.0)[:, 0]
+
+
+def gemm_s32_ref(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int32 GEMM: xq [N, K] . wq [M, K]^T summed
+    exactly (float64, exact below 2^53), as int32 [N, M]."""
+    return (xq.double() @ wq.double().T).to(torch.int32)
+
+
+def scale_epilogue_ref(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of the scale epilogue: y = (float(acc) * xs) * ws in
+    f32 (the JAX order), cast to ``out_dtype``."""
+    return ((acc.float() * xs[:, None]) * ws).to(out_dtype)
+
+
+def _split_args(x2: torch.Tensor) -> None:
+    if x2.dtype != torch.bfloat16 or x2.ndim != 2 or not x2.is_contiguous():
+        raise ValueError(f"x must be contiguous bfloat16 [N, K], got {x2.dtype} {tuple(x2.shape)}")
+    if x2.shape[1] % 16:
+        raise ValueError(f"K12 takes K a multiple of 16, got K={x2.shape[1]}")
+    if x2.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {x2.device}")
+
+
+def int8_row_absmax(x2: torch.Tensor) -> torch.Tensor:
+    """max |x| of each row of bf16 x2 [N, K], f32 [N], unclamped: the
+    row-absmax pass of K12 on CUDA, :func:`row_absmax_ref` on the CPU."""
+    if x2.device.type == "cpu":
+        return row_absmax_ref(x2)
+    _split_args(x2)
+    from . import _build
+
+    amax = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
+    _build.int8_absmax(x2, amax)
+    int8_row_absmax.launches += 1
+    return amax
+
+
+def int8_quantize_rows(x2: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq int8 [N, K], xs f32 [N]) of bf16 x2 [N, K] quantized with the
+    given row amax f32 [N] (clamped to 1e-6 here): K12's quantize pass on
+    CUDA, :func:`quantize_rows_ref` on the CPU."""
+    if x2.device.type == "cpu":
+        return quantize_rows_ref(x2, amax)
+    _split_args(x2)
+    if amax.dtype != torch.float32 or amax.shape != (x2.shape[0],) or not amax.is_contiguous():
+        raise ValueError(f"amax must be contiguous float32 [{x2.shape[0]}], got {amax.dtype} {tuple(amax.shape)}")
+    from . import _build
+
+    n, k, dev = x2.shape[0], x2.shape[1], x2.device
+    xq = torch.empty(n, k, dtype=torch.int8, device=dev)
+    xs = torch.empty(n, dtype=torch.float32, device=dev)
+    _build.int8_quantize_given(x2, amax, xq, xs)
+    int8_quantize_rows.launches += 1
+    return xq, xs
+
+
+def int8_gemm_s32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The raw int32 sums xq [N, K] . wq [M, K]^T, int32 [N, M]: K12's GEMM
+    with its epilogue skipped on CUDA, :func:`gemm_s32_ref` on the CPU."""
+    if xq.device.type == "cpu":
+        return gemm_s32_ref(xq, wq)
+    n, k = xq.shape
+    if xq.dtype != torch.int8 or not xq.is_contiguous():
+        raise ValueError(f"xq must be contiguous int8 [N, K], got {xq.dtype} {tuple(xq.shape)}")
+    if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[1] != k or not wq.is_contiguous():
+        raise ValueError(f"wq must be contiguous int8 [M, {k}], got {wq.dtype} {tuple(wq.shape)}")
+    m = wq.shape[0]
+    if k % 16 or m % 8:
+        raise ValueError(f"K12 takes K a multiple of 16 and M of 8, got K={k}, M={m}")
+    if wq.device != xq.device or xq.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {xq.device} and {wq.device}")
+    swapped, a_rows, b_rows = gemm_shape(n, k, None)
+    tma_map(m if swapped else n, k, a_rows)
+    tma_map(n if swapped else m, k, b_rows)
+    from . import _build
+
+    acc = torch.empty(n, m, dtype=torch.int32, device=xq.device)
+    _build.int8_gemm_s32(xq, wq, acc)
+    int8_gemm_s32.launches += 1
+    return acc
+
+
+def int8_scale_epilogue(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y = (float(acc) * xs) * ws from int32 acc [N, M], the row scales xs
+    f32 [N] and the channel scales ws f32 [M], in ``out_dtype``: K12's scale
+    epilogue on CUDA, :func:`scale_epilogue_ref` on the CPU."""
+    if acc.device.type == "cpu":
+        return scale_epilogue_ref(acc, xs, ws, out_dtype)
+    n, m = acc.shape
+    if acc.dtype != torch.int32 or not acc.is_contiguous() or m % 8:
+        raise ValueError(f"acc must be contiguous int32 [N, M], M a multiple of 8, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    for name, t, size in (("xs", xs, n), ("ws", ws, m)):
+        if t.dtype != torch.float32 or t.shape != (size,) or not t.is_contiguous() or t.device != acc.device:
+            raise ValueError(f"{name} must be contiguous float32 [{size}] on {acc.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    from . import _build
+
+    out = torch.empty(n, m, dtype=out_dtype, device=acc.device)
+    _build.int8_epilogue(acc, xs, ws, out)
+    int8_scale_epilogue.launches += 1
+    return out
+
+
+def int8_matmul_rowwise(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, group=None,
+                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The split form (see the module docstring): x [..., K_local] @
+    dequant(wq [M, K_local])^T summed over the ranks of ``group`` (their K
+    shards), each rank's product quantized with the group's row absmax ->
+    [..., M] in ``out_dtype``, equal on every rank.  ``ws`` f32 [M] is
+    whole.  ``group`` None (or a group of one) makes no collective and
+    equals :func:`int8_matmul` bit for bit.  Local amax -> all_reduce(MAX)
+    -> quantize -> int32 GEMM -> all_reduce(SUM) on the int32 sums ->
+    epilogue; the plain pieces on the CPU."""
+    if x.requires_grad or wq.requires_grad or ws.requires_grad:
+        raise ValueError("int8_matmul_rowwise has no backward: its inputs must not require grad")
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.device.type != "cpu":
+        kernel_args(x2, wq, ws, out_dtype, None)
+    split = group is not None and dist.get_world_size(group) > 1
+    amax = int8_row_absmax(x2)
+    if split:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    xq, xs = int8_quantize_rows(x2, amax)
+    acc = int8_gemm_s32(xq, wq)
+    if split:
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    return int8_scale_epilogue(acc, xs, ws, out_dtype).reshape(*lead, wq.shape[0])
+
+
 def reset_launch_counts() -> None:
     int8_matmul.launches = 0
+    for fn in (int8_row_absmax, int8_quantize_rows, int8_gemm_s32, int8_scale_epilogue):
+        fn.launches = 0
 
 
 reset_launch_counts()

@@ -54,7 +54,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed._tools.fsdp2_mem_tracker import FSDPMemTracker, _FSDPRefType
+from torch.distributed._tools.fsdp2_mem_tracker import FSDPMemTracker
 from torch.distributed._tools.mem_tracker import MemTracker, _MemRefType
 from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -66,7 +66,7 @@ from ..configs import (
     llava_onevision_7b,
 )
 from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, MeshConfig, make_mesh
-from .sharding import is_quantized, param_partition_specs, shard_batch, shard_params, tensor_plan
+from .sharding import param_partition_specs, shard_batch, shard_params, tensor_plan
 
 def depth_reduced(cfg: LlavaOnevisionConfig, layers: int = 2) -> LlavaOnevisionConfig:
     """Width-exact, depth-reduced variant: real hidden/vocab/head/mlp dims,
@@ -115,15 +115,14 @@ def sharded_param_bytes(model: torch.nn.Module, mesh) -> int:
 
 def placed_param_bytes(model: torch.nn.Module, mesh) -> int:
     """The parameter bytes that ``shard_params`` places on rank 0 of
-    ``mesh``: a quantized model stays whole on every rank; otherwise the
-    tensor plan's Linears (``tensor_plan``) hold 1/tensor of their weight
-    (column-wise ones of their bias too), and FSDP2 then splits every
-    parameter's dim 0 over ``fsdp`` into padded chunks of ceil(dim0 / fsdp)
-    rows (replicated over ``data``).  ``model``: unsharded, e.g. on
-    ``meta``."""
+    ``mesh``: the tensor plan's Linears and ``QLinear``s (``tensor_plan``)
+    hold 1/tensor of their weight, column-wise ones of every leaf
+    (``weight_scale`` and bias too), row-wise ones of ``weight`` /
+    ``weight_q`` only; FSDP2 then splits every parameter's dim 0, int8,
+    float32 and bf16 alike, over ``fsdp`` into padded chunks of
+    ceil(dim0 / fsdp) rows (replicated over ``data``).  ``model``:
+    unsharded, e.g. on ``meta``."""
     sizes = _axis_sizes(mesh)
-    if is_quantized(model):
-        return sum(p.numel() * p.element_size() for p in model.parameters())
     t, f = sizes[AXIS_TENSOR], sizes[AXIS_FSDP]
     plan = tensor_plan(model, t)
     total = 0
@@ -133,7 +132,7 @@ def placed_param_bytes(model: torch.nn.Module, mesh) -> int:
         style = plan.get(module)
         if style == "colwise":
             shape[0] //= t
-        elif style == "rowwise" and leaf == "weight":
+        elif style == "rowwise" and leaf in ("weight", "weight_q"):
             shape[1] //= t
         shape[0] = -(-shape[0] // f)
         total += math.prod(shape) * p.element_size()
@@ -320,21 +319,17 @@ class StepTracker(_RootAgain, MemTracker):
 
 
 class MeshTracker(_RootAgain, FSDPMemTracker):
-    """``FSDPMemTracker`` over several roots (the student, and the teacher
-    where FSDP2 shards it).  ``held`` are tensors a rank holds outside FSDP2
-    (a replicated int8 teacher's parameters), counted with the sharded
-    parameters; ``inputs`` the batch."""
+    """``FSDPMemTracker`` over several roots (the student and the teacher,
+    bf16 or int8, both sharded by FSDP2); ``inputs`` the batch."""
 
-    def __init__(self, roots, optimizer, held=(), inputs=()):
+    def __init__(self, roots, optimizer, inputs=()):
         super().__init__(roots[0], optimizer)
-        self._roots, self._held, self._inputs = roots, held, inputs
+        self._roots, self._inputs = roots, inputs
 
     def _instrument_fsdp_module(self) -> None:
         for root in self._roots:
             self._root_mod = root
             super()._instrument_fsdp_module()
-        for t in self._held:
-            self._update_and_maybe_create_winfos(t, _FSDPRefType.SHARDED_PARAM)
         self.track_inputs(self._inputs)
 
     def _fsdp_state_pre_forward(self, fsdp_mod, orig):
@@ -416,11 +411,7 @@ def aot_compile_kd_step(*args, **kwargs):
             tracker.track_external(*(m for n, m in state.optimizer.masters.items()
                                      if m is not state.optimizer.params[n]))
         else:
-            from torch.distributed.fsdp import FSDPModule
-
-            roots = [m for m in (student, teacher) if isinstance(m, FSDPModule)]
-            held = list(teacher.parameters()) if teacher not in roots else []
-            tracker = MeshTracker(roots, state.optimizer.opt, held=held, inputs=tuple(batch.values()))
+            tracker = MeshTracker([student, teacher], state.optimizer.opt, inputs=tuple(batch.values()))
         tracker.category_max, tracker.device_type = {}, student.device.type
         with tracker, use_mesh(mesh), _propagation_untracked(tracker):
             start = tracker.get_tracker_snapshot("current")

@@ -45,6 +45,53 @@ for a whole model.
   is a choice of the Flax layout, and FSDP2 gathers whole parameters
   before use either way.
 
+int8 models (``QLinear`` / ``QEmbedding``: the quantized teacher, int8
+serving, the evaluator's ``--quant`` under a mesh) shard by the same rules:
+
+* a ``QLinear`` pair splits as its float pair does, by parallel styles of
+  this module over the int8 leaves (:class:`Int8ColwiseParallel`,
+  :class:`Int8RowwiseParallel`; torch's ``ColwiseParallel`` /
+  ``RowwiseParallel`` take ``nn.Linear`` and ``nn.Embedding`` only).  They
+  make the leaves DTensors over the tensor group and install no hooks:
+  ``QLinear.forward`` reads the placement.  Column-wise, ``weight_q``,
+  ``weight_scale`` and ``bias`` are Shard(0) and the input is whole, so
+  each rank takes the whole-K absmax itself and needs no collective;
+  row-wise, ``weight_q`` is Shard(1), ``weight_scale`` and ``bias`` are
+  replicated, and the forward is K12's split form
+  (``ops/int8.py::int8_matmul_rowwise``: the row absmax all-reduced by
+  MAX, the int32 partial sums by SUM, then the scales), which equals the
+  one-device product bit for bit;
+* the pair rule has a shape condition for ``QLinear`` pairs: a pair splits
+  only where K12 takes every local shape (K a multiple of 16 and M of 8,
+  ``ops/int8.py::kernel_args``), as the attention splits only into whole
+  heads.  It reads shapes only, so the CPU and the card place the same.
+  At the 7B's widths the decoder's seven projections split at tensor = 2
+  and 4 (local widths 1792 / 896, 256 / 128 and 9472 / 4736) and SigLIP's
+  attention splits (1152 / t, 16 heads), but **SigLIP's MLP stays whole
+  over tensor**, where the JAX table splits it: its fc2's local K, 4304 / t
+  = 2152 or 1076, is no multiple of 16, which TMA's row stride needs.
+  That keeps 26 layers x 2 x 1152 x 4304 int8 bytes, ~0.24 GiB x (1 - 1/t),
+  more on a rank than the table.  (Padding the shard's K to a multiple of
+  16 at placement would keep the bits, but every rank's fc1 output would
+  then need padding columns too, a copy of the activations; not done.)
+* FSDP2 shards them as it shards float models: the int8, float32 and bf16
+  leaves of a layer are all-gathered together as bytes (FSDP2 gathers a
+  group of mixed dtypes as uint8, and only gradients must share a dtype: a
+  frozen model has none).  A model with int8 modules takes no
+  ``param_dtype`` (:func:`shard_params` refuses one: a cast would read the
+  int8 bytes as numbers).  One catch: FSDP2 of torch 2.11 makes each
+  sharded parameter with ``requires_grad`` set before it restores the
+  flag, which an int8 tensor refuses; so each ``QLinear`` and
+  ``QEmbedding`` hands FSDP2 its ``weight_q`` in a one-byte float format,
+  the same bytes, and views it back where it reads it
+  (``models/qwen2.py::INT8_CARRIER``, ``hold_for_fsdp``, ``int8_weight``);
+* the ``QEmbedding`` and the vocab-major int8 head are FSDP-sharded at
+  rest and replicated over ``tensor`` (as the float embedding and head
+  below); K10 reads the int8 head after the forward, and the KD step
+  reshards the teacher after it (``train/step.py::_teacher_logits``):
+  FSDP2 keeps a root's own parameters gathered after its forward (for a
+  backward), which a frozen teacher never runs.
+
 Where torch does not follow the table, the parameter is replicated over
 ``tensor`` (and still sharded by FSDP):
 
@@ -54,20 +101,7 @@ Where torch does not follow the table, the parameter is replicated over
   ``tensor`` would be gathered whole again every micro-batch.
 * ``patch_embedding``: torch has no tensor-parallel style for a
   convolution.
-* int8 models (``QLinear`` / ``QEmbedding``: the quantized teacher, int8
-  serving, the evaluator's ``--quant`` under a mesh) are left replicated on
-  every rank, though the table shards ``kernel_q`` like ``kernel``:
-  (1) their int8, float32 and bf16 leaves in one layer are not one dtype,
-  which FSDP2 needs, and torch's parallel styles take ``nn.Linear`` and
-  ``nn.Embedding`` only; (2) a row-wise w8a8 split changes each row's
-  activation absmax (the quantize pass's scale) unless that max is
-  all-reduced first, and since K12 fuses the quantize pass and the scale
-  epilogue, such a split would also need K12 to emit int32 partial sums,
-  which it does not: tokens equal to one device would no longer follow by
-  construction.  What such a plan would save a rank is the rule table's
-  bytes against the placed ones (``parallel/aot.py``:
-  ``sharded_param_bytes`` against ``placed_param_bytes``); a ``QLinear``
-  tensor plan is a multi-card item (ROADMAP).
+* SigLIP's int8 MLP (above).
 
 The batch: :func:`shard_batch` gives each rank its rows of the global batch
 over (data, fsdp), the same rows to every rank of a tensor group.
@@ -81,6 +115,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor.parallel import ParallelStyle
 
 from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_NAMES, AXIS_TENSOR, axis_size, dp_rank, dp_size
 
@@ -230,23 +265,44 @@ def logical_to_sharding(specs: Dict[str, Tuple], mesh) -> Dict[str, list]:
     return out
 
 
+def _k12_takes(shape, dim: int, t: int) -> bool:
+    """Whether K12 takes the local [M, K] of an int8 weight split over
+    ``t`` ranks on ``dim`` (K a multiple of 16, M of 8: ``kernel_args``)."""
+    m, k = shape
+    if dim == 0:
+        m //= t
+    else:
+        k //= t
+    return k % 16 == 0 and m % 8 == 0
+
+
 def _split_over_tensor(model: nn.Module, prefix: str, names, dim: int, t: int) -> bool:
-    """Whether the table splits every listed Linear's weight over tensor on
-    torch dim ``dim`` (0: columns of the output, 1: rows of the input)."""
+    """Whether the table splits every listed Linear's (or ``QLinear``'s)
+    weight over tensor on torch dim ``dim`` (0: columns of the output, 1:
+    rows of the input), and, for a ``QLinear``, whether K12 takes its local
+    shape."""
+    from ..models.qwen2 import QLinear
+
     mods = dict(model.named_modules())
     for n in names:
         m = mods.get(f"{prefix}.{n}")
-        if not isinstance(m, nn.Linear):
+        if isinstance(m, QLinear):
+            leaf, shape = "weight_q", tuple(m.weight_q.shape)
+            if not _k12_takes(shape, dim, t):
+                return False
+        elif isinstance(m, nn.Linear):
+            leaf, shape = "weight", tuple(m.weight.shape)
+        else:
             return False
-        w = f"{prefix}.{n}.weight"
-        if param_spec(w, tuple(m.weight.shape), {AXIS_TENSOR: t})[dim] != AXIS_TENSOR:
+        if param_spec(f"{prefix}.{n}.{leaf}", shape, {AXIS_TENSOR: t})[dim] != AXIS_TENSOR:
             return False
     return True
 
 
 def tensor_plan(model: nn.Module, t: int) -> Dict[str, str]:
-    """{Linear's name: "colwise" | "rowwise"}: the tensor-parallel plan of
-    ``model`` at tensor size ``t`` (see the module docstring)."""
+    """{Linear's (or QLinear's) name: "colwise" | "rowwise"}: the
+    tensor-parallel plan of ``model`` at tensor size ``t`` (see the module
+    docstring)."""
     plan: Dict[str, str] = {}
     if t == 1:
         return plan
@@ -290,10 +346,40 @@ def local_out_features(linear: nn.Module) -> int:
     return n
 
 
-def is_quantized(model: nn.Module) -> bool:
-    from ..models.qwen2 import QEmbedding, QLinear
+class _Int8Style(ParallelStyle):
+    """A tensor-parallel style over a ``QLinear``'s int8 leaves (see the
+    module docstring): each leaf becomes a DTensor over the tensor group,
+    Shard(``dims[leaf]``) or, for None, replicated.  No hooks: the input and
+    output stay plain tensors and ``QLinear.forward`` reads the placement of
+    ``weight_q``."""
 
-    return any(isinstance(m, (QLinear, QEmbedding)) for m in model.modules())
+    dims: Dict[str, Optional[int]] = {}
+
+    def _apply(self, module: nn.Module, device_mesh) -> nn.Module:
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+        for leaf, dim in self.dims.items():
+            p = getattr(module, leaf)
+            if p is None:
+                continue
+            placement = Replicate() if dim is None else Shard(dim)
+            dt = distribute_tensor(p.detach(), device_mesh, [placement], src_data_rank=self.src_data_rank)
+            module.register_parameter(leaf, nn.Parameter(dt, requires_grad=False))
+        return module
+
+
+class Int8ColwiseParallel(_Int8Style):
+    """``weight_q``, ``weight_scale`` and ``bias`` Shard(0): this rank's
+    output channels, from the whole input."""
+
+    dims = {"weight_q": 0, "weight_scale": 0, "bias": 0}
+
+
+class Int8RowwiseParallel(_Int8Style):
+    """``weight_q`` Shard(1), ``weight_scale`` and ``bias`` replicated: this
+    rank's K columns, summed over the group by K12's split form."""
+
+    dims = {"weight_q": 1, "weight_scale": None, "bias": None}
 
 
 def _dp_mesh(mesh):
@@ -305,19 +391,28 @@ def shard_params(model: nn.Module, mesh, *, param_dtype: Optional[torch.dtype] =
     docstring) and return it.  ``param_dtype``: the dtype the layers compute
     in (FSDP2's ``MixedPrecisionPolicy``, gradients reduced in float32),
     for a trained model whose sharded parameters are its float32 masters;
-    None computes in the parameters' own dtype.  ``requires_grad`` is kept
-    as it was (the tensor-parallel styles make new parameters)."""
-    if is_quantized(model):
-        return model
+    None computes in the parameters' own dtype (a frozen or int8 model;
+    a model with int8 modules refuses any other).  ``requires_grad`` is
+    kept as it was (the tensor-parallel styles make new parameters)."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
 
+    from ..models.qwen2 import QEmbedding, QLinear
+
+    int8 = [m for m in model.modules() if isinstance(m, (QLinear, QEmbedding))]
+    if int8 and param_dtype is not None:
+        raise ValueError(f"a model with int8 modules computes in its own dtypes: param_dtype must be None, "
+                         f"got {param_dtype}")
     frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
     t = axis_size(mesh, AXIS_TENSOR)
     plan = tensor_plan(model, t)
     if plan:
-        styles = {"colwise": ColwiseParallel, "rowwise": RowwiseParallel}
-        parallelize_module(model, mesh[AXIS_TENSOR], {n: styles[s]() for n, s in plan.items()})
+        styles = {(False, "colwise"): ColwiseParallel, (False, "rowwise"): RowwiseParallel,
+                  (True, "colwise"): Int8ColwiseParallel, (True, "rowwise"): Int8RowwiseParallel}
+        parallelize_module(model, mesh[AXIS_TENSOR], {
+            n: styles[isinstance(model.get_submodule(n), QLinear), s]() for n, s in plan.items()})
+    for m in int8:
+        m.hold_for_fsdp()
     for n, p in model.named_parameters():
         p.requires_grad_(n not in frozen)
     kw = dict(mesh=_dp_mesh(mesh))

@@ -127,7 +127,7 @@ def teacher_head(model: LlavaOnevision):
     vocab-major, which K10 reads in place (the JAX ``teacher_head``)."""
     head = getattr(model.language_model, "lm_head", None)
     if isinstance(head, QLinear):
-        return head.weight_q, head.weight_scale
+        return head.int8_weight(), head.weight_scale
     return _fused_head(model)
 
 
@@ -177,17 +177,30 @@ def _teacher_logits(teacher: LlavaOnevision, batch: Dict[str, torch.Tensor], voc
     operands accumulate into a float32 result, as the JAX dot's
     ``preferred_element_type``, outside any kernel, as in the JAX package.
     An int8 head: K10 over the first ``vocab`` rows of the int8 head."""
+    from torch.distributed.fsdp import FSDPModule
+
     t_hidden, t_vis = _forward_hidden(teacher, batch, "teacher")
     th = t_hidden.reshape(-1, t_hidden.shape[-1])
     wt = teacher_head(teacher)
     if isinstance(wt, tuple):
-        return materialize_teacher_logits_int8(th, *wt, 1.0 / temperature, vocab), t_vis
-    wt = wt[:vocab]
-    if th.dtype == torch.float32:
-        t = th @ wt.T
+        t = materialize_teacher_logits_int8(th, *wt, 1.0 / temperature, vocab)
     else:
-        t = torch.mm(th, wt.T, out_dtype=torch.float32)
-    return t.mul_(1.0 / temperature), t_vis
+        wt = wt[:vocab]
+        if th.dtype == torch.float32:
+            t = th @ wt.T
+        else:
+            t = torch.mm(th, wt.T, out_dtype=torch.float32)
+        t.mul_(1.0 / temperature)
+    if isinstance(teacher, FSDPModule):
+        # FSDP2 keeps a root's own parameters (the embedding, the head)
+        # gathered after its forward, for a backward that a frozen teacher
+        # never runs: free them once the head has been read.  A bf16
+        # teacher too: the rule table holds its root sharded at rest, as the
+        # JAX step gathers it inside each step, at the cost of gathering
+        # the root again every micro-batch (2 x 152128 x 3584 bf16 bytes at
+        # 7B, ~2.03 GiB, of which a rank receives (fsdp - 1) / fsdp)
+        teacher.reshard()
+    return t, t_vis
 
 
 CE_IMPLS = ("fused", "chunked")

@@ -58,6 +58,7 @@ def plan(mesh_cfg, quant: str, embed_quant: str, *, layers=None, seq_len=3072, a
         "student_placed": aot.placed_param_bytes(student.float() if mesh_cfg.num_devices > 1 else student,
                                                  mesh_cfg),
         "teacher_placed": aot.placed_param_bytes(teacher, mesh_cfg),
+        "teacher_whole": sum(p.numel() * p.element_size() for p in teacher.parameters()),
     }
     t0 = time.perf_counter()
     _, stats = aot.aot_compile_kd_step(

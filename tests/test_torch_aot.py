@@ -140,29 +140,41 @@ def test_full_depth_teacher_fits_the_jax_bound():
     assert aot.sharded_param_bytes(int8_teacher, MeshConfig(1, 2, 4)) < 0.65 * bf16_bytes
 
 
-@pytest.mark.parametrize("mesh", ((1, 2, 4), (1, 8, 1), (1, 1, 8)), ids=lambda m: "x".join(map(str, m)))
-def test_placed_param_bytes_follow_shard_params(mesh):
-    """Rank 0's parameter bytes after ``shard_params``: the bf16 teacher's
-    tensor-plan Linears hold 1/t of their weight (a column-wise Linear of
-    its bias too), every parameter then splits dim 0 over fsdp into padded
-    chunks; an int8 teacher stays whole."""
-    d, f, t = mesh
-    _, teacher = _pair("teacher", "none", "none")
-    plan = tensor_plan(teacher, t)
+def _hand_placed(model, t, f):
+    plan = tensor_plan(model, t)
     want = 0
-    for name, p in teacher.named_parameters():
+    for name, p in model.named_parameters():
         module, _, leaf = name.rpartition(".")
         rows = p.shape[0] // t if plan.get(module) == "colwise" else p.shape[0]
         cols = p.numel() // p.shape[0]
-        if plan.get(module) == "rowwise" and leaf == "weight":
+        if plan.get(module) == "rowwise" and leaf in ("weight", "weight_q"):
             cols //= t
         want += math.ceil(rows / f) * cols * p.element_size()
-    assert aot.placed_param_bytes(teacher, MeshConfig(*mesh)) == want
-    assert (t == 1 and f == 1) or want < sum(p.numel() * p.element_size() for p in teacher.parameters())
-    _, int8_teacher = _pair("teacher", "int8_full", "int8")
-    whole = sum(p.numel() * p.element_size() for p in int8_teacher.parameters())
-    assert aot.placed_param_bytes(int8_teacher, MeshConfig(*mesh)) == whole
-    assert aot.sharded_param_bytes(int8_teacher, MeshConfig(*mesh)) < whole
+    return want
+
+
+@pytest.mark.parametrize("mesh", ((1, 2, 4), (1, 8, 1), (1, 1, 8), (1, 1, 4)), ids=lambda m: "x".join(map(str, m)))
+def test_placed_param_bytes_follow_shard_params(mesh):
+    """Rank 0's parameter bytes after ``shard_params``: the tensor-plan
+    Linears and QLinears hold 1/t of their weight (a column-wise one of its
+    bias and scales too), every parameter, int8, float32 or bf16, then
+    splits dim 0 over fsdp into padded chunks.  An int8_full teacher with
+    the int8 embedding and head is split as the bf16 one is, apart from
+    SigLIP's MLP (whole over tensor: 4304 / t is no multiple of 16)."""
+    d, f, t = mesh
+    whole = {}
+    for quant, embed in (("none", "none"), ("int8_full", "int8")):
+        _, teacher = _pair("teacher", quant, embed)
+        want = _hand_placed(teacher, t, f)
+        assert aot.placed_param_bytes(teacher, MeshConfig(*mesh)) == want
+        whole[quant] = sum(p.numel() * p.element_size() for p in teacher.parameters())
+        assert (t == 1 and f == 1) or want < whole[quant]
+        plan = tensor_plan(teacher, t)
+        if quant != "none":
+            assert not any(".mlp.fc" in n for n in plan)
+            assert t < 2 or "language_model.layers.0.mlp.down_proj" in plan
+            assert t not in (2, 4) or "language_model.layers.0.self_attn.o_proj" in plan
+    assert whole["int8_full"] < whole["none"]
 
 
 # ---------------------------------------------------------------- launches
@@ -254,6 +266,13 @@ ENTRIES = {
     "fused_kl_bwd": (lambda: _loss_inputs()[:3] + (torch.rand(N) + 3.0, torch.rand(N) + 3.0, torch.rand(N)),
                      lambda h, w, t, ls, lt, g: fkl.kl_bwd(h, w, t, ls, lt, g, inv_t=0.5)),
     "int8_mm": (lambda: _int8_inputs(5, 128, 64), i8.int8_matmul),
+    # K12's split form, one entry a kernel
+    "int8_absmax": (lambda: (_bf16(5, 128),), i8.int8_row_absmax),
+    "int8_quantize_given": (lambda: (_bf16(5, 128), torch.rand(5) + 0.5), i8.int8_quantize_rows),
+    "int8_gemm_s32": (lambda: (_int8_inputs(12, 128, 64)[1][:12].contiguous(), _int8_inputs(12, 128, 64)[1]),
+                      i8.int8_gemm_s32),
+    "int8_epilogue": (lambda: (torch.randint(-2**20, 2**20, (5, 64), dtype=torch.int32), torch.rand(5),
+                               torch.rand(64)), i8.int8_scale_epilogue),
     # the plain K10 takes float32 hidden states on the CPU (no bf16 x bf16 -> f32 mm there)
     "tmat_int8": (lambda: _int8_inputs(6, 128, 72),
                   lambda h, wq, ws: fl.materialize_teacher_logits_int8(h if h.is_cuda else h.float(), wq, ws,
@@ -379,3 +398,25 @@ def test_mesh_planner_holds_less_a_rank(fake_group):
     cats = stats["categories"]
     assert cats["max"]["Unsharded Param"] > 0 and cats["at_start"]["Sharded Param"] > 0
     assert cats["at_start"]["OptState"] > 0
+
+
+def test_mesh_planner_shards_the_int8_teacher(fake_group):
+    """The int8_full teacher with the int8 embedding and head under the mesh
+    planner at (1, 2, 4): FSDP2 over its int8 leaves (a root of its own),
+    every leaf sharded again after the step (the root resharded once K10 has
+    read the head), and less held a rank than with the bf16 teacher."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    scfg, tcfg = aot.teacher_7b_student_05b(layers=2)
+    step, stats = aot.aot_compile_kd_step(scfg, tcfg, MeshConfig(1, 2, 4), device="cpu", teacher_quant="int8_full",
+                                          teacher_embed_quant="int8")
+    teacher = step.models.teacher
+    assert isinstance(teacher, FSDPModule)
+    assert all(isinstance(p, DTensor) for p in teacher.parameters())
+    down = teacher.get_submodule("language_model.layers.0.mlp.down_proj").weight_q
+    assert down.placements[-1].is_shard(1) and down.device_mesh.mesh_dim_names[-1] == "tensor"
+    bf16 = _step_stats(MeshConfig(1, 2, 4))[1]
+    assert stats["argument_bytes"] < bf16["argument_bytes"]
+    assert stats["per_chip_hbm_estimate"] < bf16["per_chip_hbm_estimate"]
+

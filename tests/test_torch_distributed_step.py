@@ -7,9 +7,12 @@ tensor parallelism over tensor), each rank on its rows of the batch
 (``shard_batch``), the vocabulary terms by the fused route (the row-sharded
 ``ops/fused_spmd.py`` wrappers, their plain versions on the CPU) and by the
 chunked route (``global_mean``); phase 3 with the int8 teacher (int8_full,
-the int8 embedding and head, which ``shard_params`` leaves replicated) at
-(1,2,1); phase 1 at (1,2,1) and feature_based at (1,2,2), whose NT-Xent
-takes every rank's tile features (``gather_rows``).
+the int8 embedding and head) at (1,2,1), (1,1,2) and (1,2,2), the teacher
+sharded by ``shard_params`` as a float one is (FSDP2 over every int8 leaf;
+at tensor = 2 its MLP split by the int8 styles, the row-wise down_proj
+through K12's split form; its attention stays whole, o_proj's local K of
+24 being no multiple of 16); phase 1 at (1,2,1) and feature_based at
+(1,2,2), whose NT-Xent takes every rank's tile features (``gather_rows``).
 
 Against the one-process port step on the same weights and batch: the loss
 (rtol 2e-4, the same on every rank) and every gradient leaf the optimizer
@@ -78,10 +81,11 @@ MODES = [("double_trouble", 3), ("baseline", 0)]
 MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2), (1, 2, 2)]
 CASES = [(mesh, mode, phase, ce, "bf16") for mesh in MESHES for mode, phase in MODES
          for ce in ("fused", "chunked")]
-# the int8 teacher (left replicated by shard_params) on a data-parallel mesh;
+# the int8 teacher on a data-parallel mesh and split over tensor;
 # NT-Xent over every rank's tile features (phase 1, feature_based)
 CASES += [((1, 2, 1), "double_trouble", 3, "fused", "int8"), ((1, 2, 1), "double_trouble", 1, "fused", "bf16"),
-          ((1, 2, 2), "feature_based", 0, "fused", "bf16")]
+          ((1, 2, 2), "feature_based", 0, "fused", "bf16"), ((1, 1, 2), "double_trouble", 3, "fused", "int8"),
+          ((1, 2, 2), "double_trouble", 3, "fused", "int8")]
 IDS = ["{}-{}-{}{}".format("x".join(map(str, c[0])), c[1] if c[1] != "double_trouble" else f"phase{c[2]}", c[3],
                            "-int8_teacher" if c[4] == "int8" else "") for c in CASES]
 KEYS = ("pack_idx", "pack_weight", "pack_valid", "tile_valid")

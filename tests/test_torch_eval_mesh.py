@@ -15,8 +15,12 @@ broadcasts the one local head: the tokens agree, at twice the cache, only
 because each local q head then reads a copy of its own group's head.  On a
 4 q / 4 kv variant of the tiny config at tensor = 2 (2 local kv heads) the
 config-sized write fails, and the local sizing gives one process's tokens.
-Tensor = 4 keeps the tiny attention whole (2 % 4 != 0) and splits the MLP.  int8_full stays replicated (``QLinear`` models are not sharded)
-and gives the same tokens.  Then the evaluator CLI with ``--distributed
+Tensor = 4 keeps the tiny attention whole (2 % 4 != 0) and splits the MLP.  int8_full shards too: its ``QLinear``
+pairs split by the int8 styles (the row-wise ones through K12's split form,
+which equals one device's product bit for bit; at tensor = 4 the SigLIP
+attention stays whole, its out_proj's local K of 8 being no multiple of 16)
+and FSDP2 shards every int8 leaf; its tokens equal one process's and the
+JAX tokens.  Then the evaluator CLI with ``--distributed
 --cpu --mesh 1,1,2`` on two ranks: its CSV (written by rank 0) equals the
 one-process CLI's, both ranks return the same rows, and every LM
 parameter is a DTensor at each batch's generate call.  Each world size is
@@ -164,8 +168,8 @@ def test_sharded_tokens_equal_one_process_and_jax(sharded, one_process, jax_toke
     tokens, all_dtensor, _ = sharded[0][case]
     np.testing.assert_array_equal(tokens.numpy(), one_process[quant].numpy())
     np.testing.assert_array_equal(tokens.numpy(), jax_tokens[quant])
-    # bf16 models shard (every LM parameter a DTensor); int8 models stay replicated
-    assert all_dtensor == (quant == "none")
+    # bf16 and int8 models shard (every LM parameter a DTensor)
+    assert all_dtensor
 
 
 @pytest.mark.parametrize("case", CACHE_CASES, ids=["{}-{}".format("x".join(map(str, m)), "bf16" if q == "none" else q)

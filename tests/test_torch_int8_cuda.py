@@ -8,8 +8,12 @@ dropped weight scale breaks the bits; the int8-head teacher logits (K10,
 ends in a partial tile, one row, a row count one past whole tiles, a D the
 64-column k step does not divide, and hidden states given as an offset
 strided view, with two launches bit-identical; ``QLinear`` on the card; and
-that the wrappers refuse what the kernels do not take.  Needs a CUDA
-device; skips without one.
+that the wrappers refuse what the kernels do not take; the four kernels
+of K12's split form (row absmax, quantize with a given amax, the int32
+GEMM, the scale epilogue) bit for bit against their plain versions at the
+7B teacher's tensor = 2 local shapes and ragged ones, and the split form
+with no group bit-equal to the fused K12.  Needs a CUDA device; skips
+without one.
 
 Run on the card (the tests' conftest imports jax, which the card's machine
 may lack):
@@ -158,6 +162,54 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(dev):
         int8.int8_matmul(x, wq, ws, k_block=96)
     with pytest.raises(ValueError, match="no backward"):
         int8.int8_matmul(x.float().requires_grad_(True), wq, ws)
+
+
+# K12's split form at the 7B teacher's t = 2 local shapes (rows N, K, M):
+# gate_proj column-wise, down_proj row-wise; then a ragged N and M, a
+# partial last K box, and decode rows (A and B swapped).
+SPLIT_SHAPES = [(3072, 3584, 9472), (3072, 9472, 3584), (300, 1040, 264), (5, 896, 4864), (1, 2368, 3584)]
+
+
+@pytest.mark.parametrize("n,k,m", SPLIT_SHAPES, ids=["gate_t2", "down_t2", "ragged", "few_rows", "decode"])
+def test_split_pieces_are_bit_equal_to_plain(dev, n, k, m):
+    """Each kernel of the split form bit for bit against its plain version
+    (one launch each), and with no group the split form against the fused
+    K12; a scale epilogue fed ws of 1 breaks the bits."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    x = torch.randn(n, k, generator=g, device=dev).to(torch.bfloat16)
+    wq, ws = int8.absmax_quantize_weight(torch.randn(m, k, generator=g, device=dev) * 0.02)
+    int8.reset_launch_counts()
+    amax = int8.int8_row_absmax(x)
+    xq, xs = int8.int8_quantize_rows(x, amax * 0.5)  # a given amax: a clip the rows do not compute
+    acc = int8.int8_gemm_s32(xq, wq)
+    outs = [int8.int8_scale_epilogue(acc, xs, ws, dt) for dt in (torch.bfloat16, torch.float32)]
+    torch.cuda.synchronize()
+    assert (int8.int8_row_absmax.launches, int8.int8_quantize_rows.launches, int8.int8_gemm_s32.launches,
+            int8.int8_scale_epilogue.launches, int8.int8_matmul.launches) == (1, 1, 1, 2, 0)
+    assert torch.equal(amax, int8.row_absmax_ref(x))
+    want_q = int8.quantize_rows_ref(x, amax * 0.5)
+    assert torch.equal(xq, want_q[0]) and torch.equal(xs, want_q[1])
+    assert torch.equal(acc, int8.gemm_s32_ref(xq, wq))
+    for out, dt in zip(outs, (torch.bfloat16, torch.float32)):
+        assert out.dtype == dt and torch.equal(out, int8.scale_epilogue_ref(acc, xs, ws, dt))
+    assert not torch.equal(int8.int8_scale_epilogue(acc, xs, torch.ones_like(ws)), outs[0])
+    assert torch.equal(int8.int8_matmul_rowwise(x, wq, ws, None), int8.int8_matmul(x, wq, ws))
+
+
+def test_split_pieces_refuse_what_the_kernels_do_not_take(dev):
+    x, wq, ws = _operands(dev, 16, 96, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8.int8_row_absmax(x.float())
+    with pytest.raises(ValueError, match="multiple"):
+        int8.int8_row_absmax(x[:, :88].contiguous())
+    with pytest.raises(ValueError, match="amax"):
+        int8.int8_quantize_rows(x, torch.ones(15, device=dev))
+    with pytest.raises(ValueError, match="multiple"):
+        int8.int8_gemm_s32(torch.zeros(16, 96, dtype=torch.int8, device=dev), wq[:60].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        int8.int8_scale_epilogue(torch.zeros(16, 64, device=dev), torch.ones(16, device=dev), ws)
+    with pytest.raises(ValueError, match="no backward"):
+        int8.int8_matmul_rowwise(x.float().requires_grad_(True), wq, ws)
 
 
 @pytest.mark.parametrize("n,vt,vocab,d", [

@@ -286,3 +286,126 @@ def tiny_served_model(state_dict, which: str = "none"):
     if which in ("int8", "int8_full"):
         quantize_model_int8(model, include_vision=which == "int8_full")
     return model
+
+
+def int8_split_worker(rank, world, cases):
+    """Each case ``(form, out_dtype, x, wq, ws)`` (numpy; x bf16 values in
+    float32, wq int8 [M, K], ws [M]) on this rank's shard of the group of
+    ``world``: "colwise" the whole x times this rank's rows of wq and ws
+    through ``int8_matmul`` (this rank's output columns); "rowwise" this
+    rank's K columns of x and wq through ``int8_matmul_rowwise`` over the
+    group (the whole output).  For "rowwise" also two controls: the absmax
+    left local (no MAX all-reduce), and rank 0's int32 partials left out of
+    the SUM.  Returns {index: (out, local absmax out, dropped-partials out)}."""
+    import torch.distributed as dist
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.ops import int8
+
+    out = {}
+    for i, (form, out_dtype, x, wq, ws) in enumerate(cases):
+        xt = torch.from_numpy(x).to(torch.bfloat16)
+        wqt, wst = torch.from_numpy(wq), torch.from_numpy(ws)
+        m, k = wq.shape
+        if form == "colwise":
+            rows = slice(rank * m // world, (rank + 1) * m // world)
+            out[i] = (int8.int8_matmul(xt, wqt[rows].contiguous(), wst[rows].contiguous(), out_dtype), None, None)
+            continue
+        cols = slice(rank * k // world, (rank + 1) * k // world)
+        xl, wl = xt[:, cols].contiguous(), wqt[:, cols].contiguous()
+        y = int8.int8_matmul_rowwise(xl, wl, wst, dist.group.WORLD, out_dtype)
+        xq, xs = int8.int8_quantize_rows(xl, int8.int8_row_absmax(xl))  # the absmax of this rank's columns
+        acc = int8.int8_gemm_s32(xq, wl)
+        dist.all_reduce(acc, group=dist.group.WORLD)
+        local = int8.int8_scale_epilogue(acc, xs, wst, out_dtype)
+        real = dist.all_reduce
+
+        def drop_rank0(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+            if rank == 0 and t.dtype == torch.int32:
+                t.zero_()
+            return real(t, op=op, group=group, async_op=async_op)
+
+        dist.all_reduce = drop_rank0
+        try:
+            dropped = int8.int8_matmul_rowwise(xl, wl, wst, dist.group.WORLD, out_dtype)
+        finally:
+            dist.all_reduce = real
+        out[i] = (y, local, dropped)
+    return out
+
+
+def int8_pair_worker(rank, world, state_dict, x):
+    """A ``QLinear`` pair (64 -> 128 column-wise, 128 -> 64 row-wise, both
+    with a bias, a GELU between) split over a (world,) tensor mesh by the
+    int8 styles of ``parallel/sharding.py``; its output on bf16 ``x`` and
+    each leaf's (placement, local shape)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel.sharding import (
+        Int8ColwiseParallel, Int8RowwiseParallel)
+
+    pair = int8_pair()
+    pair.load_state_dict(state_dict)
+    parallelize_module(pair, init_device_mesh("cpu", (world,), mesh_dim_names=("tensor",)),
+                       {"fc1": Int8ColwiseParallel(), "fc2": Int8RowwiseParallel()})
+    with torch.no_grad():
+        y = pair(torch.from_numpy(x).to(torch.bfloat16))
+    return y, {n: (repr(p.placements[0]), tuple(p.to_local().shape)) for n, p in pair.named_parameters()}
+
+
+def int8_pair():
+    """Two ``QLinear``s, 64 -> 128 -> 64 with biases and a GELU between,
+    their weights quantized from seed 0."""
+    from torch import nn
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.qwen2 import QLinear
+
+    class Pair(nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(0)
+            lin1, lin2 = nn.Linear(64, 128, dtype=torch.bfloat16), nn.Linear(128, 64, dtype=torch.bfloat16)
+            for lin in (lin1, lin2):
+                with torch.no_grad():
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.05)
+                    lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.1)
+            self.fc1, self.fc2 = QLinear.from_linear(lin1), QLinear.from_linear(lin2)
+
+        def forward(self, x):
+            return self.fc2(torch.nn.functional.gelu(self.fc1(x)))
+
+    return Pair()
+
+
+def int8_placement_worker(rank, world, cases, state_dicts):
+    """Each case ``(mesh shape, model)`` whose mesh spans ``world`` ranks:
+    the tiny int8 model ("student": the tiny config int8_full as the
+    evaluator's ``--quant``; "teacher": the tiny teacher as the KD step
+    quantizes it) sharded by ``shard_params``.  Returns {case: (this rank's
+    parameter bytes at rest, {name: (global shape, placements at rest,
+    the tensor-parallel local shape once FSDP2 has gathered the layer)})}."""
+    import math
+
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.parallel import (
+        MeshConfig, make_mesh, shard_params)
+
+    out = {}
+    for case in cases:
+        shape, which = case
+        if math.prod(shape) != world:
+            continue
+        model = (tiny_teacher(state_dicts[which], "int8") if which == "teacher"
+                 else tiny_served_model(state_dicts[which], "int8_full"))
+        shard_params(model, make_mesh(MeshConfig(*shape)))
+        rest = {n: (tuple(p.shape), [str(pl) for pl in p.placements]) for n, p in model.named_parameters()}
+        held = sum(p.to_local().numel() * p.element_size() for p in model.parameters())
+        for m in model.modules():
+            if isinstance(m, FSDPModule):
+                m.unshard()
+        local = {n: tuple(p.to_local().shape) if isinstance(p, DTensor) else tuple(p.shape)
+                 for n, p in model.named_parameters()}
+        out[case] = (held, {n: (*rest[n], local[n]) for n in rest})
+    return out
