@@ -1,0 +1,8 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+rates, at the 700 W power limit)."""
+
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES = 80e9

@@ -1,0 +1,13 @@
+"""Roofline share of K11 (ops/fused_loca.py) in the profiled step: the sum of each
+launch's least time, from its shapes and masks at the work the inputs need
+(``counts/roofline.py``), over the kernels' device time."""
+
+from portbench.counts import roofline
+
+UNIT, LAYER, MOVES = "%", "kernels (ops/, csrc/)", "train_samples_per_s"
+GROUPS = ("LoCa + CE (K11), LoCa (K9)",)
+
+
+def read(ctx):
+    least = roofline.least_ms(ctx.config, ctx.job, ctx.seq_bucket, ctx.micro_batches, "loca_ce", ctx.launches)
+    return roofline.share_pct(least, sum(ctx.groups.get(g, 0.0) for g in GROUPS))
