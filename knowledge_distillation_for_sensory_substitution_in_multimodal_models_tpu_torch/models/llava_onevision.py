@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import LlavaOnevisionConfig
+from ..utils.trace import span
 from .qwen2 import QEmbedding, QLinear, Qwen2LM, RMSNorm
 from .siglip import SigLIPVisionTower
 
@@ -114,8 +115,9 @@ class LlavaOnevision(nn.Module):
     def encode_images(self, pixel_values: torch.Tensor):
         """[B, P, H, W, 3] -> (projected [B, P, T, Dt], post_ln [B, P, T, Dv])."""
         b, p = pixel_values.shape[:2]
-        encoder_out, post_ln = self.vision_tower(pixel_values.flatten(0, 1))
-        projected = self.multi_modal_projector(encoder_out)
+        with span("vision"):
+            encoder_out, post_ln = self.vision_tower(pixel_values.flatten(0, 1))
+            projected = self.multi_modal_projector(encoder_out)
         t = projected.shape[1]
         return projected.reshape(b, p, t, -1), post_ln.reshape(b, p, t, -1)
 

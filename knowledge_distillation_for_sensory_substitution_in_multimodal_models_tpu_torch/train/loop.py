@@ -7,7 +7,10 @@ Scalar names match the reference's Lightning logs (``train_loss``,
 (``preempt-step=N.ckpt``); the val loss is summed on the device and read
 back once per val epoch.  With ``profile_dir``, steps 2-4 are traced by
 ``torch.profiler`` (the host and, for a model on CUDA, the card) into
-``<profile_dir>/trace_steps2-4.json``, the steps the JAX loop traces.
+``<profile_dir>/trace_steps2-4.json``, the steps the JAX loop traces.  The
+trace carries the step's ``kdss.*`` ranges (``train/step.py`` lists them);
+on the card each range's boundaries synchronise the device, so the traced
+steps run slower than the others (``utils/trace.py``).
 
 Under an active mesh (``parallel/mesh.py::use_mesh``) every rank runs the
 loop: ``shard_batch_fn`` takes each rank's rows of the host batch (the JAX

@@ -28,6 +28,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..utils.trace import span
+
 
 def cosine_annealing_schedule(base_lr: float, t_max: int, steps_per_epoch: int) -> Callable[[int], float]:
     """lr(step) = base * (1 + cos(pi * epoch / T_max)) / 2 with
@@ -84,15 +86,16 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor]) -> None:
-        if self.schedule is not None:
-            for group in self.opt.param_groups:
-                group["lr"] = self.schedule(self.count)
-        for n, m in self.masters.items():
-            m.grad = grads[n].float()
-        self.opt.step()
-        for m in self.masters.values():
-            m.grad = None
-        self._copy_to_params()
+        with span("optimizer"):
+            if self.schedule is not None:
+                for group in self.opt.param_groups:
+                    group["lr"] = self.schedule(self.count)
+            for n, m in self.masters.items():
+                m.grad = grads[n].float()
+            self.opt.step()
+            for m in self.masters.values():
+                m.grad = None
+            self._copy_to_params()
         self.count += 1
 
     def state_dict(self) -> dict:

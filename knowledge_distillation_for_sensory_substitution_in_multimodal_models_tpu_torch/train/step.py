@@ -60,6 +60,26 @@ float32 parameters are their own masters, and tensor parallelism):
   and divided by A.
 
 Without a mesh the step is unchanged.
+
+While a ``torch.profiler`` records, the step marks its phases as ranges
+(``utils/trace.py::span``; each drains the card at its boundaries), and
+every kernel the step launches lies in one of the inner ones:
+
+* ``kdss.step``: the whole step, around the others;
+* ``kdss.student.forward``: the student's forward (SigLIP, projector, pack,
+  Qwen2), once a micro-batch;
+* ``kdss.vision`` (``models/llava_onevision.py::encode_images``): SigLIP and
+  the projector over one tower's tiles, inside the tower's forward;
+* ``kdss.teacher.forward``: the teacher's forward and its logits at 1/T;
+* ``kdss.loss``: the labels, the vocabulary terms, NT-Xent, their
+  combination and the metrics;
+* ``kdss.backward``: the student's backward (the loss kernels' included) and
+  the zero fill of unused gradients;
+* ``kdss.accumulate``: the gradient carry and the metric sums, once a
+  micro-batch, and their mean over A after the last one (off the mesh, only
+  where A > 1);
+* ``kdss.optimizer`` (``optimizer.py::Optimizer.apply``): AdamW and the
+  master -> bf16 copies.
 """
 
 from __future__ import annotations
@@ -84,6 +104,7 @@ from ..ops.fused_spmd import (
     global_mean,
 )
 from ..parallel.mesh import active_mesh, dp_size
+from ..utils.trace import span
 from .optimizer import Optimizer
 
 _LOCA_MODES = ("logit_based", ("double_trouble", 2), ("double_trouble", 3))
@@ -237,55 +258,58 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
 
     def loss_fn(batch: Dict[str, torch.Tensor]):
         mesh = active_mesh()
-        s_hidden, s_vis = _forward_hidden(student, batch, "student")
-        flat = s_hidden.reshape(-1, s_hidden.shape[-1])
-        head = _fused_head(student)
-        labels = batch["labels"]
-        loca_labels, shifted = labels.reshape(-1), ce_labels(labels)
+        with span("student.forward"):
+            s_hidden, s_vis = _forward_hidden(student, batch, "student")
+            flat = s_hidden.reshape(-1, s_hidden.shape[-1])
+            head = _fused_head(student)
         tmat = t_vis = None
         if mode != "baseline":
-            tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
-        terms = {}
-        if fused and need_loca and not faithful:
-            terms["loca"], terms["ce"] = fused_loca_ce_loss_spmd(
-                flat, head, tmat, loca_labels, shifted, temperature=lc.temperature, alpha=lc.loca_alpha)
-        elif fused:
+            with span("teacher.forward"):
+                tmat, t_vis = _teacher_logits(teacher, batch, head.shape[0], lc.temperature)
+        with span("loss"):
+            labels = batch["labels"]
+            loca_labels, shifted = labels.reshape(-1), ce_labels(labels)
+            terms = {}
+            if fused and need_loca and not faithful:
+                terms["loca"], terms["ce"] = fused_loca_ce_loss_spmd(
+                    flat, head, tmat, loca_labels, shifted, temperature=lc.temperature, alpha=lc.loca_alpha)
+            elif fused:
+                if need_kl:
+                    terms["kl"] = fused_kl_loss_spmd(flat, head, tmat, temperature=lc.temperature)
+                if need_ce:
+                    terms["ce"] = fused_ce_loss_spmd(flat, head, shifted, w_layout="vd")
+            else:
+                terms = chunked_kd_terms(flat, head, loca_labels, shifted, tmat, temperature=lc.temperature,
+                                         alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size, need_ce=need_ce,
+                                         need_kl=need_kl, need_loca=need_loca and not faithful)
+                if mesh is not None:  # per-rank means -> global means
+                    counts = {"ce": (shifted != IGNORE_INDEX).sum()}
+                    terms = {k: global_mean(v, counts.get(k, flat.shape[0]), mesh) for k, v in terms.items()}
+            if faithful:
+                terms["loca"] = chunked_faithful_loca(flat, head, loca_labels, tmat, temperature=lc.temperature,
+                                                      alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size)
+                if mesh is not None:
+                    terms["loca"] = global_mean(terms["loca"], flat.shape[0], mesh)
             if need_kl:
-                terms["kl"] = fused_kl_loss_spmd(flat, head, tmat, temperature=lc.temperature)
-            if need_ce:
-                terms["ce"] = fused_ce_loss_spmd(flat, head, shifted, w_layout="vd")
-        else:
-            terms = chunked_kd_terms(flat, head, loca_labels, shifted, tmat, temperature=lc.temperature,
-                                     alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size, need_ce=need_ce,
-                                     need_kl=need_kl, need_loca=need_loca and not faithful)
-            if mesh is not None:  # per-rank means -> global means
-                counts = {"ce": (shifted != IGNORE_INDEX).sum()}
-                terms = {k: global_mean(v, counts.get(k, flat.shape[0]), mesh) for k, v in terms.items()}
-        if faithful:
-            terms["loca"] = chunked_faithful_loca(flat, head, loca_labels, tmat, temperature=lc.temperature,
-                                                  alpha=lc.loca_alpha, chunk_size=cfg.loss_chunk_size)
-            if mesh is not None:
-                terms["loca"] = global_mean(terms["loca"], flat.shape[0], mesh)
-        if need_kl:
-            s_feat, t_feat = s_vis.flatten(0, 1), t_vis.flatten(0, 1)
-            valid = batch["tile_valid"].reshape(-1)
-            if mesh is not None:  # negatives from every rank's samples
-                s_feat, t_feat, valid = (gather_rows(x, mesh) for x in (s_feat, t_feat, valid))
-            terms["contrastive"] = masked_ntxent_loss(s_feat, t_feat, valid, lc.ntxent_temperature)
-        del tmat  # the autograd graph holds it until the backward
-        if mode == "baseline":
-            loss = terms["ce"]
-        elif need_loca and phase == 3 and mode == "double_trouble":
-            loss = lc.gamma * (terms["loca"] + terms["ce"]) + (1.0 - lc.gamma) * terms["ce"]
-        elif need_loca:
-            loss = terms["loca"] + terms["ce"]
-        elif mode == "feature_based":
-            loss = (lc.soft_target_weight * terms["kl"] + lc.ce_weight * terms["ce"]
-                    + lc.contrastive_weight * terms["contrastive"])
-        else:
-            loss = lc.soft_target_weight * terms["kl"] + lc.contrastive_weight * terms["contrastive"]
-        metrics = {k: v.detach().float() for k, v in terms.items()}
-        metrics["loss"] = loss.detach().float()
+                s_feat, t_feat = s_vis.flatten(0, 1), t_vis.flatten(0, 1)
+                valid = batch["tile_valid"].reshape(-1)
+                if mesh is not None:  # negatives from every rank's samples
+                    s_feat, t_feat, valid = (gather_rows(x, mesh) for x in (s_feat, t_feat, valid))
+                terms["contrastive"] = masked_ntxent_loss(s_feat, t_feat, valid, lc.ntxent_temperature)
+            del tmat  # the autograd graph holds it until the backward
+            if mode == "baseline":
+                loss = terms["ce"]
+            elif need_loca and phase == 3 and mode == "double_trouble":
+                loss = lc.gamma * (terms["loca"] + terms["ce"]) + (1.0 - lc.gamma) * terms["ce"]
+            elif need_loca:
+                loss = terms["loca"] + terms["ce"]
+            elif mode == "feature_based":
+                loss = (lc.soft_target_weight * terms["kl"] + lc.ce_weight * terms["ce"]
+                        + lc.contrastive_weight * terms["contrastive"])
+            else:
+                loss = lc.soft_target_weight * terms["kl"] + lc.contrastive_weight * terms["contrastive"]
+            metrics = {k: v.detach().float() for k, v in terms.items()}
+            metrics["loss"] = loss.detach().float()
         return loss, metrics
 
     return loss_fn
@@ -320,21 +344,21 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
         for a in range(accum):
             model.set_requires_gradient_sync(a == accum - 1)
             loss, metrics = loss_fn(_micro(batch, a))
-            (loss * scale).backward()
-            m_acc = metrics if m_acc is None else {k: m_acc[k] + v for k, v in metrics.items()}
-        grads = {}
-        for n, p in state.optimizer.params.items():
-            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad / accum
-            p.grad = None
+            with span("backward"):
+                (loss * scale).backward()
+            with span("accumulate"):
+                m_acc = metrics if m_acc is None else {k: m_acc[k] + v for k, v in metrics.items()}
+        with span("accumulate"):
+            grads = {}
+            for n, p in state.optimizer.params.items():
+                grads[n] = torch.zeros_like(p) if p.grad is None else p.grad / accum
+                p.grad = None
+            m_acc = {k: v / accum for k, v in m_acc.items()}
         state.optimizer.apply(grads)
         state.step += 1
-        return state, {k: v / accum for k, v in m_acc.items()}
+        return state, m_acc
 
-    def train_step(state: TrainState, teacher_params, batch: Dict[str, torch.Tensor]):
-        del teacher_params
-        mesh = active_mesh()
-        if mesh is not None:
-            return sharded_step(state, batch, mesh)
+    def local_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.optimizer.params  # the trainable ones, by name
         names, leaves = list(params), list(params.values())
         accum = next(iter(batch.values())).shape[0]
@@ -345,32 +369,43 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
         g_acc = m_acc = None
         for a in range(accum):
             loss, metrics = loss_fn(_micro(batch, a))
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+            with span("backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
             if accum == 1:
                 g_acc, m_acc = grads, metrics
                 break
-            if g_acc is None:
-                g_acc = [torch.zeros(p.shape, dtype=carry_dtype(p), device=p.device) for p in leaves]
-                m_acc = {k: torch.zeros_like(v) for k, v in metrics.items()}
-            for acc, g in zip(g_acc, grads):
-                if exact:
-                    acc += g.float()
-                else:
-                    # running mean: pre-scale by 1/A so every add combines
-                    # same-magnitude terms (`step.py:343-349`)
-                    acc += (g.float() / accum).to(acc.dtype)
-            del grads
-            for k, v in metrics.items():
-                m_acc[k] += v
+            with span("accumulate"):
+                if g_acc is None:
+                    g_acc = [torch.zeros(p.shape, dtype=carry_dtype(p), device=p.device) for p in leaves]
+                    m_acc = {k: torch.zeros_like(v) for k, v in metrics.items()}
+                for acc, g in zip(g_acc, grads):
+                    if exact:
+                        acc += g.float()
+                    else:
+                        # running mean: pre-scale by 1/A so every add combines
+                        # same-magnitude terms (`step.py:343-349`)
+                        acc += (g.float() / accum).to(acc.dtype)
+                del grads
+                for k, v in metrics.items():
+                    m_acc[k] += v
         if accum > 1:
-            if exact:
-                for acc in g_acc:
-                    acc /= accum
-            m_acc = {k: v / accum for k, v in m_acc.items()}
+            with span("accumulate"):
+                if exact:
+                    for acc in g_acc:
+                        acc /= accum
+                m_acc = {k: v / accum for k, v in m_acc.items()}
         state.optimizer.apply(dict(zip(names, g_acc)))
         state.step += 1
         return state, m_acc
+
+    def train_step(state: TrainState, teacher_params, batch: Dict[str, torch.Tensor]):
+        del teacher_params
+        with span("step"):
+            mesh = active_mesh()
+            if mesh is not None:
+                return sharded_step(state, batch, mesh)
+            return local_step(state, batch)
 
     return train_step
 

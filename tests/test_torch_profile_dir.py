@@ -2,7 +2,8 @@
 the online-KD CLI (its default, double_trouble phase 1) accept it, as the JAX
 CLIs do (``cli/common.py``), and trace train steps 2-4 with
 ``torch.profiler`` into that directory, the steps the JAX ``train/loop.py``
-traces; a run shorter than the window still writes its trace."""
+traces, with the step's ``kdss.*`` ranges (``utils/trace.py``); a run
+shorter than the window still writes its trace."""
 
 import json
 
@@ -38,7 +39,9 @@ def test_profile_dir_writes_a_trace(tmp_path, capsys, mod):
     _run(mod, tmp_path)
     out = capsys.readouterr().out
     assert "training complete" in out and "profile: wrote" in out
-    _trace(tmp_path)
+    names = {e.get("name") for e in _trace(tmp_path)}
+    assert {"kdss.step", "kdss.student.forward", "kdss.loss", "kdss.backward", "kdss.optimizer"} <= names
+    assert ("kdss.teacher.forward" in names) == (mod is train_online_kd)
 
 
 def test_a_run_shorter_than_the_window_still_writes_its_trace(tmp_path, capsys, monkeypatch):
