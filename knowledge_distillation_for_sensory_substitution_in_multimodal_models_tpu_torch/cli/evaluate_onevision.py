@@ -101,7 +101,7 @@ def main(argv=None) -> dict:
 
     from ..data.collate import OneVisionCollator
     from ..data.dataset import SUNRGBDVQADataset
-    from ..eval.decode import GenerateConfig, Generator
+    from ..eval.decode import GenerateConfig, Generator, eval_batch
     from ..eval.metrics import force_backend
     from ..eval.results import update_summary
     from ..parallel import shard_params, use_mesh
@@ -160,8 +160,7 @@ def main(argv=None) -> dict:
         batch = collator(samples)
         if args.pixel_data_type == "rgb":
             batch["student_pixel_values"] = batch["teacher_pixel_values"]
-        tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
-              if not k.startswith("teacher_") and k != "question_id"}
+        tb = eval_batch(batch, device)
         t1 = time.perf_counter()
         with use_mesh(mesh):
             out = gen.generate(model, tb)

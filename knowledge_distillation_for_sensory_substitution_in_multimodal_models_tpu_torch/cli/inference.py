@@ -42,11 +42,10 @@ def main(argv=None):
     device = common.setup_device(args)
 
     import pandas as pd
-    import torch
 
     from ..data.collate import OneVisionCollator
     from ..data.dataset import SUNRGBDVQADataset
-    from ..eval.decode import GenerateConfig, Generator
+    from ..eval.decode import GenerateConfig, Generator, eval_batch
     from ..utils.numwords import digits_to_words
 
     root = args.root_data_dir or os.environ.get("ROOT_DATA_DIR")
@@ -66,8 +65,7 @@ def main(argv=None):
     batch = collator([sample])
     if args.pixel_data_type == "rgb":
         batch["student_pixel_values"] = batch["teacher_pixel_values"]
-    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
-          if not k.startswith("teacher_") and k != "question_id"}
+    tb = eval_batch(batch, device)
 
     gen = Generator(scfg, GenerateConfig(max_new_tokens=args.max_new_tokens,
                                          eos_token_id=scfg.eos_token_id))

@@ -7,7 +7,10 @@ is greedy and temperature is ignored.  One prefill (the full prompt through
 the model, KV caches filled, an Sq x Skv causal+padding mask), then a Python
 loop of single-token steps; the JAX package's jit and ``lax.scan`` become
 eager code.  All state stays on the model's device: no step reads a value
-back to the host.
+back to the host.  ``eval_batch`` moves the collator's host batch there with
+the flat indices of its valid tiles (``tile_index``), taken from the host's
+``tile_valid``, so that the prefill's towers skip the padded tiles without
+reading the layout back either.
 
 Under a mesh (``parallel/sharding.py::shard_params``) the model's
 parameters are DTensors and every rank runs the whole batch: each layer's
@@ -22,9 +25,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..configs import LlavaOnevisionConfig
+from ..models.llava_onevision import tile_layouts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +96,17 @@ def local_kv_heads(model) -> List[int]:
     return [local_out_features(layer.self_attn.k_proj) // hd for layer in model.language_model.layers]
 
 
+def eval_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The collator's eval batch -> the student's tensors on ``device`` for
+    :meth:`Generator.generate`, with ``tile_index`` from the host's
+    ``tile_valid`` (``models/llava_onevision.py::tile_layouts``)."""
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
+          if not k.startswith("teacher_") and k != "question_id"}
+    if batch.get("tile_valid") is not None:
+        tb["tile_index"] = tile_layouts(np.asarray(batch["tile_valid"])[None], device)[0]
+    return tb
+
+
 class Generator:
     """Greedy generator.
 
@@ -140,6 +156,7 @@ class Generator:
             pack_weight=batch.get("pack_weight"),
             pack_valid=batch.get("pack_valid"),
             tile_valid=batch.get("tile_valid"),
+            tile_index=batch.get("tile_index"),
             positions=torch.arange(s, device=dev)[None].expand(b, s),
             caches=caches,
             cache_index=0,

@@ -54,12 +54,12 @@ class StudentAnswerer:
 
     def answer(self, image: np.ndarray, question: str) -> str:
         from ..utils.numwords import digits_to_words
+        from .decode import eval_batch
 
         image = np.asarray(image)
         # the collator's sample: (question, answer, rgb, depth3, idx)
         batch = self.collator([(question, "", image, image, 0)])
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
-                 if not k.startswith("teacher_") and k != "question_id"}
+        batch = eval_batch(batch, self.device)
         out = self.gen.generate(self.model, batch)
         plen = int(out["prompt_lengths"][0])
         seq, valid = out["sequences"][0, plen:].cpu().tolist(), out["valid"][0, plen:].cpu().tolist()

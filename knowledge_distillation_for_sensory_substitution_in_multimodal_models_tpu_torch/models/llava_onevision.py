@@ -9,24 +9,73 @@ Inputs keep the JAX layout:
   pack_weight      [B, M, 4] float
   pack_valid       [B, M] bool
   tile_valid       [B, P] bool
+  tile_index       [Nv] int64        (optional: the flat indices b * P + p of
+                                      the valid tiles, ``tile_layouts``)
 The host computes the anyres unpad/downsample/newline packing as a gather
 spec (``data/anyres.build_pack_spec`` in the JAX package); on the device it
 is four single-tap gathers.
+
+SigLIP and the projector run on the valid tiles only: the padded tiles of
+``pixel_values`` are never encoded, and their places in the projected
+features and the pooled features hold zeros, which the pack never reads
+and ``tile_valid`` masks.  The JAX package encodes all P tiles, for XLA's
+static shapes; the layout both hand on is the same.  Which tiles are valid
+must be known on the host: ``tile_layouts`` reads ``tile_valid`` once for a
+whole stack of micro-batches [A, B, P] (the train step reads it once a
+step), and a forward without ``tile_index`` reads its own.  The counters
+``tiles_encoded`` and ``tiles_skipped`` (plain host integers, as the
+``ops/*`` launch counters) count the tiles the tower ran on and the padded
+tiles it did not.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..configs import LlavaOnevisionConfig
 from ..utils.trace import span
 from .qwen2 import QEmbedding, QLinear, Qwen2LM, RMSNorm
 from .siglip import SigLIPVisionTower
+
+
+tiles_encoded = 0  # tiles the vision tower ran on
+tiles_skipped = 0  # padded tiles it did not run on
+
+
+def reset_tile_counts() -> None:
+    global tiles_encoded, tiles_skipped
+    tiles_encoded = tiles_skipped = 0
+
+
+def tile_layouts(tile_valid, device=None) -> Optional[List[torch.Tensor]]:
+    """The valid tiles of each layout of ``tile_valid`` [A, B, P] (bool; a
+    tensor or a host array): for each a, the flat indices b * P + p of its
+    valid tiles, int64 on ``device`` (default: ``tile_valid``'s).  One read
+    of ``tile_valid`` to the host (none where it is on the host already)
+    and one copy of all A index vectors to the device.  None where the
+    layout cannot be read: no ``tile_valid``, or a fake or ``meta`` tensor
+    (the memory planner's trace), for which the towers encode every tile."""
+    if tile_valid is None:
+        return None
+    if isinstance(tile_valid, torch.Tensor):
+        if isinstance(tile_valid, FakeTensor) or tile_valid.device.type == "meta":
+            return None
+        device = tile_valid.device if device is None else device
+        tile_valid = tile_valid.detach().cpu().numpy()
+    flat = np.asarray(tile_valid, dtype=bool).reshape(tile_valid.shape[0], -1)
+    index = torch.from_numpy(np.nonzero(flat)[1])  # row-major: each layout's indices in order
+    if device is not None and torch.device(device).type == "cuda":
+        index = index.pin_memory().to(device, non_blocking=True)
+    elif device is not None:
+        index = index.to(device)
+    return list(index.split(flat.sum(axis=1).tolist()))
 
 
 class MultiModalProjector(nn.Module):
@@ -112,14 +161,33 @@ class LlavaOnevision(nn.Module):
     def device(self) -> torch.device:
         return self.image_newline.device
 
-    def encode_images(self, pixel_values: torch.Tensor):
-        """[B, P, H, W, 3] -> (projected [B, P, T, Dt], post_ln [B, P, T, Dv])."""
+    def encode_images(self, pixel_values: torch.Tensor, tile_index: Optional[torch.Tensor] = None):
+        """[B, P, H, W, 3] -> (projected [B, P, T, Dt], pooled [B, P, Dv]):
+        the projector's output and each tile's mean post_layernorm output.
+
+        With ``tile_index`` (the flat indices b * P + p of the valid tiles,
+        ``tile_layouts``) that leaves tiles out, SigLIP and the projector run
+        on the ``Nv`` tiles it names, gathered from ``pixel_values``, and
+        their outputs are copied back into the padded layout, zeros
+        elsewhere: ``index_select`` forward, ``index_copy`` back, whose
+        backward is a gather (no scatter-add).  Without it, or where it
+        names every tile, they run on all B * P tiles."""
+        global tiles_encoded, tiles_skipped
         b, p = pixel_values.shape[:2]
+        tiles = pixel_values.flatten(0, 1)
+        sparse = tile_index is not None and tile_index.numel() < b * p
         with span("vision"):
-            encoder_out, post_ln = self.vision_tower(pixel_values.flatten(0, 1))
+            if sparse:
+                tiles = tiles.index_select(0, tile_index)
+            encoder_out, post_ln = self.vision_tower(tiles)
             projected = self.multi_modal_projector(encoder_out)
-        t = projected.shape[1]
-        return projected.reshape(b, p, t, -1), post_ln.reshape(b, p, t, -1)
+            pooled = post_ln.mean(dim=1)
+            if sparse:
+                projected = projected.new_zeros((b * p,) + projected.shape[1:]).index_copy(0, tile_index, projected)
+                pooled = pooled.new_zeros((b * p,) + pooled.shape[1:]).index_copy(0, tile_index, pooled)
+        tiles_encoded += tiles.shape[0]
+        tiles_skipped += b * p - tiles.shape[0]
+        return projected.reshape(b, p, *projected.shape[1:]), pooled.reshape(b, p, -1)
 
     def pack_features(self, projected, pack_idx, pack_weight, pack_valid):
         """Gather-pack projected tile features into [B, M, Dt].
@@ -154,6 +222,7 @@ class LlavaOnevision(nn.Module):
         pack_weight: Optional[torch.Tensor] = None,
         pack_valid: Optional[torch.Tensor] = None,
         tile_valid: Optional[torch.Tensor] = None,
+        tile_index: Optional[torch.Tensor] = None,
         positions: Optional[torch.Tensor] = None,
         caches: Optional[list] = None,
         cache_index=None,
@@ -164,14 +233,18 @@ class LlavaOnevision(nn.Module):
         """Returns (logits [B,S,V], vision_features [B,P,Dv], new_caches), or
         with ``return_hidden=True`` a 4-tuple that adds the final-norm hidden
         states.  vision_features are per-tile mean-pooled post_layernorm
-        outputs, zeroed at padded tiles."""
+        outputs of the valid tiles, zero at padded tiles, which the tower
+        does not run on.  ``tile_index``: the valid tiles' flat indices
+        (``tile_layouts``), read from ``tile_valid`` where not given."""
         inputs_embeds = self.language_model.embed(input_ids)
         vision_features = None
         if pixel_values is not None:
-            projected, post_ln = self.encode_images(pixel_values)
+            if tile_index is None and tile_valid is not None:
+                layouts = tile_layouts(tile_valid[None])
+                tile_index = None if layouts is None else layouts[0]
+            projected, pooled = self.encode_images(pixel_values, tile_index)
             packed = self.pack_features(projected, pack_idx, pack_weight, pack_valid)
             inputs_embeds = self.merge_image_features(input_ids, inputs_embeds, packed)
-            pooled = post_ln.mean(dim=2)  # [B, P, Dv]
             if tile_valid is not None:
                 pooled = pooled * tile_valid[..., None].to(pooled.dtype)
             vision_features = pooled

@@ -238,6 +238,10 @@ def build_kd_step_for_aot(
         # the batch's shapes and dtypes; its values are never read
         batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype, device=device)
                  for k, v in host.items()}
+        # the valid tiles' flat indices, which the step reads from tile_valid's
+        # values on the card: each micro-batch has the same frames here
+        batch["tile_index"] = torch.empty((accum, int(host["tile_valid"][0].sum())), dtype=torch.int64,
+                                          device=device)
         optimizer = make_optimizer(student, cfg.learning_rate, cosine_t_max=cfg.cosine_t_max,
                                    steps_per_epoch=100, kd_mode=cfg.kd_mode, phase=cfg.phase)
         if on_card and not sharded:

@@ -39,7 +39,12 @@ truncated to the student vocab, are one float32 matrix product (the JAX
 Every LoCa, KL and faithful-LoCa term reads that one matrix.
 
 Batch layout as in the JAX package: every leaf has a leading accumulation
-axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].
+axis A, e.g. student_input_ids [A, B, S], labels [A, B, S].  The step reads
+``tile_valid`` [A, B, P] to the host once, before its first micro-batch
+(``models/llava_onevision.py::tile_layouts``), and hands each micro-batch
+the flat indices of its valid tiles (``tile_index``), on which both towers
+run SigLIP; a batch that carries ``tile_index`` [A, Nv] itself (every
+micro-batch with Nv valid tiles: the memory planner's) is read nothing.
 
 Under an active mesh (``parallel/mesh.py::use_mesh``; the JAX step under
 ``jax.set_mesh``) each rank runs its rows of the batch
@@ -66,6 +71,9 @@ While a ``torch.profiler`` records, the step marks its phases as ranges
 every kernel the step launches lies in one of the inner ones:
 
 * ``kdss.step``: the whole step, around the others;
+* ``kdss.tile_layout``: the one read of the batch's ``tile_valid`` and the
+  copy of the valid tiles' indices to the card, before the first
+  micro-batch;
 * ``kdss.student.forward``: the student's forward (SigLIP, projector, pack,
   Qwen2), once a micro-batch;
 * ``kdss.vision`` (``models/llava_onevision.py::encode_images``): SigLIP and
@@ -92,7 +100,7 @@ import torch
 from ..configs import TrainConfig
 from ..losses.chunked import chunked_faithful_loca, chunked_kd_terms
 from ..losses.kd_losses import IGNORE_INDEX, masked_ntxent_loss
-from ..models.llava_onevision import LlavaOnevision
+from ..models.llava_onevision import LlavaOnevision, tile_layouts
 from ..models.qwen2 import QLinear
 from ..ops._build import is_dtensor
 from ..ops.fused_loca import materialize_teacher_logits_int8
@@ -173,6 +181,7 @@ def _forward_hidden(model: LlavaOnevision, batch: Dict[str, torch.Tensor], prefi
         pack_weight=batch.get("pack_weight"),
         pack_valid=batch.get("pack_valid"),
         tile_valid=batch.get("tile_valid"),
+        tile_index=batch.get("tile_index"),
         return_hidden=True,
         compute_logits=False,
     )
@@ -315,8 +324,19 @@ def make_loss_fn(models: KDModels, cfg: TrainConfig):
     return loss_fn
 
 
-def _micro(batch: Dict[str, Any], a: int) -> Dict[str, Any]:
-    return {k: v[a] for k, v in batch.items()}
+def _layouts(batch: Dict[str, Any]):
+    """Each micro-batch's valid tiles, from one read of ``tile_valid``; None
+    where the batch carries ``tile_index`` itself or has no layout."""
+    return None if "tile_index" in batch else tile_layouts(batch.get("tile_valid"))
+
+
+def _micro(batch: Dict[str, Any], a: int, layouts) -> Dict[str, Any]:
+    """Micro-batch ``a``, with its valid tiles' flat indices from
+    ``layouts`` (:func:`_layouts` of the whole batch)."""
+    micro = {k: v[a] for k, v in batch.items()}
+    if layouts is not None:
+        micro["tile_index"] = layouts[a]
+    return micro
 
 
 def make_train_step(models: KDModels, cfg: TrainConfig):
@@ -340,10 +360,12 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
             raise ValueError("under a mesh the student must be sharded by parallel.shard_params")
         scale = float(dp_size(mesh))
         accum = next(iter(batch.values())).shape[0]
+        with span("tile_layout"):
+            layouts = _layouts(batch)
         m_acc = None
         for a in range(accum):
             model.set_requires_gradient_sync(a == accum - 1)
-            loss, metrics = loss_fn(_micro(batch, a))
+            loss, metrics = loss_fn(_micro(batch, a, layouts))
             with span("backward"):
                 (loss * scale).backward()
             with span("accumulate"):
@@ -362,13 +384,15 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
         params = state.optimizer.params  # the trainable ones, by name
         names, leaves = list(params), list(params.values())
         accum = next(iter(batch.values())).shape[0]
+        with span("tile_layout"):
+            layouts = _layouts(batch)
 
         def carry_dtype(p):
             return torch.float32 if exact else p.dtype if acc_dt == "param" else torch.bfloat16
 
         g_acc = m_acc = None
         for a in range(accum):
-            loss, metrics = loss_fn(_micro(batch, a))
+            loss, metrics = loss_fn(_micro(batch, a, layouts))
             with span("backward"):
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
@@ -419,6 +443,7 @@ def make_eval_step(models: KDModels, cfg: TrainConfig):
     @torch.no_grad()
     def eval_step(state, teacher_params, batch):
         del state, teacher_params  # the loss reads models.student's parameters
-        return loss_fn(batch)[1]
+        batch = {k: v[None] for k, v in batch.items()}  # A = 1: one read of the layout, both towers
+        return loss_fn(_micro(batch, 0, _layouts(batch)))[1]
 
     return eval_step

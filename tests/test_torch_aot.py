@@ -368,7 +368,8 @@ def test_planner_arguments_are_the_hand_count():
     want = (2 * n_student + 2 * sum(p.numel() for p in teacher.parameters())  # bf16 models
             + 4 * n_student  # float32 masters
             + 2 * 4 * n_student + 4 * n_tensors  # AdamW's moments and step counters
-            + sum(v.nbytes for v in batch.values()))
+            + sum(v.nbytes for v in batch.values())
+            + 8 * int(batch["tile_valid"].sum()))  # the valid tiles' int64 flat indices
     assert stats["argument_bytes"] == want
     assert stats["peak_bytes"] > stats["argument_bytes"]
     assert stats["temp_bytes"] == stats["peak_bytes"] - stats["argument_bytes"]

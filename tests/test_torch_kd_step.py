@@ -267,3 +267,38 @@ def test_ce_impl_routes_agree(setup, monkeypatch, mode, phase, faithful):
 def test_unknown_ce_impl_is_refused(setup):
     with pytest.raises(ValueError, match="ce_impl"):
         make_loss_fn(_port_models(*setup[:2]), _port_cfg("logit_based", 0, ce_impl="xla"))
+
+
+@pytest.mark.parametrize("mode,phase", [("double_trouble", 1), ("double_trouble", 3)], ids=["phase1", "phase3"])
+def test_step_reads_the_tile_layout_once(setup, monkeypatch, mode, phase):
+    """A step of A = 4 micro-batches, each with its own anyres layout, reads
+    ``tile_valid`` to the host once (one call of ``tile_layouts``, the one
+    helper that reads it), and both towers then encode only the valid tiles."""
+    import importlib
+
+    lo = importlib.import_module(
+        "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models.llava_onevision")
+    step_mod = importlib.import_module(
+        "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.train.step")
+    sizes = [[(45, 67), (52, 72)], [(20, 200), (200, 20)], [(30, 30), (90, 40)], [(100, 100), (28, 28)]]
+    micros = [synthetic_kd_batch(SCFG, batch_size=2, seq_len=96, orig_sizes=s, seed=i) for i, s in enumerate(sizes)]
+    batch = _torch_batch({k: np.stack([m[k] for m in micros]) for k in micros[0]})
+    reads, real = [], lo.tile_layouts
+
+    def counted(*args, **kw):
+        reads.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(lo, "tile_layouts", counted)
+    monkeypatch.setattr(step_mod, "tile_layouts", counted)
+    models = _port_models(*setup[:2])
+    state = TrainState(models.student, make_optimizer(models.student, LR, kd_mode=mode, phase=phase))
+    step = make_train_step(models, _port_cfg(mode, phase, ce_impl="chunked"))
+    lo.reset_tile_counts()
+    _, m = step(state, None, batch)
+    assert len(reads) == 1
+    assert torch.isfinite(m["loss"])
+    tv = batch["tile_valid"]
+    valid = int(tv.sum())
+    assert len(set(tv.sum(dim=(1, 2)).tolist())) > 1  # the layouts differ between micro-batches
+    assert (lo.tiles_encoded, lo.tiles_skipped) == (2 * valid, 2 * (tv.numel() - valid))

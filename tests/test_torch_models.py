@@ -260,3 +260,109 @@ def test_pack_taps_backward_equals_the_gather_gradient():
     (g_want,) = torch.autograd.grad(want, bank, cot)
     assert torch.equal(got, want)
     np.testing.assert_allclose(g_got.numpy(), g_want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# --- SigLIP on the valid anyres tiles only -----------------------------------
+
+def _lo():
+    from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch.models import (
+        llava_onevision,
+    )
+    return llava_onevision
+
+
+def _inputs(batch):
+    return dict(input_ids=_t(batch["student_input_ids"]).long(),
+                attention_mask=_t(batch["student_attention_mask"]),
+                pixel_values=_t(batch["student_pixel_values"]),
+                **{k: _t(batch[k]) for k in BATCH_KEYS[1:]})
+
+
+def _all_tiles_forward(model, input_ids, attention_mask, pixel_values, pack_idx, pack_weight, pack_valid,
+                       tile_valid):
+    """The all-tiles form: the tower and the projector over every tile, the
+    pooled features masked by ``tile_valid`` after pooling."""
+    b, p = pixel_values.shape[:2]
+    last, post = model.vision_tower(pixel_values.flatten(0, 1))
+    projected = model.multi_modal_projector(last).reshape(b, p, *last.shape[1:2], -1)
+    packed = model.pack_features(projected, pack_idx, pack_weight, pack_valid)
+    embeds = model.merge_image_features(input_ids, model.language_model.embed(input_ids), packed)
+    vf = post.reshape(b, p, *post.shape[1:]).mean(dim=2) * tile_valid[..., None].to(post.dtype)
+    logits, _, hidden = model.language_model(inputs_embeds=embeds, attention_mask=attention_mask,
+                                             return_hidden=True)
+    return logits, vf, hidden
+
+
+def _loss_and_grads(model, outs):
+    """A loss that reads the pack (logits, hidden states) and every pooled
+    feature, and its gradient at every leaf."""
+    logits, vf, hidden = outs
+    g = torch.Generator().manual_seed(7)
+    loss = (logits.square().mean() + (hidden * torch.randn(hidden.shape, generator=g)).mean()
+            + (vf * torch.randn(vf.shape, generator=g)).sum())
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {n: torch.zeros_like(p) if gr is None else gr for n, p, gr in zip(names, leaves, grads)}
+
+
+def _valid_tiles_forward(model, inputs):
+    logits, vf, _, hidden = model(**inputs, return_hidden=True)
+    return logits, vf, hidden
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_valid_tiles_match_the_all_tiles_form(flax_params, batch, attn_impl):
+    tv = batch["tile_valid"]
+    assert 0 < tv.sum() < tv.size  # the batch has padded tiles
+    inputs = _inputs(batch)
+    model = _port_model(flax_params, attn_impl).train()
+    got = _valid_tiles_forward(model, inputs)
+    want = _all_tiles_forward(model, **inputs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), atol=1e-5, rtol=1e-5)
+    g_got, g_want = _loss_and_grads(model, got), _loss_and_grads(model, want)
+    assert any(g.abs().sum() > 0 for n, g in g_got.items() if n.startswith("vision_tower.post_layernorm"))
+    for n in g_want:
+        np.testing.assert_allclose(g_got[n].numpy(), g_want[n].numpy(), atol=1e-5, rtol=1e-4, err_msg=n)
+
+
+def test_nan_pixels_in_padded_tiles_change_nothing(flax_params, batch):
+    inputs = _inputs(batch)
+    dirty = dict(inputs, pixel_values=inputs["pixel_values"].clone())
+    dirty["pixel_values"][~inputs["tile_valid"]] = float("nan")
+    model = _port_model(flax_params).train()
+    clean_out, dirty_out = _valid_tiles_forward(model, inputs), _valid_tiles_forward(model, dirty)
+    clean_g, dirty_g = _loss_and_grads(model, clean_out), _loss_and_grads(model, dirty_out)
+    for c, d in list(zip(clean_out, dirty_out)) + [(clean_g[n], dirty_g[n]) for n in clean_g]:
+        assert torch.isfinite(d).all()
+        assert torch.equal(c, d)
+
+
+def test_tile_counters_read_valid_and_padded_tiles(flax_params, batch):
+    lo = _lo()
+    model = _port_model(flax_params)
+    lo.reset_tile_counts()
+    with torch.no_grad():
+        model(**_inputs(batch))
+    tv = batch["tile_valid"]
+    assert (lo.tiles_encoded, lo.tiles_skipped) == (int(tv.sum()), int(tv.size - tv.sum()))
+
+
+@pytest.mark.parametrize("layout", ["none", "all_valid"])
+def test_unpadded_layouts_run_the_whole_batch(flax_params, batch, layout, monkeypatch):
+    lo = _lo()
+    inputs = _inputs(batch)
+    inputs["tile_valid"] = None if layout == "none" else torch.ones_like(inputs["tile_valid"])
+    model = _port_model(flax_params)
+    gathers = []
+    real_select = torch.Tensor.index_select
+    monkeypatch.setattr(torch.Tensor, "index_select", lambda *a, **k: gathers.append(1) or real_select(*a, **k))
+    lo.reset_tile_counts()
+    with torch.no_grad():
+        got = _valid_tiles_forward(model, inputs)
+        want = _all_tiles_forward(model, **dict(inputs, tile_valid=torch.ones_like(_t(batch["tile_valid"]))))
+    b, p = inputs["pixel_values"].shape[:2]
+    assert (lo.tiles_encoded, lo.tiles_skipped) == (b * p, 0)
+    assert not gathers
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -35,7 +35,7 @@ from knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_to
 ACCUM = 2
 LR = 1e-3
 MODES = {"kd3": ("double_trouble", 3), "baseline": ("baseline", 0)}
-PHASES = ("student.forward", "teacher.forward", "loss", "backward", "accumulate", "optimizer")
+PHASES = ("student.forward", "teacher.forward", "loss", "backward", "accumulate", "optimizer", "tile_layout")
 # the operators a step runs outside every phase: the views of ``_micro``
 VIEWS = {"aten::select", "aten::as_strided"}
 
@@ -128,7 +128,7 @@ def test_the_step_carries_the_phases_ranges(kind):
     ranges = [e for e in events if e[0].startswith(trace.PREFIX)]
     counts = collections.Counter(e[0] for e in ranges)
     kd = kind != "baseline"
-    want = {"kdss.step": 1, "kdss.optimizer": 1, "kdss.vision": ACCUM * (2 if kd else 1),
+    want = {"kdss.step": 1, "kdss.optimizer": 1, "kdss.tile_layout": 1, "kdss.vision": ACCUM * (2 if kd else 1),
             **{f"kdss.{p}": ACCUM for p in PHASES[:5] if kd or p != "teacher.forward"},
             "kdss.accumulate": ACCUM + 1}  # one a micro-batch, and the mean over A
     assert counts == want
