@@ -15,6 +15,8 @@ Counted is the work the inputs need, with nothing recomputed:
 * the teacher's head over the rows its logits are read at, truncated to the
   student's vocabulary.
 
+A language model's linear and attention work and its attention launches
+come from its architecture's module (``archs/<model_type>.py``).
 ``Sample`` describes one sample: its valid tiles and real tokens.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
+from .. import archs
 from . import kernels
 
 
@@ -45,20 +48,6 @@ def _projector(vc: dict, tc: dict) -> float:
     return 2.0 * t * (vc["hidden_size"] * tc["hidden_size"] + tc["hidden_size"] ** 2)
 
 
-def head_dim(tc: dict) -> int:
-    return tc.get("head_dim") or tc["hidden_size"] // tc["num_attention_heads"]
-
-
-def _lm(tc: dict, rows: int, valid: int) -> Tuple[float, float]:
-    """(linear, attention) forward operations of ``rows`` rows over a
-    causal mask with ``valid`` valid keys."""
-    d, i, hd = tc["hidden_size"], tc["intermediate_size"], head_dim(tc)
-    hq, hkv, layers = tc["num_attention_heads"], tc["num_key_value_heads"], tc["num_hidden_layers"]
-    per_token = 2.0 * d * (hq * hd + 2 * hkv * hd) + 2.0 * hq * hd * d + 3 * 2.0 * d * i
-    pairs = kernels.attended_pairs(rows, [valid], causal=True)
-    return layers * rows * per_token, layers * 4.0 * pairs * hq * hd
-
-
 def lm_rows(job: dict, seq_bucket: int, tokens: int) -> Tuple[int, int]:
     """(rows the language models run over, rows the head is read at)."""
     if job["objective"] == "baseline":
@@ -75,7 +64,7 @@ def sample_flops(config: dict, job: dict, seq_bucket: int, s: Sample) -> Dict[st
     patch, lin, attn, _ = _vision(vc)
     out = {"student_vision": s.tiles * (2 * patch + 3 * lin + 3 * attn),
            "student_projector": s.tiles * 3 * _projector(vc, tc)}
-    lm_lin, lm_attn = _lm(tc, rows, s.tokens)
+    lm_lin, lm_attn = archs.of(tc).lm_flops(tc, rows, s.tokens)
     head = 2.0 * head_rows * tc["hidden_size"] * tc["vocab_size"]
     if lm_frozen:  # activation gradients only, down to the image features
         out["student_lm"] = 2 * lm_lin + 3 * lm_attn
@@ -86,7 +75,7 @@ def sample_flops(config: dict, job: dict, seq_bucket: int, s: Sample) -> Dict[st
     if job["objective"] != "baseline":
         tvc, ttc = te["vision_config"], te["text_config"]
         patch, lin, attn, _ = _vision(tvc)
-        t_lin, t_attn = _lm(ttc, rows, s.tokens)
+        t_lin, t_attn = archs.of(ttc).lm_flops(ttc, rows, s.tokens)
         out["teacher_vision"] = s.tiles * (patch + lin + attn)
         out["teacher_projector"] = s.tiles * _projector(tvc, ttc)
         out["teacher_lm"] = t_lin + t_attn
@@ -117,17 +106,12 @@ def micro_batch_launches(config: dict, job: dict, seq_bucket: int,
     k1 = kernels.flash_fwd([(t, t, t)] * tiles, hv, hv, dv, causal=False, masked=False, lse=True)
     k2 = kernels.flash_bwd([(t, t, t)] * tiles, hv, hv, dv, causal=False, masked=False)
     lm = [(r, r, k) for r, k in zip(rows, keys)]
-    hq, hkv, hd, ll = tc["num_attention_heads"], tc["num_key_value_heads"], head_dim(tc), tc["num_hidden_layers"]
-    k3 = kernels.flash_fwd(lm, hq, hkv, hd, causal=True, masked=True, lse=True)
-    k4 = kernels.flash_bwd(lm, hq, hkv, hd, causal=True, masked=True)
-    flash = [("K1", *k1, lv), ("K2", *k2, lv), ("K3 d64", *k3, ll), ("K4", *k4, ll)]
+    flash = [("K1", *k1, lv), ("K2", *k2, lv)] + archs.of(tc).lm_launches(tc, lm, True)
     if kd:
         ttc = te["text_config"]
         k1t = kernels.flash_fwd([(t, t, t)] * tiles, hv, hv, dv, causal=False, masked=False, lse=False)
-        k3t = kernels.flash_fwd(lm, ttc["num_attention_heads"], ttc["num_key_value_heads"], head_dim(ttc),
-                                causal=True, masked=True, lse=False)
-        flash += [("K1 teacher", *k1t, te["vision_config"]["num_hidden_layers"]),
-                  ("K3 d128", *k3t, ttc["num_hidden_layers"])]
+        flash += [("K1 teacher", *k1t, te["vision_config"]["num_hidden_layers"])]
+        flash += archs.of(ttc).lm_launches(ttc, lm, False)
     n = sum(h for _, h in per)
     d, v = tc["hidden_size"], tc["vocab_size"]
     out = {"flash": flash}

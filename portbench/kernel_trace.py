@@ -3,7 +3,9 @@ of kernel intervals, the idle gaps and what the host ran in them.
 
 ``GROUPS`` is a frozen copy of ``scripts/profile_torch_kd_step.py``'s
 table (kernel-name substrings, the first match wins), kept here so that a
-change to the program cannot regroup its own kernels.
+change to the program cannot regroup its own kernels; ``table`` adds the
+groups of the cell's own language models, and a trace is read by the table
+it carries.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import bisect
 import collections
 import functools
 from typing import Dict, List, NamedTuple, Tuple
+
+from portbench import archs
 
 GROUPS = (
     ("flash forward D=128 (teacher K3)", ("kdss_gqa90::fwd_kernel<128", "flash_fwd_kernel<128")),
@@ -31,13 +35,33 @@ GROUPS = (
     ("AdamW (foreach)", ("multi_tensor_apply",)),
 )
 OTHER = "other (elementwise, casts, norms, reductions, copies)"
-FLASH = tuple(g for g, _ in GROUPS if g.startswith("flash"))
+CUBLAS = "GEMMs (cuBLAS)"
 PORT_KERNEL_MARK = "kdss"
 
 
+def table(config: dict) -> tuple:
+    """``GROUPS`` with the groups of ``config``'s language models
+    (``archs/<model_type>.py``'s ``GROUPS``) after the port's and before
+    cuBLAS's, which would otherwise take any kernel whose name holds
+    "gemm".  Only the cell's own models are read, so a file that another
+    configuration adds regroups nothing here."""
+    own = []
+    for stream in ("student", "teacher"):
+        if config.get(stream):
+            for g in archs.of(config[stream]["text_config"]).GROUPS:
+                if g not in own:
+                    own.append(g)
+    i = [g for g, _ in GROUPS].index(CUBLAS)
+    return GROUPS[:i] + tuple(own) + GROUPS[i:]
+
+
+def flash_groups(groups: tuple) -> tuple:
+    return tuple(g for g, _ in groups if g.startswith("flash"))
+
+
 @functools.lru_cache(maxsize=None)
-def group_of(name: str) -> str:
-    for group, keys in GROUPS:
+def group_of(name: str, groups: tuple = GROUPS) -> str:
+    for group, keys in groups:
         if any(k in name for k in keys):
             return group
     return OTHER
@@ -51,19 +75,21 @@ class Event(NamedTuple):
 
 class StepTrace(NamedTuple):
     """One profiled step: its span on the host's clock (the ``portbench.step``
-    annotation), the device kernels and the host's operators, in us."""
+    annotation), the device kernels and the host's operators, in us, and
+    the kernel groups it is read by."""
 
     span: Tuple[float, float]
     kernels: List[Event]
     host: List[Event]
+    groups: tuple = GROUPS
 
 
 STEP_ANNOTATION = "portbench.step"
 
 
-def from_profiler(prof) -> StepTrace:
+def from_profiler(prof, groups: tuple = GROUPS) -> StepTrace:
     """The trace of a ``torch.profiler.profile`` around one annotated step,
-    read from the profiler's raw events."""
+    read from the profiler's raw events, to be read by ``groups``."""
     import torch
 
     raw = prof.profiler.kineto_results.events()
@@ -82,13 +108,13 @@ def from_profiler(prof) -> StepTrace:
     if span is None:
         raise ValueError(f"no {STEP_ANNOTATION!r} range in the trace")
     kernels = [k for k in kernels if k.end_us > span[0] and k.start_us < span[1]]
-    return StepTrace(span, kernels, host)
+    return StepTrace(span, kernels, host, groups)
 
 
 def ms_by_group(trace: StepTrace) -> Dict[str, float]:
     out: Dict[str, float] = collections.Counter()
     for k in trace.kernels:
-        out[group_of(k.name)] += (k.end_us - k.start_us) / 1e3
+        out[group_of(k.name, trace.groups)] += (k.end_us - k.start_us) / 1e3
     return dict(out)
 
 
@@ -159,12 +185,13 @@ def top_kernels(trace: StepTrace, top: int = 10) -> List[Tuple[str, float]]:
 
 def stray_port_kernels(trace: StepTrace) -> List[str]:
     """Names of the port's own kernels that fall into the "other" group."""
-    return sorted({k.name[:120] for k in trace.kernels if PORT_KERNEL_MARK in k.name and group_of(k.name) == OTHER})
+    return sorted({k.name[:120] for k in trace.kernels
+                   if PORT_KERNEL_MARK in k.name and group_of(k.name, trace.groups) == OTHER})
 
 
 def top_other(trace: StepTrace, top: int = 8) -> List[Tuple[str, float]]:
     out: Dict[str, float] = collections.Counter()
     for k in trace.kernels:
-        if group_of(k.name) == OTHER:
+        if group_of(k.name, trace.groups) == OTHER:
             out[k.name[:100]] += (k.end_us - k.start_us) / 1e3
     return sorted(out.items(), key=lambda kv: -kv[1])[:top]

@@ -6,9 +6,9 @@ from portbench import kernel_trace
 from portbench.counts import roofline
 
 UNIT, LAYER, MOVES = "%", "kernels (ops/, csrc/)", "train_samples_per_s"
-GROUPS = kernel_trace.FLASH
 
 
 def read(ctx):
     least = roofline.least_ms(ctx.config, ctx.job, ctx.seq_bucket, ctx.micro_batches, "flash", ctx.launches)
-    return roofline.share_pct(least, sum(ctx.groups.get(g, 0.0) for g in GROUPS))
+    flash = kernel_trace.flash_groups(ctx.trace.groups)
+    return roofline.share_pct(least, sum(ctx.groups.get(g, 0.0) for g in flash))

@@ -1,4 +1,4 @@
-"""Device ms of the student's forward (SigLIP, projector, pack, Qwen2; the
+"""Device ms of the student's forward (SigLIP, projector, pack, language model; the
 program's ``kdss.student.forward`` ranges, ``spans.py``) in the profiled
 step, per sample."""
 

@@ -3,7 +3,9 @@
 Plain PyTorch, written from the published architectures and losses, with
 no kernel, cache or batching trick of the port: ``anyres`` (the HF LLaVA
 OneVision image geometry), ``llava_onevision`` (SigLIP, the projector, the
-anyres pack, Qwen2, the losses and AdamW).  Nothing here imports JAX or the
-port, and nothing takes a tensor the port made: the weights and inputs come
-from ``portbench/weights.py`` and ``portbench/traffic.py``, from the seed.
+anyres pack, the losses and AdamW), ``lm/<model_type>.py`` (each language
+model: ``lm/qwen2.py``) and ``layers`` (the operations they share).
+Nothing here imports JAX or the port, and nothing takes a tensor the port
+made: the weights and inputs come from ``portbench/weights.py`` and
+``portbench/traffic.py``, from the seed.
 """

@@ -2,10 +2,11 @@
 ``correct``.
 
 Written from the published architectures (HF transformers'
-``SiglipVisionModel``, ``LlavaOnevisionModel.pack_image_features``,
-``Qwen2Model``) and the project's losses (masked CE; LoCa, paper-correct,
-and the temperature KL over every row, times T^2; NT-Xent over the valid
-tiles' pooled post-layernorm features) and AdamW (decoupled weight decay,
+``SiglipVisionModel``, ``LlavaOnevisionModel.pack_image_features``; the
+language model that the ``text_config``'s ``model_type`` names runs from
+``lm/<model_type>.py``) and the project's losses (masked CE; LoCa,
+paper-correct, and the temperature KL over every row, times T^2; NT-Xent
+over the valid tiles' pooled post-layernorm features) and AdamW (decoupled weight decay,
 bias-corrected moments).  Every product runs in float32 with TF32 off, on weights stored as
 the configuration stores them (float32 masters, read rounded to its bf16);
 ``precision="fp8"`` rounds both operands of every linear product and of
@@ -29,9 +30,9 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from . import anyres
+from . import anyres, lm
+from .layers import Weights, attention, checkpointed, linear
 
 IGNORE = -100
 ROW_BLOCK = 512
@@ -42,45 +43,6 @@ def set_float32_exact() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-
-
-class Weights:
-    """Named parameters: float32 leaves that train, and frozen tensors in
-    any dtype, widened to float32 where they are read."""
-
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
-        self.t = tensors
-
-    def __call__(self, name: str) -> torch.Tensor:
-        x = self.t[name]
-        return x if x.dtype == torch.float32 else x.float()
-
-
-def _fp8(x: torch.Tensor) -> torch.Tensor:
-    scale = x.detach().abs().amax().clamp(min=1e-30) / 448.0
-    q = (x.detach() / scale).to(torch.float8_e4m3fn).float() * scale
-    return x + (q - x.detach())
-
-
-def linear(x, w, b=None, precision="float32"):
-    if precision == "fp8":
-        x, w = _fp8(x), _fp8(w)
-    y = x @ w.T
-    return y if b is None else y + b
-
-
-def _attention(q, k, v, allowed: Optional[torch.Tensor]):
-    """q [H, S, d], k, v [Hkv, S, d] (heads grouped as HF's repeat_kv)."""
-    rep = q.shape[0] // k.shape[0]
-    k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
-    scores = (q @ k.transpose(1, 2)) * q.shape[-1] ** -0.5
-    if allowed is not None:
-        scores = scores.masked_fill(~allowed, float("-inf"))
-    return torch.softmax(scores, dim=-1) @ v
-
-
-def _run(fn, *args, ckpt: bool):
-    return checkpoint(fn, *args, use_reentrant=False) if ckpt else fn(*args)
 
 
 # --- SigLIP -----------------------------------------------------------------
@@ -106,13 +68,13 @@ def siglip(W: Weights, vc: dict, pixels: torch.Tensor, precision: str, ckpt: boo
         h = F.layer_norm(x, (d,), W(f"{pre}.layer_norm1.weight"), W(f"{pre}.layer_norm1.bias"), eps)
         q, k, v = (lin(h, f"self_attn.{m}").view(n, -1, heads, d // heads).transpose(1, 2)
                    for m in ("q_proj", "k_proj", "v_proj"))
-        att = torch.stack([_attention(q[j], k[j], v[j], None) for j in range(n)])
+        att = torch.stack([attention(q[j], k[j], v[j], None) for j in range(n)])
         x = x + lin(att.transpose(1, 2).reshape(n, -1, d), "self_attn.out_proj")
         h = F.layer_norm(x, (d,), W(f"{pre}.layer_norm2.weight"), W(f"{pre}.layer_norm2.bias"), eps)
         return x + lin(F.gelu(lin(h, "mlp.fc1"), approximate="tanh"), "mlp.fc2")
 
     for i in range(vc["num_hidden_layers"]):
-        x = _run(layer, x, i, ckpt=ckpt)
+        x = checkpointed(layer, x, i, ckpt=ckpt)
     post = F.layer_norm(x, (d,), W("vision_tower.post_layernorm.weight"), W("vision_tower.post_layernorm.bias"), eps)
     return x, post
 
@@ -142,58 +104,6 @@ def pack(model: dict, features: torch.Tensor, newline: torch.Tensor, size) -> to
     return torch.cat([base, grid.flatten(1, 2).transpose(0, 1)], dim=0)
 
 
-# --- Qwen2 ------------------------------------------------------------------
-
-def _rope(s: int, hd: int, theta: float, device):
-    inv = 1.0 / theta ** (torch.arange(0, hd, 2, device=device, dtype=torch.float32) / hd)
-    f = torch.arange(s, device=device, dtype=torch.float32)[:, None] * inv[None]
-    emb = torch.cat([f, f], dim=-1)
-    return emb.cos(), emb.sin()
-
-
-def _rotate(x, cos, sin):
-    h = x.shape[-1] // 2
-    return x * cos + torch.cat([-x[..., h:], x[..., :h]], dim=-1) * sin
-
-
-def rms_norm(x, w, eps):
-    return w * (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps))
-
-
-def qwen2(W: Weights, tc: dict, x: torch.Tensor, valid: torch.Tensor, precision: str, ckpt: bool):
-    """x [B, S, D] input embeddings, valid [B, S] the real tokens (right
-    padded) -> the final-norm hidden states [B, S, D].  Causal attention
-    over the valid keys."""
-    b, s, d = x.shape
-    hd = tc.get("head_dim") or d // tc["num_attention_heads"]
-    hq, hkv, eps = tc["num_attention_heads"], tc["num_key_value_heads"], tc["rms_norm_eps"]
-    cos, sin = _rope(s, hd, tc["rope_theta"], x.device)
-    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-    allowed = [causal & valid[j][None, :] for j in range(b)]
-
-    def layer(x, i):
-        pre = f"language_model.layers.{i}"
-        h = rms_norm(x, W(f"{pre}.input_layernorm.weight"), eps)
-
-        def proj(name, heads):
-            y = linear(h, W(f"{pre}.self_attn.{name}.weight"), W(f"{pre}.self_attn.{name}.bias"), precision)
-            return y.view(b, s, heads, hd).transpose(1, 2)
-
-        q, k, v = proj("q_proj", hq), proj("k_proj", hkv), proj("v_proj", hkv)
-        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
-        att = torch.stack([_attention(q[j], k[j], v[j], allowed[j]) for j in range(b)])
-        x = x + linear(att.transpose(1, 2).reshape(b, s, hq * hd), W(f"{pre}.self_attn.o_proj.weight"),
-                       None, precision)
-        h = rms_norm(x, W(f"{pre}.post_attention_layernorm.weight"), eps)
-        gate = linear(h, W(f"{pre}.mlp.gate_proj.weight"), None, precision)
-        up = linear(h, W(f"{pre}.mlp.up_proj.weight"), None, precision)
-        return x + linear(F.silu(gate) * up, W(f"{pre}.mlp.down_proj.weight"), None, precision)
-
-    for i in range(tc["num_hidden_layers"]):
-        x = _run(layer, x, i, ckpt=ckpt)
-    return rms_norm(x, W("language_model.norm.weight"), eps)
-
-
 def forward(W: Weights, model: dict, ids, valid, pixels, frames, tiles, precision: str, ckpt: bool):
     """One stream of one micro-batch: ids, valid [B, S], pixels [B, P, H,
     W, 3], frames [B] (height, width), tiles [B] valid tiles -> (hidden [B,
@@ -212,7 +122,7 @@ def forward(W: Weights, model: dict, ids, valid, pixels, frames, tiles, precisio
         if where.numel() != packed.shape[0]:
             raise ValueError(f"{where.numel()} image tokens for {packed.shape[0]} packed features")
         rows.append(emb[j].index_put((where,), packed))
-    hidden = qwen2(W, tc, torch.stack(rows), valid, precision, ckpt)
+    hidden = lm.of(tc).forward(W, tc, torch.stack(rows), valid, precision, ckpt)
     return hidden, post.mean(dim=1)
 
 
@@ -261,7 +171,7 @@ def vocab_sums(h, head, t, lab, lab_ce, terms, temperature=1.0, alpha=0.0, preci
     total = None
     for i in range(0, h.shape[0], ROW_BLOCK):
         sl = slice(i, i + ROW_BLOCK)
-        part = _run(_vocab_block, h[sl], head, None if t is None else t[sl], lab[sl], lab_ce[sl], terms,
+        part = checkpointed(_vocab_block, h[sl], head, None if t is None else t[sl], lab[sl], lab_ce[sl], terms,
                     temperature, alpha, precision, ckpt=ckpt)
         total = part if total is None else total + part
     return total

@@ -68,6 +68,20 @@ def load(kind: str, name: str, data: Path = HERE) -> dict:
     return json.loads(path.read_text())
 
 
+def check_language_models(config: dict) -> None:
+    """Stops the run unless each model's ``text_config`` names, by its
+    ``model_type``, a language model with both of its files:
+    ``archs/<model_type>.py`` and ``reference/lm/<model_type>.py``."""
+    from portbench import archs
+    from portbench.reference import lm
+
+    for stream in ("student", "teacher"):
+        if config.get(stream):
+            tc = config[stream]["text_config"]
+            archs.find(tc)
+            lm.find(tc)
+
+
 def jax_modules() -> List[str]:
     return sorted({m.split(".", 1)[0] for m in list(sys.modules)} & JAX_NAMES)
 
@@ -163,15 +177,9 @@ def first_steps(sut, config: dict, tr, steps: int, seed: int, device) -> dict:
 
 def metric_modules(directory: Path = HERE / "metrics"):
     """(name, module) of every per-layer metric file in ``directory``."""
-    import importlib.util
+    from portbench import loader
 
-    for path in sorted(directory.glob("*.py")):
-        if path.name.startswith("_"):
-            continue
-        spec = importlib.util.spec_from_file_location(f"portbench_metric_{path.stem}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        yield path.stem, mod
+    return loader.modules(directory)
 
 
 def main(argv=None, data: Path = HERE, device=None) -> int:
@@ -185,6 +193,7 @@ def main(argv=None, data: Path = HERE, device=None) -> int:
     args = p.parse_args(argv)
     cell = load("workloads", args.workload, data)
     config, job = load("configs", cell["config"], data), load("traffic", cell["traffic"], data)
+    check_language_models(config)
     cache_dirs()
 
     import torch
@@ -221,7 +230,7 @@ def main(argv=None, data: Path = HERE, device=None) -> int:
     log(f"[setup] {setup_s:.3f} s; check steps' losses {prog['loss']}")
 
     # 2. the window
-    k, steps, samples, failed, flops, ends = check_steps, 0, 0, 0, 0.0, []
+    k, steps, samples, failed, taken, ends = check_steps, 0, 0, 0, [], []
     t_start = time.perf_counter()
     while True:
         inputs = tr.make(k, device)
@@ -230,10 +239,12 @@ def main(argv=None, data: Path = HERE, device=None) -> int:
         n = tr.samples_per_step
         steps, samples, k = steps + 1, samples + n, k + 1
         failed += 0 if math.isfinite(loss) else n
-        flops += counts.step_flops(config, job, seq_bucket, [s for row in inputs.samples for s in row])
+        taken.append(inputs.samples)
         elapsed = time.perf_counter() - t_start
         if elapsed >= args.seconds:
             break
+    # the window's operations, counted once it has closed
+    flops = sum(counts.step_flops(config, job, seq_bucket, [s for row in rows for s in row]) for rows in taken)
     window = {"steps": steps, "samples": samples, "seconds": elapsed, "flops": flops}
     log(f"[window] {steps} steps, {samples} samples in {elapsed:.3f} s; steps end at {ends}")
 
@@ -251,7 +262,7 @@ def main(argv=None, data: Path = HERE, device=None) -> int:
                     torch.cuda.synchronize()
         launches = {n: c - before[n] for n, c in sut.counters().items()}
         t_read = time.perf_counter()
-        trace = kernel_trace.from_profiler(prof)
+        trace = kernel_trace.from_profiler(prof, kernel_trace.table(config))
         del prof
         ctx = TraceContext(config, job, seq_bucket, trace, inputs.samples, launches, window, tr.samples_per_step)
         for name, mod in metric_modules():

@@ -45,7 +45,7 @@ def _sums(trace: kernel_trace.StepTrace) -> Dict[Tuple[Tuple[str, ...], str], fl
     if _last[0] is not trace:
         out: Dict[Tuple[Tuple[str, ...], str], float] = collections.Counter()
         for k, names in chains(trace):
-            out[names, kernel_trace.group_of(k.name)] += (k.end_us - k.start_us) / 1e3
+            out[names, kernel_trace.group_of(k.name, trace.groups)] += (k.end_us - k.start_us) / 1e3
         _last[:] = [trace, dict(out)]
     return _last[1]
 

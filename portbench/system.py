@@ -18,23 +18,27 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib
 from typing import Callable, Dict
 
 import numpy as np
 import torch
 
-from . import weights as seeded
+from . import archs, weights as seeded
 
 PORT = "knowledge_distillation_for_sensory_substitution_in_multimodal_models_tpu_torch"
 
 
+def port_module(name: str):
+    """The port's module ``name`` (``"configs"``, ``"ops.flash_attention"``)."""
+    return importlib.import_module(f"{PORT}.{name}")
+
+
 @functools.lru_cache(maxsize=None)
 def _port():
-    import importlib
-
     names = ("configs", "data.anyres", "models.llava_onevision", "train.optimizer", "train.step",
              "ops.flash_attention", "ops.fused_ce", "ops.fused_kl", "ops.fused_loca")
-    return {n: importlib.import_module(f"{PORT}.{n}") for n in names}
+    return {n: port_module(n) for n in names}
 
 
 def port_config(model: dict, max_tiles: int):
@@ -45,12 +49,7 @@ def port_config(model: dict, max_tiles: int):
         hidden_size=vc["hidden_size"], intermediate_size=vc["intermediate_size"],
         num_hidden_layers=vc["num_hidden_layers"], num_attention_heads=vc["num_attention_heads"],
         image_size=vc["image_size"], patch_size=vc["patch_size"], layer_norm_eps=vc["layer_norm_eps"])
-    text = c.Qwen2Config(
-        vocab_size=tc["vocab_size"], hidden_size=tc["hidden_size"], intermediate_size=tc["intermediate_size"],
-        num_hidden_layers=tc["num_hidden_layers"], num_attention_heads=tc["num_attention_heads"],
-        num_key_value_heads=tc["num_key_value_heads"], head_dim=seeded.head_dim(tc),
-        rms_norm_eps=tc["rms_norm_eps"], rope_theta=tc["rope_theta"],
-        tie_word_embeddings=tc["tie_word_embeddings"])
+    text = archs.of(tc).port_text_config(port_module, tc)
     return c.LlavaOnevisionConfig(
         vision=vision, text=text, image_token_id=model["image_token_index"], pad_token_id=model["pad_token_id"],
         eos_token_id=model["pad_token_id"], image_grid_pinpoints=tuple(map(tuple, model["image_grid_pinpoints"])),
@@ -66,9 +65,13 @@ class System:
         _port()
 
     def __init__(self, config: dict, job: dict, seed: int, device, attn_impl: str = "flash"):
+        if config.get("remat") != "none":
+            raise ValueError(f"remat {config.get('remat')!r}: the harness builds the port without remat, "
+                             "so a configuration may only state \"none\"")
         p = _port()
         self.p, self.job, self.device = p, job, device
         dtype = getattr(torch, config["dtype"])
+        self.text_configs = [config[s]["text_config"] for s in ("student", "teacher") if config.get(s)]
         self.cfg = port_config(config["student"], config["max_tiles"])
         self.student = self._build(self.cfg, config, "student", seed, device, dtype, attn_impl, trainable=True)
         self.teacher = None
@@ -188,6 +191,8 @@ class System:
                "ce_fwd": fc.lse_gold_fwd.launches, "ce_bwd": fc.lse_gold_bwd.launches,
                "kl_fwd": fk.kl_fwd.launches, "kl_bwd": fk.kl_bwd.launches, "kl_bwd_dw": fk.kl_bwd.dw_launches,
                "loca_ce_fwd": fl.loca_ce_fwd.launches, "loca_ce_bwd": fl.loca_ce_bwd.launches}
+        for tc in self.text_configs:
+            out.update(archs.of(tc).counters(port_module))
         return out
 
     def free(self) -> None:

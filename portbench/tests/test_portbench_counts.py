@@ -64,8 +64,8 @@ def test_vocab_kernels_bytes_by_hand():
 
 TINY = {"vision_config": {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 1,
                           "num_attention_heads": 2, "image_size": 4, "patch_size": 2},
-        "text_config": {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2,
-                        "num_key_value_heads": 1, "vocab_size": 10}}
+        "text_config": {"model_type": "qwen2", "hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 1,
+                        "num_attention_heads": 2, "num_key_value_heads": 1, "vocab_size": 10}}
 
 
 def test_step_flops_by_hand():

@@ -42,16 +42,20 @@ def test_the_guard_compares_whole_names():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for path in (ROOT / "portbench" / "reference").glob("*.py"):
+    """Beside torch and a few modules of the standard library, the
+    reference imports only its own modules and the harness's loader."""
+    for path in (ROOT / "portbench" / "reference").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
+                names = [f"{node.module}.{a.name}" for a in node.names]
             for n in names:
-                assert n.split(".")[0] in {"torch", "math", "typing", "__future__"}, (path.name, n)
-    code = ("import sys\nfrom portbench.reference import llava_onevision, anyres\n"
+                assert (n.split(".")[0] in {"torch", "math", "typing", "__future__", "pathlib"}
+                        or n.startswith("portbench.reference.") or n == "portbench.loader"), (path.name, n)
+    code = ("import sys\nfrom portbench.reference import llava_onevision, anyres, lm\n"
+            "lm.of({'model_type': 'qwen2'})\n"
             f"assert not any(m.split('.')[0] == {PORT!r} for m in sys.modules)\nprint('ok')\n")
     assert _fresh(code).strip() == "ok"
 

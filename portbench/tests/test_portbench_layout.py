@@ -29,6 +29,11 @@ def test_benchmark_cells_are_the_workload_files():
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
         assert (HERE / "reference" / f"{cfg['reference']}.py").is_file()
+        for stream in ("student", "teacher"):
+            if cfg.get(stream):
+                model_type = cfg[stream]["text_config"]["model_type"]
+                assert (HERE / "archs" / f"{model_type}.py").is_file(), (c["name"], stream)
+                assert (HERE / "reference" / "lm" / f"{model_type}.py").is_file(), (c["name"], stream)
 
 
 def test_every_per_layer_metric_has_a_reader_that_declares_it():

@@ -101,16 +101,16 @@ def test_no_reading_without_the_programs_ranges():
 def test_a_traced_run_on_the_cpu_carries_the_ranges(monkeypatch):
     traces, read = [], kernel_trace.from_profiler
 
-    def keep(prof):
-        traces.append(read(prof))
+    def keep(prof, *args):
+        traces.append(read(prof, *args))
         return traces[-1]
 
     monkeypatch.setattr(kernel_trace, "from_profiler", keep)
     rc, result, err = run_cell("tiny-kd3", trace=1)
     assert rc == 0, err[-3000:]
     names = {e.name for e in traces[0].host if e.name.startswith(spans.PREFIX)}
-    assert names == {"kdss.step", "kdss.student.forward", "kdss.vision", "kdss.teacher.forward", "kdss.loss",
-                     "kdss.backward", "kdss.accumulate", "kdss.optimizer"}
+    assert names == {"kdss.step", "kdss.tile_layout", "kdss.student.forward", "kdss.vision", "kdss.teacher.forward",
+                     "kdss.loss", "kdss.backward", "kdss.accumulate", "kdss.optimizer"}
     assert not READERS & set(result["metrics"])  # no kernels on the CPU
 
 

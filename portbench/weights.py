@@ -4,7 +4,9 @@
 HF name (the port's names too), with its shape and how it is drawn:
 linear and conv kernels normal with std fan_in^-0.5, token and position
 embeddings std 0.02, the image newline std hidden^-0.5, biases 0 and norm
-scales 1.  ``generate`` draws the normal leaves from one
+scales 1; the language model's leaves come from its architecture's module
+(``archs/<model_type>.py``), built with ``linear`` and ``norm``.
+``generate`` draws the normal leaves from one
 ``torch.Generator`` in a few large calls (groups of about 2^28 values, in
 the served dtype) and hands each leaf to ``sink(name, tensor)``; the
 tensor is a temporary that the sink copies or keeps.  The same seed and
@@ -19,24 +21,22 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
+from . import archs
+
 Leaf = Tuple[str, Tuple[int, ...], str, float]  # name, shape, "normal" | "zeros" | "ones", std
 
 GROUP_ELEMENTS = 1 << 28
 STREAMS = {"student": 0, "teacher": 1}
 
 
-def _linear(name: str, out: int, inp: int, bias: bool) -> List[Leaf]:
+def linear(name: str, out: int, inp: int, bias: bool) -> List[Leaf]:
     leaves = [(f"{name}.weight", (out, inp), "normal", inp**-0.5)]
     return leaves + ([(f"{name}.bias", (out,), "zeros", 0.0)] if bias else [])
 
 
-def _norm(name: str, dim: int, bias: bool) -> List[Leaf]:
+def norm(name: str, dim: int, bias: bool) -> List[Leaf]:
     leaves = [(f"{name}.weight", (dim,), "ones", 0.0)]
     return leaves + ([(f"{name}.bias", (dim,), "zeros", 0.0)] if bias else [])
-
-
-def head_dim(tc: dict) -> int:
-    return tc.get("head_dim") or tc["hidden_size"] // tc["num_attention_heads"]
 
 
 def leaves(model: dict) -> List[Leaf]:
@@ -51,33 +51,18 @@ def leaves(model: dict) -> List[Leaf]:
     ]
     for i in range(vc["num_hidden_layers"]):
         v = f"vision_tower.layers.{i}"
-        out += _norm(f"{v}.layer_norm1", dv, True)
+        out += norm(f"{v}.layer_norm1", dv, True)
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            out += _linear(f"{v}.self_attn.{proj}", dv, dv, True)
-        out += _norm(f"{v}.layer_norm2", dv, True)
-        out += _linear(f"{v}.mlp.fc1", vc["intermediate_size"], dv, True)
-        out += _linear(f"{v}.mlp.fc2", dv, vc["intermediate_size"], True)
-    out += _norm("vision_tower.post_layernorm", dv, True)
+            out += linear(f"{v}.self_attn.{proj}", dv, dv, True)
+        out += norm(f"{v}.layer_norm2", dv, True)
+        out += linear(f"{v}.mlp.fc1", vc["intermediate_size"], dv, True)
+        out += linear(f"{v}.mlp.fc2", dv, vc["intermediate_size"], True)
+    out += norm("vision_tower.post_layernorm", dv, True)
     bias = model["multimodal_projector_bias"]
-    out += _linear("multi_modal_projector.linear_1", dt, dv, bias)
-    out += _linear("multi_modal_projector.linear_2", dt, dt, bias)
+    out += linear("multi_modal_projector.linear_1", dt, dv, bias)
+    out += linear("multi_modal_projector.linear_2", dt, dt, bias)
     out.append(("image_newline", (dt,), "normal", dt**-0.5))
-    out.append(("language_model.embed_tokens.weight", (tc["vocab_size"], dt), "normal", 0.02))
-    hd, hq, hkv = head_dim(tc), tc["num_attention_heads"], tc["num_key_value_heads"]
-    for i in range(tc["num_hidden_layers"]):
-        lm = f"language_model.layers.{i}"
-        out += _norm(f"{lm}.input_layernorm", dt, False)
-        out += _linear(f"{lm}.self_attn.q_proj", hq * hd, dt, True)
-        out += _linear(f"{lm}.self_attn.k_proj", hkv * hd, dt, True)
-        out += _linear(f"{lm}.self_attn.v_proj", hkv * hd, dt, True)
-        out += _linear(f"{lm}.self_attn.o_proj", dt, hq * hd, False)
-        out += _norm(f"{lm}.post_attention_layernorm", dt, False)
-        out += _linear(f"{lm}.mlp.gate_proj", tc["intermediate_size"], dt, False)
-        out += _linear(f"{lm}.mlp.up_proj", tc["intermediate_size"], dt, False)
-        out += _linear(f"{lm}.mlp.down_proj", dt, tc["intermediate_size"], False)
-    out += _norm("language_model.norm", dt, False)
-    if not tc["tie_word_embeddings"]:
-        out += _linear("language_model.lm_head", tc["vocab_size"], dt, False)
+    out += archs.of(tc).leaves(tc)
     return out
 
 
